@@ -1,0 +1,132 @@
+"""Binding of the fused walk kernel (``csrc/walk_fused.cu``).
+
+``pdgraph_walk_fused_kernel`` checks its operands, allocates the outputs,
+launches the CUDA kernel on the current stream and raises if the launch is
+refused.  It replaces the TPU kernel ``pdgraph_walk_fused_kernel`` of
+``repro.kernels.pdgraph_walk.kernel``; what bounds it on the card and how
+its design differs is noted at the top of the CUDA source.  It takes CUDA
+tensors only — the plain PyTorch version lives in ``ops.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+
+NAME = "pdgraph_walk_fused"
+SOURCE = Path(__file__).parent / "csrc" / "walk_fused.cu"
+NB_MAX = 32
+SMEM_MAX = 232448               # bytes of shared memory one block may use
+LAUNCHES.setdefault(NAME, 0)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    fn = lib.pdgraph_walk_fused
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 16 + [_I] * 8 + [_F, _F, _P]
+        fn.restype = ctypes.c_int
+        lib.pdgraph_walk_fused_smem.argtypes = [_I] * 6
+        lib.pdgraph_walk_fused_smem.restype = ctypes.c_size_t
+        lib.pdgraph_walk_error_string.argtypes = [_I]
+        lib.pdgraph_walk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    return t.data_ptr()
+
+
+def pdgraph_walk_fused_kernel(samples: torch.Tensor,     # (G, U, S) f32
+                              counts: torch.Tensor,      # (G, U) f32
+                              cum_trans: torch.Tensor,   # (G, U, U+1) f32
+                              ov_samples: Optional[torch.Tensor],  # (A*U, So)
+                              ov_counts: Optional[torch.Tensor],   # (A*U,) f32
+                              attained: torch.Tensor,    # (A,) f32
+                              start: torch.Tensor,       # (A,) i32
+                              graph_idx: torch.Tensor,   # (A,) i32
+                              streams: torch.Tensor,     # (A,) i32 (uint32 bits)
+                              executed: torch.Tensor,    # (A,) f32
+                              valid: torch.Tensor,       # (A,) u8
+                              *, n_walkers: int, max_steps: int,
+                              n_buckets: int, with_arrivals: bool,
+                              with_total: bool) -> Dict[str, torch.Tensor]:
+    """Launch the fused walk.  Returns ``probs``/``edges`` (A, nb),
+    ``ranks`` (A,), ``arrstats`` (A*U, nb+3) with arrivals, ``rem`` (A, W)
+    raw remaining-service totals with ``with_total``.  Graph and start
+    indices must lie in range (``[0, G)`` and ``[0, U)``)."""
+    dev = samples.device
+    G, U, S = samples.shape
+    A = graph_idx.shape[0]
+    W, nb = int(n_walkers), int(n_buckets)
+    if W < 1 or max_steps < 0:
+        raise ValueError(f"need n_walkers >= 1 and max_steps >= 0, got "
+                         f"{W} / {max_steps}")
+    if not 2 <= nb <= NB_MAX:
+        raise ValueError(f"n_buckets must be in [2, {NB_MAX}], got {nb}")
+    f32, i32 = torch.float32, torch.int32
+    ptrs = [_check(samples, "samples", f32, (G, U, S), dev),
+            _check(counts, "counts", f32, (G, U), dev),
+            _check(cum_trans, "cum_trans", f32, (G, U, U + 1), dev)]
+    with_ov = ov_samples is not None
+    So = 1
+    if with_ov:
+        So = ov_samples.shape[1]
+        ptrs += [_check(ov_samples, "ov_samples", f32, (A * U, So), dev),
+                 _check(ov_counts, "ov_counts", f32, (A * U,), dev)]
+    else:
+        ptrs += [None, None]
+    ptrs += [_check(attained, "attained", f32, (A,), dev),
+             _check(start, "start", i32, (A,), dev),
+             _check(graph_idx, "graph_idx", i32, (A,), dev),
+             _check(streams, "streams", i32, (A,), dev),
+             _check(executed, "executed", f32, (A,), dev),
+             _check(valid, "valid", torch.uint8, (A,), dev)]
+    out = {"probs": torch.empty((A, nb), dtype=f32, device=dev),
+           "edges": torch.empty((A, nb), dtype=f32, device=dev),
+           "ranks": torch.empty((A,), dtype=f32, device=dev)}
+    if with_arrivals:
+        out["arrstats"] = torch.empty((A * U, nb + 3), dtype=f32, device=dev)
+    if with_total:
+        out["rem"] = torch.empty((A, W), dtype=f32, device=dev)
+    if A == 0:
+        return out
+    lib = _lib()
+    smem = lib.pdgraph_walk_fused_smem(W, U, So, nb, int(with_ov),
+                                       int(with_arrivals))
+    if smem > SMEM_MAX:
+        raise ValueError(f"pdgraph_walk_fused needs {smem} B of shared "
+                         f"memory per block (W={W}, U={U}, So={So}); the "
+                         f"card offers {SMEM_MAX}")
+    threads = min(-(-W // 32) * 32, 512)
+    ptrs += [out["probs"].data_ptr(), out["edges"].data_ptr(),
+             out["ranks"].data_ptr(),
+             out["arrstats"].data_ptr() if with_arrivals else None,
+             out["rem"].data_ptr() if with_total else None]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pdgraph_walk_fused(
+            *ptrs, A, W, U, S, So, int(max_steps), nb, threads,
+            float(np.float32(1.0 / W)), float(np.float32(1.0 / nb)), stream)
+    if rc != 0:
+        msg = lib.pdgraph_walk_error_string(rc).decode()
+        raise RuntimeError(f"pdgraph_walk_fused launch failed: {msg} ({rc})")
+    LAUNCHES[NAME] += 1
+    return out

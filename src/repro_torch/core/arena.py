@@ -16,14 +16,17 @@ Device rows (torch tensors on the packed KB's device):
 * ``a_hist`` / ``a_lo`` / ``a_span`` / ``a_reach`` — per-(app, unit)
   arrival histograms (delta mode with prewarming; ``a_att`` is the host
   mirror of attained-at-walk).
+* ``post`` — (cap, U, U+3) conjugate-posterior sufficient-statistic rows
+  (online learning only, :mod:`repro_torch.core.posterior`; never
+  allocated without it).
 
 Host mirrors: ``rank``, the triage scalars ``sup``/``opt``/``mean`` and the
 prewarm rows ``trig``/``reach``.  ``repack()`` rebuilds the arena at the
 smallest fitting capacity at a tick boundary and remaps every row.
 
 Not ported in this slice: shard placement across a mesh (ROADMAP.md,
-modules to port, item 8) and the posterior rows (item 7); the arena is the
-one-shard layout, where device row == slot id.
+modules to port, item 8); the arena is the one-shard layout, where device
+row == slot id.
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ class QueueState:
         self.a_span: Optional[torch.Tensor] = None
         self.a_reach: Optional[torch.Tensor] = None
         self.a_att: Optional[np.ndarray] = None   # (cap,) attained at walk
+        self.post: Optional[torch.Tensor] = None  # (cap, U, U+3) device
 
     def __len__(self) -> int:
         return self.live
@@ -131,7 +135,7 @@ class QueueState:
              "refresh_id", "deadline", "stretch", "ov_samples", "ov_counts",
              "rank", "sup", "opt", "mean")
     _DEVICE_ROWS = ("d_probs", "d_edges", "a_hist", "a_lo", "a_span",
-                    "a_reach")
+                    "a_reach", "post")
 
     def _grow(self) -> None:
         old = self.capacity
@@ -186,6 +190,31 @@ class QueueState:
                                      device=dev)
             self.a_reach = torch.zeros_like(self.a_lo)
             self.a_att = np.zeros(cap, np.float32)
+
+    def ensure_posterior_rows(self) -> None:
+        """Allocate the device posterior rows (online learning only)."""
+        if self.post is None:
+            from repro_torch.core.posterior import row_width
+            U = self.n_units
+            self.post = torch.zeros((self.capacity, U, row_width(U)),
+                                    dtype=torch.float32, device=self.device)
+
+    def update_posterior_rows(self, slots: np.ndarray,
+                              vals: np.ndarray) -> None:
+        """Write freshly folded posterior stats into the slots' device rows:
+        ``vals`` is ``(len(slots), U, U+3)`` float32."""
+        if len(slots) == 0:
+            return
+        self.ensure_posterior_rows()
+        rows = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        self.post[rows] = torch.as_tensor(np.asarray(vals, np.float32),
+                                          device=self.device)
+
+    def posterior_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Read back the device posterior rows of a slot subset."""
+        self.ensure_posterior_rows()
+        rows = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        return self.post[rows].cpu().numpy()
 
     # ------------------------------------------------------------ lifecycle
     def admit(self, app_id: str, graph_idx: int, start: int, key_id: int,

@@ -104,6 +104,24 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(fix, other, r)
 
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order XLA's CPU backend evaluates
+    ``jnp.sum`` there.  A row of at most 32 values sums left to right; a
+    longer one is zero-padded to a multiple of 32 (half the padding in
+    front, the odd element behind), each window of 32 sums left to right,
+    and the window sums are summed the same way in turn."""
+    n = x.shape[-1]
+    if n <= 32:
+        acc = x[..., 0]
+        for k in range(1, n):
+            acc = acc + x[..., k]
+        return acc
+    m = -(-n // 32) * 32
+    lo = (m - n) // 2
+    x = torch.nn.functional.pad(x, (lo, m - n - lo))
+    return row_sum(row_sum(x.reshape(x.shape[:-1] + (m // 32, 32))))
+
+
 def to_histogram_rows(total: torch.Tensor, n_buckets: int = N_BUCKETS
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise ``to_histogram_batch`` in float32 (counterpart of

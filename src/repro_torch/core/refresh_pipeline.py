@@ -1,27 +1,30 @@
 """Device-resident fused refresh pipeline (§3.3 hot path, Fig. 15).
 
-PyTorch counterpart of ``repro.core.refresh_pipeline`` for the default
-configuration (``walker="pallas"``, ``rank_in_kernel=True``):
+PyTorch counterpart of ``repro.core.refresh_pipeline`` for the counter-RNG
+walker (``walker="pallas"``), in its two compositions:
 
-    fused walk kernel (walk → histogram rows → rank → arrival rows)
-        → scatter into the slot arena → rank-in-place → prewarm triggers
+* ``rank_in_kernel=True`` (the default): one fused walk kernel (walk →
+  histogram rows → rank → arrival rows) per dispatch;
+* ``rank_in_kernel=False``: the per-phase walk kernel with compaction
+  between phases (``pdgraph_walk``), then histogram rows, ranks and
+  arrival rows in PyTorch.  Both give the same bits unless a compaction
+  stage spills.
 
-Only small per-app results (ranks, histogram rows, triage scalars, prewarm
-triggers) cross to the host; the ``(A, W)`` walker state never leaves the
-kernel unless the composite policies ask for the raw totals (triage).
+Either way the rows are scattered into the slot arena, every slot is
+re-ranked in place and the prewarm triggers are derived on the device; only
+small per-app results cross to the host.
 
 * :func:`refresh_ranks_fused` — one fused refresh over a slot subset (the
-  first tick and ``mode="fused"``); the kernel's in-kernel ranks are the
-  ranks.
+  first tick and ``mode="fused"``).
 * :func:`refresh_ranks_delta` — the delta tick: walk only the dirty slots,
   scatter their rows into the arena, re-rank every slot in place, and
   re-condition every prewarm trigger on the service attained since its
-  walk.
+  walk.  With ``posterior`` each walked row's posterior row is blended with
+  the prior into its walk tables (:mod:`repro_torch.core.posterior`).
 
-Everything here is plain PyTorch around one kernel call; on a CPU arena the
-kernel call takes its plain version.  Not ported in this slice: the
-``rank_in_kernel=False`` composition (ROADMAP.md, TPU kernel K2), the
-threefry walker (item 9), posterior tables (item 7) and the mesh (item 8).
+On a CPU arena every kernel call takes its plain version.  Not ported in
+this slice: the threefry walker (ROADMAP.md, modules to port, item 9) and
+the mesh (item 8).
 """
 from __future__ import annotations
 
@@ -33,28 +36,23 @@ import torch
 
 from repro_torch.core.arena import QueueState
 from repro_torch.core.gittins import (N_BUCKETS, f32, fma32,
-                                      gittins_rank_core)
+                                      gittins_rank_core, row_sum,
+                                      to_histogram_rows)
 from repro_torch.core.pdgraph import ARRIVAL_NEVER, PackedKB
 from repro_torch.core.policies import HOPELESS_Q, SUP_Q
-from repro_torch.kernels.pdgraph_walk.ops import pdgraph_walk_ranked
+from repro_torch.core.posterior import posterior_tables, prior_mean
+from repro_torch.kernels.pdgraph_walk.ops import (arrival_hists,
+                                                  pdgraph_walk,
+                                                  pdgraph_walk_ranked)
 from repro_torch.kernels.pdgraph_walk.ref import walker_streams
 
 
-def check_slice(walker: str, rank_in_kernel: Optional[bool],
-                posterior=None) -> None:
+def check_slice(walker: str) -> None:
     """Raise for the refresh options this slice of the port leaves out."""
     if walker != "pallas":
         raise NotImplementedError(
             f"walker={walker!r}: the threefry walker is not ported yet "
             "(ROADMAP.md, modules to port, item 9)")
-    if rank_in_kernel is False:
-        raise NotImplementedError(
-            "rank_in_kernel=False needs the per-phase walk kernel, not "
-            "ported yet (ROADMAP.md, TPU kernel K2)")
-    if posterior is not None:
-        raise NotImplementedError(
-            "posterior learning is not ported yet (ROADMAP.md, modules to "
-            "port, item 7)")
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -141,13 +139,11 @@ def _quantile_rows(x_sorted: torch.Tensor, q: float) -> torch.Tensor:
 
 def _triage_stats(total: torch.Tensor):
     """(P_sup, P_hopeless, mean) of each row of TOTAL demand samples; the
-    mean sums left to right and scales by ``1 / W``, as XLA does."""
+    mean sums in XLA's order (:func:`row_sum`) and scales by ``1 / W``, as
+    XLA does."""
     srt = torch.sort(total, dim=1).values
-    acc = total[:, 0]
-    for w in range(1, total.shape[1]):
-        acc = acc + total[:, w]
     return (_quantile_rows(srt, SUP_Q), _quantile_rows(srt, HOPELESS_Q),
-            acc * f32(1.0 / total.shape[1], total))
+            row_sum(total) * f32(1.0 / total.shape[1], total))
 
 
 @dataclass
@@ -201,14 +197,41 @@ def _prewarm_args(packed: PackedKB, prewarm_table):
             torch.as_tensor(prewarm_table.warmup, device=dev))
 
 
-def _walk(packed: PackedKB, rows: _Rows, *, n_walkers, max_steps, n_buckets,
-          with_prewarm, with_triage):
-    return pdgraph_walk_ranked(
+def _walk(packed: PackedKB, rows: _Rows, *, rank_in_kernel, n_walkers,
+          max_steps, n_buckets, with_prewarm, with_triage, with_rank=True,
+          po_cum=None, po_scale=None):
+    """The walk section of every dispatch: queue rows -> the
+    ``pdgraph_walk_ranked`` dict (``probs``, ``edges``, ``ranks``,
+    ``total`` with triage, ``spill`` and the arrival rows with prewarming),
+    from the fused walk or, with ``rank_in_kernel=False``, composed from
+    ``pdgraph_walk`` (the reference's ``_walk_total``) and the PyTorch
+    reductions — the same bits unless a compaction stage spills.  The
+    composition ranks only ``with_rank`` (the delta tick re-ranks every
+    slot in place anyway)."""
+    if rank_in_kernel:
+        return pdgraph_walk_ranked(
+            packed.samples, packed.counts, packed.cum_trans, rows.gi,
+            rows.start, rows.executed, rows.streams, rows.attained, rows.ovs,
+            rows.ovc, valid=rows.valid, n_walkers=n_walkers,
+            max_steps=max_steps, n_buckets=n_buckets,
+            track_arrivals=with_prewarm, with_rank=True,
+            with_total=with_triage, po_cum=po_cum, po_scale=po_scale)
+    out = pdgraph_walk(
         packed.samples, packed.counts, packed.cum_trans, rows.gi, rows.start,
-        rows.executed, rows.streams, rows.attained, rows.ovs, rows.ovc,
-        valid=rows.valid, n_walkers=n_walkers, max_steps=max_steps,
-        n_buckets=n_buckets, track_arrivals=with_prewarm, with_rank=True,
-        with_total=with_triage)
+        rows.executed, rows.streams, rows.ovs, rows.ovc, valid=rows.valid,
+        n_walkers=n_walkers, max_steps=max_steps,
+        track_arrivals=with_prewarm, po_cum=po_cum, po_scale=po_scale)
+    rem, arr, spill = out if with_prewarm else (out[0], None, out[1])
+    total = rows.attained[:, None] + torch.maximum(rem, f32(0.0, rem))
+    probs, edges = to_histogram_rows(total, n_buckets)
+    res = {"probs": probs, "edges": edges,
+           "ranks": (gittins_rank_core(probs, edges, rows.attained)
+                     if with_rank else None),
+           "total": total, "spill": spill}
+    if with_prewarm:
+        res.update(zip(("a_hist", "a_lo", "a_span", "a_reach"),
+                       arrival_hists(arr, n_buckets)))
+    return res
 
 
 def _store_results(qs: QueueState, slots: np.ndarray, n_buckets: int,
@@ -243,8 +266,10 @@ def refresh_ranks_fused(packed: PackedKB, qs: QueueState, seed, *,
 
     Returns host arrays; fresh triage scalars and prewarm trigger/reach
     rows also land in the store's host mirrors.  Does NOT bump refresh
-    ids; callers bump after consuming."""
-    check_slice(walker, rank_in_kernel)
+    ids; callers bump after consuming.  ``rank_in_kernel`` (default on)
+    selects the fused walk; ``False`` composes the per-phase walk with the
+    reductions."""
+    check_slice(walker)
     if slots is None:
         slots = qs.occupied()
     A = len(slots)
@@ -257,7 +282,8 @@ def refresh_ranks_fused(packed: PackedKB, qs: QueueState, seed, *,
         return FusedRefresh(zs, z, z, 0, zt, zt, tri, tri, tri)
     rows = _dispatch_rows(qs, slots, seed)
     with_pw = prewarm_table is not None
-    res = _walk(packed, rows, n_walkers=n_walkers, max_steps=max_steps,
+    res = _walk(packed, rows, rank_in_kernel=rank_in_kernel is not False,
+                n_walkers=n_walkers, max_steps=max_steps,
                 n_buckets=n_buckets, with_prewarm=with_pw,
                 with_triage=with_triage)
     sup = opt = mean = None
@@ -272,7 +298,8 @@ def refresh_ranks_fused(packed: PackedKB, qs: QueueState, seed, *,
             wt, prewarm_k, rows.stretch)
     out = FusedRefresh(
         _host(res["ranks"], A), _host(res["probs"], A),
-        _host(res["edges"], A), 0, _host(trigger, A), _host(reach, A),
+        _host(res["edges"], A), int(res["spill"]), _host(trigger, A),
+        _host(reach, A),
         _host(sup, A), _host(opt, A), _host(mean, A))
     _store_results(qs, slots, n_buckets,
                    prewarm_table.n_classes if with_pw else None,
@@ -300,6 +327,22 @@ def _retrigger_rows(qs: QueueState, walked: np.ndarray):
     return t(qs.graph_idx).long(), t(delta_all), t(qs.stretch)
 
 
+def _posterior_rows(packed: PackedKB, qs: QueueState, walked: np.ndarray,
+                    rows: _Rows, posterior):
+    """Walk tables of the walked slots' posterior rows blended with their
+    graphs' priors; padding rows gather the last slot's row (garbage, never
+    scattered), as the reference clamps its out-of-bounds padding index."""
+    qs.ensure_posterior_rows()
+    idx = np.full(rows.gi.shape[0], qs.capacity - 1, np.int64)
+    idx[:len(walked)] = walked
+    gi = rows.gi.long()
+    return posterior_tables(
+        qs.post[torch.as_tensor(idx, device=qs.device)],
+        packed.cum_trans[gi], prior_mean(packed.samples, packed.counts)[gi],
+        branch_strength=posterior.branch_strength,
+        demand_strength=posterior.demand_strength)
+
+
 def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
                         walked: np.ndarray,
                         n_walkers: int = 512, max_steps: int = 64,
@@ -307,6 +350,7 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
                         prewarm_table=None, prewarm_k: float = 0.5,
                         retrigger: bool = True,
                         with_triage: bool = False,
+                        posterior=None,
                         rank_in_kernel: Optional[bool] = None) -> DeltaTick:
     """One delta tick over the slot store: walk ``walked`` (normally the
     drained dirty set), scatter their histogram rows into the device arena,
@@ -314,9 +358,11 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
     pure rank-in-place — no walk at all.  ``retrigger=True`` (full ticks)
     re-conditions EVERY slot's prewarm triggers on the service attained
     since its walk; ``retrigger=False`` (event-path subset calls) computes
-    walk-time triggers for the walked rows only.  Does NOT bump refresh
-    ids; callers bump ``walked`` after consuming."""
-    check_slice(walker, rank_in_kernel)
+    walk-time triggers for the walked rows only.  ``posterior`` (a
+    :class:`~repro_torch.core.posterior.PosteriorConfig`) blends each walked
+    slot's device posterior row with the prior into its walk tables.  Does
+    NOT bump refresh ids; callers bump ``walked`` after consuming."""
+    check_slice(walker)
     with_pw = prewarm_table is not None
     qs.ensure_result_rows(n_buckets,
                           prewarm_table.n_classes if with_pw else None,
@@ -328,14 +374,22 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
         uc, wt = _prewarm_args(packed, prewarm_table)
     sup = opt = mean = None
     trigger = reach = None
+    spill = 0
     if D:
         rows = _dispatch_rows(qs, walked, seed)
-        res = _walk(packed, rows, n_walkers=n_walkers, max_steps=max_steps,
+        po_cum = po_scale = None
+        if posterior is not None:
+            po_cum, po_scale = _posterior_rows(packed, qs, walked, rows,
+                                               posterior)
+        res = _walk(packed, rows, rank_in_kernel=rank_in_kernel is not False,
+                    n_walkers=n_walkers, max_steps=max_steps,
                     n_buckets=n_buckets, with_prewarm=with_pw,
-                    with_triage=with_triage)
+                    with_triage=with_triage, with_rank=False, po_cum=po_cum,
+                    po_scale=po_scale)
+        spill = res["spill"]
         slot_t = torch.as_tensor(np.asarray(walked, np.int64),
                                  device=qs.device)
-        # the walked rows' in-kernel ranks are superseded by the arena-wide
+        # the walked rows' ranks are superseded by the arena-wide
         # rank-in-place below (same rows, same attained, same bits)
         qs.d_probs[slot_t] = res["probs"][:D]
         qs.d_edges[slot_t] = res["edges"][:D]
@@ -373,4 +427,4 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
         else:
             qs.trig[walked] = _host(trigger, D)
             qs.reach[walked] = _host(reach, D)
-    return DeltaTick(_host(ranks), 0, walked)
+    return DeltaTick(_host(ranks), int(spill), walked)

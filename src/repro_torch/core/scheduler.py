@@ -7,15 +7,16 @@ bucket-period granularity through the device slot arena, performs online
 demand refinement on unit completion, and emits prewarm plans.  Hosts drive
 it through the same ``on_*`` callbacks as the reference.
 
-The arena and the walk kernel live on ``device`` (default ``cuda``; the
+The arena and the walk kernels live on ``device`` (default ``cuda``; the
 caller asks for the CPU explicitly, and construction raises when ``cuda``
 is asked for without a card).  The counter-RNG walker needs only the
-integer ``seed``.
+integer ``seed``.  ``RefreshConfig(rank_in_kernel=False)`` composes the
+per-phase walk with the reductions; ``posterior`` (a ``PosteriorConfig``,
+``fused_delta`` only) learns branch mixes and unit demands online.
 
 Not ported in this slice (construction raises ``NotImplementedError``):
 modes ``looped``/``composed`` and ``walker="threefry"`` (ROADMAP.md,
-modules to port, item 9), ``rank_in_kernel=False`` (TPU kernel K2),
-``mesh_shards`` (item 8) and ``posterior`` (item 7).  Policies that need
+modules to port, item 9) and ``mesh_shards`` (item 8).  Policies that need
 raw host-side demand samples (``srpt_mean``, ``oracle``) go through the
 composed walk and raise when they first refresh.
 """
@@ -32,6 +33,8 @@ from repro_torch.core.arena import build_queue_state
 from repro_torch.core.pdgraph import PDGraph, pack_graphs
 from repro_torch.core.policies import (AppView, GittinsPolicy, Policy,
                                        VTCPolicy, make_policy)
+from repro_torch.core.posterior import (END, Observation, PosteriorConfig,
+                                        PosteriorState, row_width)
 from repro_torch.core.prewarm import (PrewarmPlan, PrewarmSignal,
                                       build_prewarm_table)
 from repro_torch.core.refresh_config import RefreshConfig
@@ -70,7 +73,7 @@ class HermesScheduler:
                  mc_walkers: int = 512, seed: int = 0,
                  refresh: Optional[RefreshConfig] = None,
                  warmup_table: Optional[Dict[str, float]] = None,
-                 posterior=None,
+                 posterior: Optional[PosteriorConfig] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.kb = knowledge_base
@@ -95,7 +98,7 @@ class HermesScheduler:
             raise NotImplementedError(
                 "mesh_shards: the sharded arena is not ported yet "
                 "(ROADMAP.md, modules to port, item 8)")
-        check_slice(rc.walker, rc.rank_in_kernel, posterior)
+        check_slice(rc.walker)
         self.refresh_config = rc
         self.mode = rc.mode
         self.delta_full_threshold = rc.delta_full_threshold
@@ -115,6 +118,19 @@ class HermesScheduler:
         self._prewarm_tab = None          # (kb token, PrewarmTable) cache
         self.prewarm_plan: Optional[PrewarmPlan] = None   # last fused plan
         self.backend_slowdown: Dict[str, float] = {}
+        # online posterior learning: observations buffer on the host and
+        # fold into per-graph statistics at the next delta tick, which
+        # writes each about-to-walk slot's device row right before its walk
+        if posterior is not None and self.mode != "fused_delta":
+            raise ValueError(
+                "posterior learning rides the delta tick's walked-slot "
+                f"scatter; it requires mode='fused_delta' (got {self.mode!r})")
+        self.posterior = posterior
+        self._post_state: Optional[PosteriorState] = \
+            PosteriorState() if posterior is not None else None
+        self._post_pending: List[Observation] = []
+        self._post_cache: Dict[str, np.ndarray] = {}   # name -> (U, U+3) row
+        self._post_cache_token = None
         for g in self.kb.values():
             C.apply_masks(g)
 
@@ -247,13 +263,15 @@ class HermesScheduler:
             req = {qs.slot[a.app_id] for a in live}
             walked = np.asarray(sorted(qs.dirty_in(req)), np.int64)
             qs.clear_dirty(req)
+        if self.posterior is not None:
+            self._posterior_flush(qs, walked)
         tab = self._prewarm_table() if self.prewarm_batched else None
         tick = refresh_ranks_delta(
             self._packed[1], qs, self._seed,
             walked=walked, n_walkers=self.mc_walkers,
             n_buckets=self.n_buckets, walker=self.walker,
             prewarm_table=tab, prewarm_k=self.K, retrigger=full,
-            with_triage=self._with_triage,
+            with_triage=self._with_triage, posterior=self.posterior,
             rank_in_kernel=self.rank_in_kernel)
         self.fused_spill += tick.spill
         if full:
@@ -314,6 +332,36 @@ class HermesScheduler:
         ranks = self.policy.ranks([a.view for a in live], now)
         return {a.app_id: float(r) for a, r in zip(live, ranks)}
 
+    def _posterior_flush(self, qs, walked: np.ndarray) -> None:
+        """Fold the pending observations into the per-graph statistics and
+        write ``row := graph stats`` for every about-to-walk slot, so a
+        slot's device row always equals its graph's posterior as of its
+        last walk (admitted slots are dirty, hence walked, hence written
+        before they are ever sampled)."""
+        if self._post_pending:
+            for name in self._post_state.fold(self._post_pending):
+                self._post_cache.pop(name, None)
+            self._post_pending = []
+        if len(walked) == 0:
+            return
+        packed = self._packed_kb()
+        if self._post_cache_token != self._packed[0]:
+            # KB repack: the packed unit order may have moved
+            self._post_cache = {}
+            self._post_cache_token = self._packed[0]
+        U = qs.n_units
+        vals = np.empty((len(walked), U, row_width(U)), np.float32)
+        for i, s in enumerate(np.asarray(walked).tolist()):
+            name = self.apps[qs.ids[int(s)]].app_name
+            row = self._post_cache.get(name)
+            if row is None:
+                uidx = packed.unit_index[packed.graph_index[name]]
+                order = sorted(uidx, key=uidx.get)
+                row = self._post_state.graph_row(name, order, U)
+                self._post_cache[name] = row
+            vals[i] = row
+        qs.update_posterior_rows(np.asarray(walked, np.int64), vals)
+
     def _stash_plan(self, plan: PrewarmPlan) -> None:
         """Accumulate plans until the host takes them (newest trigger per
         (app, class) wins; dead apps pruned)."""
@@ -362,9 +410,17 @@ class HermesScheduler:
                        observed: Dict[str, float], now: float,
                        next_unit: Optional[str]) -> None:
         """Online refinement: condition every downstream unit's demand on
-        the just-observed execution (bucket-join + filter, §3.2)."""
+        the just-observed execution (bucket-join + filter, §3.2).  With
+        posterior learning the completion also feeds the unit's observed
+        model-space service and the taken branch to the statistics."""
         app = self.apps[app_id]
         g = self.kb[app.app_name]
+        if self.posterior is not None:
+            svc = C.observed_service(observed, self.t_in, self.t_out)
+            self._post_pending.append((app.app_name, unit, "demand", svc))
+            self._post_pending.append(
+                (app.app_name, unit, "branch",
+                 next_unit if next_unit is not None else END))
         if self.refine:
             qs_packed = self._qstate_if_current()
             prefix = unit + "|"
@@ -441,16 +497,36 @@ class HermesScheduler:
                                 backend: Optional[str] = None,
                                 slowdown: Optional[float] = None) -> None:
         """Observation feed for hosts that execute units outside
-        ``on_unit_finish`` (the posterior leg is not ported)."""
+        ``on_unit_finish``: ``service_s`` feeds the posterior demand
+        statistics, ``wall_s`` the queueing-delay stretch, ``backend`` +
+        ``slowdown`` the straggler estimate.  Each leg is a no-op when its
+        feature is off."""
         if backend is not None and slowdown is not None:
             self.observe_backend_slowdown(backend, slowdown)
         if wall_s is not None:
             self.observe_queue_wait(app_id, max(wall_s - service_s, 0.0),
                                     service_s)
+        if self.posterior is None:
+            return
+        app = self.apps.get(app_id)
+        if app is None:
+            return
+        self._post_pending.append(
+            (app.app_name, unit, "demand", float(service_s)))
 
     def observe_branch_taken(self, app_id: str, unit: str,
                              next_unit: Optional[str]) -> None:
-        """Posterior branch feed: a no-op without posterior learning."""
+        """Posterior branch feed: the application finished ``unit`` and
+        moved to ``next_unit`` (None = terminal).  No-op without posterior
+        learning."""
+        if self.posterior is None:
+            return
+        app = self.apps.get(app_id)
+        if app is None:
+            return
+        self._post_pending.append(
+            (app.app_name, unit, "branch",
+             next_unit if next_unit is not None else END))
 
     def observe_backend_slowdown(self, backend_id: str,
                                  slowdown: float) -> None:

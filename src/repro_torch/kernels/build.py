@@ -1,9 +1,10 @@
-"""Build the port's CUDA source into a shared library and load it.
+"""Build the port's CUDA sources into shared libraries and load them.
 
-The ``.cu`` file has a plain C interface and is compiled by ``nvcc`` for
+Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/<stem>-<hash>.so`` at the root of the
-checkout, the hash covering the source and the flags, so an edited source
-never loads a stale library.  Flags: ``-fmad=false`` (no contraction of
+checkout, the hash covering the source, the headers beside it and the
+flags, so an edited source or header never loads a stale library.
+:func:`build_all` starts one ``nvcc`` per source at once.  Flags: ``-fmad=false`` (no contraction of
 multiply-add pairs — the kernel spells its one deliberate fused
 multiply-add explicitly), no fast math, and ``-Xptxas -v`` for ptxas's
 register / shared-memory / spill report.
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,28 +41,44 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    h = hashlib.sha256(Path(source).read_bytes())
+    source = Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:12]}.so"
 
 
-def build(source: Path) -> Tuple[Path, Optional[str]]:
-    """Compile ``source`` unless its library exists.  Returns the library
-    path and nvcc's output (``None`` when nothing was compiled); raises
-    with nvcc's output if the compile fails."""
-    lib = library_path(source)
-    if lib.exists():
-        return lib, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA build of {Path(source).name} failed (nvcc "
-                           f"exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout
+def build_all(sources: Sequence[Path]) -> List[Tuple[Path, Optional[str]]]:
+    """Compile every source whose library does not exist yet, one ``nvcc``
+    per source, all started together.  Returns ``(library, nvcc output)``
+    per source (output ``None`` when nothing was compiled); raises with
+    nvcc's output if a compile fails."""
+    out: List[Tuple[Path, Optional[str]]] = []
+    running = []
+    for source in map(Path, sources):
+        lib = library_path(source)
+        out.append((lib, None))
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((len(out) - 1, source, tmp, proc))
+    failed = []
+    for j, source, tmp, proc in running:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"CUDA build of {source.name} failed (nvcc exit "
+                          f"{proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out[j][0])
+        out[j] = (out[j][0], text)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def load(source: Path) -> ctypes.CDLL:
@@ -69,5 +86,5 @@ def load(source: Path) -> ctypes.CDLL:
     source = Path(source)
     lib = _LIBS.get(source)
     if lib is None:
-        lib = _LIBS[source] = ctypes.CDLL(str(build(source)[0]))
+        lib = _LIBS[source] = ctypes.CDLL(str(build_all([source])[0][0]))
     return lib

@@ -23,6 +23,12 @@
 //     and the rank in the plain version's sequential order, and one warp per
 //     unit builds the [hist | lo | span | n_reach] arrival row.
 //
+// With posterior tables (online PDGraph learning) the CTA stages its app's
+// posterior CDF rows in place of the graph's, and the per-unit demand
+// ratios beside them; the step multiplies each sampled service by the ratio
+// behind the reference's max(., 0) guard.  The step body is walk_step.cuh,
+// shared with the per-phase walk kernel (walk_phase.cu).
+//
 // Bits: every float op is spelled with an explicit rounding intrinsic and
 // the file is built with -fmad=false, so nothing is contracted except the
 // rank's bucket sum, which is a deliberate __fmaf_rn chain — the same chain
@@ -38,19 +44,16 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "walk_step.cuh"
+
 namespace {
 
-constexpr uint32_t kM1 = 0x85EBCA6Bu;
-constexpr uint32_t kM2 = 0xC2B2AE35u;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-// float32 constants exactly as the reference rounds them (np.float32(x))
-constexpr float kNever = 0x1.93e594p+99f;       // 1e30  (ARRIVAL_NEVER)
-constexpr float kHalfNever = 0x1.93e594p+98f;   // 5e29
+using namespace pdgraph_walk;
+
 constexpr float kEm3 = 0x1.0624dep-10f;         // 1e-3
 constexpr float kEm6 = 0x1.0c6f7ap-20f;         // 1e-6
 constexpr float kEm12 = 0x1.197998p-40f;        // 1e-12
 constexpr float kOneMinusEm6 = 0x1.ffffdep-1f;  // 1 - 1e-6
-constexpr float kU16 = 0x1p-16f;                // 1 / 65536
 
 struct Args {
   const float* samples;     // (G, U, S)
@@ -64,6 +67,8 @@ struct Args {
   const uint32_t* streams;  // (A,)
   const float* executed;    // (A,)
   const uint8_t* valid;     // (A,)
+  const float* po_cum;      // (A*U, U+1) or null
+  const float* po_scale;    // (A*U,) or null
   float* probs;             // (A, nb)
   float* edges;             // (A, nb)
   float* ranks;             // (A,)
@@ -73,14 +78,28 @@ struct Args {
   float inv_w, inv_nb;
 };
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kM1;
-  x ^= x >> 13;
-  x *= kM2;
-  x ^= x >> 16;
-  return x;
-}
+// One app's table rows, staged in shared memory (service samples are read
+// from global memory through the read-only cache).
+struct SharedRows {
+  const float* neff;      // (U,) sample count, override count where used
+  const int* useov;       // (U,)
+  const float* ov;        // (U, So) the app's override rows
+  const float* samples;   // (U, S) the graph's samples, global
+  const float* cum;       // (U, U+1) graph CDF or app posterior CDF
+  const float* po_scale;  // (U,)
+  int S, So, U1;
+  bool posterior;
+
+  __device__ __forceinline__ float n_eff(int cur) const { return neff[cur]; }
+  __device__ __forceinline__ float sample(int cur, int si) const {
+    return useov[cur] ? ov[cur * So + min(si, So - 1)]
+                      : __ldg(samples + static_cast<size_t>(cur) * S + si);
+  }
+  __device__ __forceinline__ float scale(int cur) const { return po_scale[cur]; }
+  __device__ __forceinline__ const float* cdf(int cur) const {
+    return cum + cur * U1;
+  }
+};
 
 // Block-wide min and max of one value per thread; every thread gets both.
 __device__ void block_minmax(float& lo, float& hi, float* red) {
@@ -159,9 +178,11 @@ __global__ void walk_fused_kernel(Args p) {
   const int U = p.U, W = p.W, S = p.S, So = p.So, nb = p.nb;
   const bool with_ov = p.ov_samples != nullptr;
   const bool with_arr = p.arrstats != nullptr;
+  const bool with_po = p.po_cum != nullptr;
 
   float* s_cum = reinterpret_cast<float*>(smem);       // U*(U+1)
-  float* s_neff = s_cum + U * (U + 1);                   // U
+  float* s_scale = s_cum + U * (U + 1);                  // U (posterior)
+  float* s_neff = s_scale + (with_po ? U : 0);           // U
   int* s_useov = reinterpret_cast<int*>(s_neff + U);     // U
   float* s_ov = reinterpret_cast<float*>(s_useov + U);   // U*So
   float* s_arr = s_ov + (with_ov ? U * So : 0);          // U*W
@@ -172,8 +193,11 @@ __global__ void walk_fused_kernel(Args p) {
   float* s_rank = s_red + 64;                            // 6*nb (thread 0)
 
   const int g = p.graph_idx[a];
-  const float* g_cum = p.cum + static_cast<size_t>(g) * U * (U + 1);
+  const float* g_cum = with_po ? p.po_cum + static_cast<size_t>(a) * U * (U + 1)
+                               : p.cum + static_cast<size_t>(g) * U * (U + 1);
   for (int i = tid; i < U * (U + 1); i += T) s_cum[i] = g_cum[i];
+  if (with_po)
+    for (int u = tid; u < U; u += T) s_scale[u] = p.po_scale[a * U + u];
   for (int u = tid; u < U; u += T) {
     float n = p.counts[g * U + u];
     int use = 0;
@@ -203,25 +227,25 @@ __global__ void walk_fused_kernel(Args p) {
   const float ex = p.executed[a];
   const float att = p.attained[a];
   const bool valid = p.valid[a] != 0;
-  const float* g_samples = p.samples + static_cast<size_t>(g) * U * S;
+  SharedRows rows;
+  rows.neff = s_neff;
+  rows.useov = s_useov;
+  rows.ov = s_ov;
+  rows.samples = p.samples + static_cast<size_t>(g) * U * S;
+  rows.cum = s_cum;
+  rows.po_scale = s_scale;
+  rows.S = S;
+  rows.So = So;
+  rows.U1 = U + 1;
+  rows.posterior = with_po;
   for (int w = tid; w < W; w += T) {
     int cur = p.start[a];
     float total = 0.0f;
     bool done = !valid;
     for (int s = 0; s < p.max_steps && !done; ++s) {
-      const uint32_t ctr = static_cast<uint32_t>(s) * static_cast<uint32_t>(W)
-                           + static_cast<uint32_t>(w);
-      const uint32_t bits = fmix32(stream + ctr * kGolden);
-      const float r = __fmul_rn(__uint2float_rn(bits >> 16), kU16);
-      const float r2 = __fmul_rn(__uint2float_rn(bits & 0xFFFFu), kU16);
-      const int si = __float2int_rz(floorf(__fmul_rn(r, s_neff[cur])));
-      float svc = s_useov[cur] ? s_ov[cur * So + min(si, So - 1)]
-                               : __ldg(g_samples + static_cast<size_t>(cur) * S + si);
-      if (s == 0) svc = fmaxf(__fsub_rn(svc, ex), 0.0f);
-      total = __fadd_rn(total, svc);
-      const float* cdf = s_cum + cur * (U + 1);
-      int nxt = 0;
-      for (int k = 0; k <= U; ++k) nxt += r2 > cdf[k] ? 1 : 0;
+      const int nxt = walk_step(rows, U, stream,
+                                step_counter(s, W, static_cast<uint32_t>(w)),
+                                s == 0, ex, cur, total);
       if (nxt >= U) {
         done = true;
       } else {
@@ -317,8 +341,9 @@ extern "C" {
 // Shared memory one CTA needs, in bytes (the wrapper checks it against the
 // card's limit before launching).
 size_t pdgraph_walk_fused_smem(int W, int U, int So, int nb, int with_ov,
-                               int with_arr) {
+                               int with_arr, int with_po) {
   size_t words = static_cast<size_t>(U) * (U + 1) + 2 * U + W + 7 * nb + 64;
+  if (with_po) words += U;
   if (with_ov) words += static_cast<size_t>(U) * So;
   if (with_arr) words += static_cast<size_t>(U) * W + static_cast<size_t>(U) * nb;
   return words * 4;
@@ -330,15 +355,17 @@ int pdgraph_walk_fused(const float* samples, const float* counts,
                        const float* ov_counts, const float* attained,
                        const int32_t* start, const int32_t* graph_idx,
                        const uint32_t* streams, const float* executed,
-                       const uint8_t* valid, float* probs, float* edges,
+                       const uint8_t* valid, const float* po_cum,
+                       const float* po_scale, float* probs, float* edges,
                        float* ranks, float* arrstats, float* rem, int A, int W,
                        int U, int S, int So, int max_steps, int nb,
                        int threads, float inv_w, float inv_nb, void* stream) {
   Args p{samples, counts, cum, ov_samples, ov_counts, attained, start,
-         graph_idx, streams, executed, valid, probs, edges, ranks, arrstats,
-         rem, A, W, U, S, So, max_steps, nb, inv_w, inv_nb};
+         graph_idx, streams, executed, valid, po_cum, po_scale, probs, edges,
+         ranks, arrstats, rem, A, W, U, S, So, max_steps, nb, inv_w, inv_nb};
   const size_t smem = pdgraph_walk_fused_smem(W, U, So, nb, ov_samples != nullptr,
-                                              arrstats != nullptr);
+                                              arrstats != nullptr,
+                                              po_cum != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       walk_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -1,21 +1,28 @@
-"""Public entry point of the fused PDGraph walk: walk → demand-histogram
-rows → Gittins ranks (→ arrival-histogram rows), one call.
+"""Public entry points of the PDGraph walk.
 
-PyTorch counterpart of ``repro.kernels.pdgraph_walk.ops.pdgraph_walk_ranked``
-with the same arguments and the same returned dict.  Dispatch follows the
-device of the tables: a CUDA tensor launches the hand-written kernel
-(``kernel.pdgraph_walk_fused_kernel``), a CPU tensor takes the plain PyTorch
-version :func:`pdgraph_walk_ranked_plain`.  A CUDA input never falls back to
-the plain version.
+PyTorch counterpart of ``repro.kernels.pdgraph_walk.ops`` with the same
+arguments and results:
 
-The plain version walks single-phase and stops once every walker is
-absorbed (exact — absorbed walkers add ``0.0``), which takes the place of
-the reference's phase compaction and of its quantized CPU step tables; the
-spill count is therefore always 0.
+* :func:`pdgraph_walk` — the walk alone: ``(A, W)`` remaining-service
+  totals (and first-arrival times) with phase compaction between walk
+  phases, the spilled-walker count surfaced.  Each phase of a CUDA input is
+  one launch of the per-phase kernel (``kernel.pdgraph_walk_kernel``); a
+  CPU input takes the plain version (``ref.walk_phase_ref``).
+* :func:`pdgraph_walk_ranked` — walk → demand-histogram rows → Gittins
+  ranks (→ arrival-histogram rows) in one call.  A CUDA input launches the
+  fused kernel (``kernel.pdgraph_walk_fused_kernel``), single-phase; a CPU
+  input takes :func:`pdgraph_walk_ranked_plain`, which compacts with
+  :func:`walk_schedule` exactly as the reference's CPU twin does.
+
+Compaction is exact — the counter RNG is indexed by (stream, original lane,
+global step) — so single-phase and compacted walks return the same bits
+unless a compaction stage spills, and then the spilled walkers keep their
+partial totals and ``spill`` counts them, as in the reference.  A CUDA
+input never falls back to a plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -24,9 +31,6 @@ from repro_torch.core.gittins import (f32, gittins_rank_core,
 from repro_torch.core.pdgraph import ARRIVAL_NEVER, _pow2_ceil
 from repro_torch.kernels.pdgraph_walk import kernel as _kernel
 from repro_torch.kernels.pdgraph_walk.ref import walk_phase_ref
-
-_POSTERIOR_TODO = ("posterior-blended walk tables are not ported yet: "
-                   "ROADMAP.md, modules to port, item 7")
 
 
 def pad_rows(n: int, min_rows: int = 1) -> int:
@@ -61,50 +65,202 @@ def arrival_hists(arr: torch.Tensor, n_buckets: int):
     return hist.to(torch.float32), lo, span, n_reach
 
 
-def pdgraph_walk_ranked_plain(samples, counts, cum_trans, graph_idx, start,
-                              executed, streams, attained,
-                              ov_samples=None, ov_counts=None, *,
-                              valid=None, n_walkers: int = 512,
-                              max_steps: int = 64, n_buckets: int = 10,
-                              track_arrivals: bool = False,
-                              with_rank: bool = True,
-                              with_total: bool = False):
-    """The plain PyTorch version of the fused walk, on any device.  Its
-    dict also holds ``walker_steps``, the steps the walkers took before
-    absorption (what the walk's work depends on)."""
+def walk_schedule(compact_after: int, compact_shrink: int,
+                  n_lanes: int) -> Tuple[Tuple[int, int], ...]:
+    """Lane-count-gated multi-stage compaction schedule: three stages
+    ``(12, 4), (28, 16), (44, 64)`` from 16,384 lanes up at the default
+    knobs, the single ``(compact_after, compact_shrink)`` stage below; a
+    tuned single stage gets one 4x-shrink tail stage; compaction switched
+    off (shrink <= 1 or step <= 0) stays off."""
+    if compact_shrink <= 1 or compact_after <= 0:
+        return ((compact_after, compact_shrink),)      # off stays off
+    if (compact_after, compact_shrink) != (16, 4):
+        return ((compact_after, compact_shrink),
+                (compact_after * 2, compact_shrink * 4))
+    if n_lanes >= 16384:
+        return ((12, 4), (28, 16), (44, 64))
+    return ((compact_after, compact_shrink),)
+
+
+def _stages(schedule: Sequence[Tuple[int, int]], max_steps: int,
+            n_lanes: int):
+    """The stages that stay on: ascending in step and shrink, inside
+    ``(0, max_steps)``, each keeping at least 128 lanes; the others switch
+    themselves off, as the reference's gate does."""
+    stages = []
+    prev_step, prev_shrink = 0, 1
+    for step, shrink in schedule:
+        if step <= prev_step or step >= max_steps:
+            continue
+        if shrink <= prev_shrink or n_lanes // shrink < 128:
+            continue
+        stages.append((step, shrink))
+        prev_step, prev_shrink = step, shrink
+    return stages
+
+
+def _walk(samples, counts, cum_trans, graph_idx, start, executed, streams,
+          ov_samples, ov_counts, *, valid, n_walkers, max_steps, schedule,
+          track_arrivals, po_cum, po_scale, plain, stats=None):
+    """The compacted walk; each phase runs the kernel (``plain=False``,
+    CUDA tensors) or ``walk_phase_ref``.  Returns ``(total (N,), arrivals
+    (N, U) | None, spill)``."""
     dev = samples.device
     A = graph_idx.shape[0]
     G, U, S = samples.shape
     W = n_walkers
     N = A * W
-    flat_s = samples.reshape(G * U, S)
-    flat_c = counts.reshape(G * U).to(torch.float32)
-    flat_cum = cum_trans.reshape(G * U, U + 1)
+    it = torch.int64 if plain else torch.int32
+    fl = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()  # noqa: E731
+    tables = (fl(samples), fl(counts), fl(cum_trans))
     with_ov = ov_samples is not None
-    fov_s = ov_samples.reshape(A * U, -1) if with_ov else None
-    fov_c = ov_counts.reshape(A * U).to(torch.float32) if with_ov else None
-    rep = lambda t: torch.repeat_interleave(t, W)  # noqa: E731
-    gi = rep(graph_idx.to(torch.int64))
-    app = rep(torch.arange(A, device=dev))
-    lane = torch.arange(W, device=dev).repeat(A)
-    done0 = (torch.zeros(N, dtype=torch.bool, device=dev) if valid is None
-             else rep(~valid.to(torch.bool)))
-    arr = (torch.full((N, U), ARRIVAL_NEVER, dtype=torch.float32, device=dev)
-           if track_arrivals else None)
+    ov = ((fl(ov_samples.reshape(A * U, -1)), fl(ov_counts.reshape(A * U)))
+          if with_ov else (None, None))
+    po = ((fl(po_cum.reshape(A * U, U + 1)), fl(po_scale.reshape(A * U)))
+          if po_cum is not None else (None, None))
+    rep = lambda t, dt: torch.repeat_interleave(  # noqa: E731
+        t.to(device=dev, dtype=dt), W)
+    cur = rep(start, it)
+    gi = rep(graph_idx, it)
+    app = torch.arange(A, device=dev, dtype=it).repeat_interleave(W)
+    lane = torch.arange(W, device=dev, dtype=it).repeat(A)
+    stream = rep(streams, torch.int64)
+    if not plain:                    # uint32 bit patterns in an int32 tensor
+        stream = torch.where(stream >= 2 ** 31, stream - 2 ** 32,
+                             stream).to(torch.int32)
+    done = (torch.zeros(N, dtype=torch.bool, device=dev) if valid is None
+            else rep(~valid.to(device=dev, dtype=torch.bool), torch.bool))
+    total = torch.zeros(N, dtype=torch.float32, device=dev)
+    ex = rep(executed, torch.float32)
+    # first-arrival times: (N, U) for the plain walk, (U, N) for the kernel
+    lane_dim = 0 if plain else 1
+    arr = None
+    if track_arrivals:
+        shape = (N, U) if plain else (U, N)
+        arr = torch.full(shape, ARRIVAL_NEVER, dtype=torch.float32,
+                         device=dev)
+
+    def phase(step0, n_steps):
+        if plain:
+            out = walk_phase_ref(
+                tables[0].reshape(G * U, S), tables[1].reshape(G * U),
+                tables[2].reshape(G * U, U + 1), ov[0], ov[1], cur, total,
+                done, gi, app, stream, lane, ex, step0=step0,
+                n_steps=n_steps, lanes_per_app=W, arrivals=arr, stats=stats,
+                fpo_cum=po[0], fpo_scale=po[1])
+        else:
+            out = _kernel.pdgraph_walk_kernel(
+                *tables, *ov, *po, cur, total, done, gi, app, stream, lane,
+                ex, arr, step0=step0, n_steps=n_steps, lanes_per_app=W,
+                n_apps=A)
+        return out if track_arrivals else out + (None,)
+
+    spill = torch.zeros((), dtype=torch.int32, device=dev)
+    unwind = []                      # (totals, arrivals, keep) per level
+    seg_start = 0
+    for step_b, shrink in _stages(schedule, max_steps, N) + [(max_steps,
+                                                             None)]:
+        cur, total, done, arr = phase(seg_start, step_b - seg_start)
+        if shrink is None:
+            break
+        C = N // shrink
+        keep = torch.argsort(done.to(torch.int32), stable=True)[:C]
+        spill = spill + torch.clamp((~done).sum() - C, min=0).to(torch.int32)
+        unwind.append((total, arr, keep))
+        cur, done, gi, app = cur[keep], done[keep], gi[keep], app[keep]
+        stream, lane, total = stream[keep], lane[keep], total[keep]
+        if arr is not None:
+            arr = arr.index_select(lane_dim, keep)
+        ex = None                                         # step 0 only
+        seg_start = step_b
+    # unwind: each level's kept lanes take the deeper totals; spilled lanes
+    # keep their partial (pre-compaction) totals
+    for total_prev, arr_prev, keep in reversed(unwind):
+        total_prev[keep] = total
+        total = total_prev
+        if arr is not None:
+            arr = arr_prev.index_copy(lane_dim, keep, arr)
+    if arr is not None and not plain:
+        arr = arr.t()
+    return total, arr, spill
+
+
+def pdgraph_walk(samples: torch.Tensor,        # (G, U, S)
+                 counts: torch.Tensor,         # (G, U)
+                 cum_trans: torch.Tensor,      # (G, U, U+1)
+                 graph_idx: torch.Tensor,      # (A,)
+                 start: torch.Tensor,          # (A,)
+                 executed: torch.Tensor,       # (A,)
+                 streams: torch.Tensor,        # (A,) int64 in [0, 2**32)
+                 ov_samples: Optional[torch.Tensor] = None,   # (A, U, So)
+                 ov_counts: Optional[torch.Tensor] = None,    # (A, U)
+                 *, valid: Optional[torch.Tensor] = None,     # (A,) bool
+                 n_walkers: int = 512, max_steps: int = 64,
+                 compact_after: int = 16, compact_shrink: int = 4,
+                 compact_schedule: Optional[Sequence[Tuple[int, int]]] = None,
+                 track_arrivals: bool = False,
+                 po_cum: Optional[torch.Tensor] = None,       # (A, U, U+1)
+                 po_scale: Optional[torch.Tensor] = None):    # (A, U)
+    """Remaining-service totals for A apps: ``((A, W), spill)``, or
+    ``((A, W), (A, W, U), spill)`` with ``track_arrivals``.
+
+    ``compact_schedule`` is a tuple of ``(step, shrink)`` stages, each
+    packing the surviving walkers into an ``N // shrink``-lane state at
+    ``step``; ``None`` is ``((compact_after, compact_shrink),)``.  Stages
+    that break monotonicity, reach ``max_steps`` or keep fewer than 128
+    lanes switch themselves off.  ``valid`` marks real rows: padding rows
+    start absorbed.  ``po_cum`` / ``po_scale`` switch on posterior sampling;
+    on a CUDA input the walk then runs single-phase, as the reference's
+    kernel path does."""
+    plain = samples.device.type == "cpu"
+    if compact_schedule is None:
+        compact_schedule = ((compact_after, compact_shrink),)
+    if po_cum is not None and not plain:
+        compact_schedule = ()
+    total, arr, spill = _walk(
+        samples, counts, cum_trans, graph_idx, start, executed, streams,
+        ov_samples, ov_counts, valid=valid, n_walkers=n_walkers,
+        max_steps=max_steps, schedule=compact_schedule,
+        track_arrivals=track_arrivals, po_cum=po_cum, po_scale=po_scale,
+        plain=plain)
+    A, W, U = graph_idx.shape[0], n_walkers, samples.shape[1]
+    if track_arrivals:
+        return total.reshape(A, W), arr.reshape(A, W, U), spill
+    return total.reshape(A, W), spill
+
+
+def pdgraph_walk_ranked_plain(samples, counts, cum_trans, graph_idx, start,
+                              executed, streams, attained,
+                              ov_samples=None, ov_counts=None, *,
+                              valid=None, n_walkers: int = 512,
+                              max_steps: int = 64, n_buckets: int = 10,
+                              compact_schedule=None,
+                              track_arrivals: bool = False,
+                              with_rank: bool = True,
+                              with_total: bool = False,
+                              po_cum=None, po_scale=None):
+    """The plain PyTorch version of the fused walk, on any device.  It
+    compacts with ``compact_schedule`` (``None``: :func:`walk_schedule` of
+    the default knobs and the lane count, as the reference's CPU twin;
+    ``()``: single-phase, as the kernel).  Its dict also holds ``walker_steps``, the
+    steps the walkers took before absorption (what the walk's work depends
+    on)."""
+    A = graph_idx.shape[0]
+    U = samples.shape[1]
+    W = n_walkers
+    if compact_schedule is None:
+        compact_schedule = walk_schedule(16, 4, A * W)
     stats = {"walker_steps": 0}
-    out = walk_phase_ref(
-        flat_s, flat_c, flat_cum, fov_s, fov_c,
-        rep(start.to(torch.int64)),
-        torch.zeros(N, dtype=torch.float32, device=dev), done0,
-        gi, app, rep(streams.to(torch.int64)), lane,
-        rep(executed.to(torch.float32)),
-        step0=0, n_steps=max_steps, lanes_per_app=W, arrivals=arr,
-        stats=stats)
-    rem = out[1].reshape(A, W)
-    att = attained.to(torch.float32)
+    rem, arr, spill = _walk(
+        samples, counts, cum_trans, graph_idx, start, executed, streams,
+        ov_samples, ov_counts, valid=valid, n_walkers=W,
+        max_steps=max_steps, schedule=compact_schedule,
+        track_arrivals=track_arrivals, po_cum=po_cum, po_scale=po_scale,
+        plain=True, stats=stats)
+    rem = rem.reshape(A, W)
+    att = attained.to(device=samples.device, dtype=torch.float32)
     total = att[:, None] + torch.maximum(rem, f32(0.0, rem))
-    res = {"total": total if with_total else None,
-           "spill": torch.zeros((), dtype=torch.int32, device=dev),
+    res = {"total": total if with_total else None, "spill": spill,
            "probs": None, "edges": None, "ranks": None,
            "walker_steps": stats["walker_steps"]}
     if with_rank:
@@ -113,14 +269,14 @@ def pdgraph_walk_ranked_plain(samples, counts, cum_trans, graph_idx, start,
                    ranks=gittins_rank_core(probs, edges, att))
     if track_arrivals:
         a_hist, a_lo, a_span, a_reach = arrival_hists(
-            out[3].reshape(A, W, U), n_buckets)
+            arr.reshape(A, W, U), n_buckets)
         res.update(a_hist=a_hist, a_lo=a_lo, a_span=a_span, a_reach=a_reach)
     return res
 
 
 def kernel_operands(samples, counts, cum_trans, graph_idx, start, executed,
                     streams, attained, ov_samples=None, ov_counts=None,
-                    valid=None):
+                    valid=None, po_cum=None, po_scale=None):
     """The operands of ``kernel.pdgraph_walk_fused_kernel``, in its order,
     converted to the dtypes and layouts it checks for."""
     A = graph_idx.shape[0]
@@ -138,7 +294,9 @@ def kernel_operands(samples, counts, cum_trans, graph_idx, start, executed,
             fl(attained), i32(start), i32(graph_idx),
             # uint32 bit patterns carried in an int32 tensor
             torch.where(s64 >= 2 ** 31, s64 - 2 ** 32, s64).to(torch.int32),
-            fl(executed), valid_u8)
+            fl(executed), valid_u8,
+            fl(po_cum.reshape(A * U, U + 1)) if po_cum is not None else None,
+            fl(po_scale.reshape(A * U)) if po_cum is not None else None)
 
 
 def pdgraph_walk_ranked(samples: torch.Tensor,     # (G, U, S) float32
@@ -156,27 +314,27 @@ def pdgraph_walk_ranked(samples: torch.Tensor,     # (G, U, S) float32
                         n_buckets: int = 10,
                         track_arrivals: bool = False,
                         with_rank: bool = True, with_total: bool = False,
-                        po_cum=None, po_scale=None):
+                        po_cum: Optional[torch.Tensor] = None,  # (A, U, U+1)
+                        po_scale: Optional[torch.Tensor] = None):  # (A, U)
     """One-pass walk → demand-histogram rows → Gittins ranks (→ arrival
     histogram rows).
 
     Returns a dict with ``probs (A, nb)``, ``edges (A, nb)``, ``ranks (A,)``
     (``None`` unless ``with_rank``), ``total (A, W)`` (``None`` unless
-    ``with_total``), ``spill`` and, with ``track_arrivals``, ``a_hist
-    (A, U, nb)``, ``a_lo / a_span / a_reach (A, U)``."""
-    if po_cum is not None or po_scale is not None:
-        raise NotImplementedError(_POSTERIOR_TODO)
-    kw = dict(valid=valid, n_walkers=n_walkers, max_steps=max_steps,
-              n_buckets=n_buckets, track_arrivals=track_arrivals,
-              with_rank=with_rank, with_total=with_total)
+    ``with_total``), ``spill`` (a host 0 on the kernel path) and, with ``track_arrivals``, ``a_hist
+    (A, U, nb)``, ``a_lo / a_span / a_reach (A, U)``.  ``po_cum`` /
+    ``po_scale`` switch on posterior sampling."""
     if samples.device.type == "cpu":
         return pdgraph_walk_ranked_plain(
             samples, counts, cum_trans, graph_idx, start, executed, streams,
-            attained, ov_samples, ov_counts, **kw)
+            attained, ov_samples, ov_counts, valid=valid,
+            n_walkers=n_walkers, max_steps=max_steps, n_buckets=n_buckets,
+            track_arrivals=track_arrivals, with_rank=with_rank,
+            with_total=with_total, po_cum=po_cum, po_scale=po_scale)
     out = _kernel.pdgraph_walk_fused_kernel(
         *kernel_operands(samples, counts, cum_trans, graph_idx, start,
                          executed, streams, attained, ov_samples, ov_counts,
-                         valid),
+                         valid, po_cum, po_scale),
         n_walkers=n_walkers, max_steps=max_steps, n_buckets=n_buckets,
         with_arrivals=track_arrivals, with_total=with_total)
     dev = samples.device
@@ -185,7 +343,9 @@ def pdgraph_walk_ranked(samples: torch.Tensor,     # (G, U, S) float32
            "edges": out["edges"] if with_rank else None,
            "ranks": out["ranks"] if with_rank else None,
            "total": None,
-           "spill": torch.zeros((), dtype=torch.int32, device=dev)}
+           # single-phase: nothing spills, and a host 0 costs the caller
+           # no device read
+           "spill": 0}
     if with_total:
         rem = out["rem"]
         att = attained.to(device=dev, dtype=torch.float32)

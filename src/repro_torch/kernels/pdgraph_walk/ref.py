@@ -72,7 +72,9 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
                    executed: Optional[torch.Tensor],
                    *, step0: int, n_steps: int, lanes_per_app: int,
                    arrivals: Optional[torch.Tensor] = None,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None,
+                   fpo_cum: Optional[torch.Tensor] = None,    # (A*U, U+1)
+                   fpo_scale: Optional[torch.Tensor] = None):  # (A*U,)
     """One phase of the counter walk over flat walker state (N,).
 
     Same arithmetic as the JAX twin step for step.  ``cur``/``gi``/``app``
@@ -84,7 +86,13 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
     exactly ``0.0`` and draws nothing that is kept, so stopping early is
     exact — it takes the place of the reference's phase compaction.  With
     ``stats`` (a dict), ``stats["walker_steps"]`` grows by the steps the
-    live walkers took.  Returns ``(cur, total, done)`` or ``(cur, total, done, arrivals)``."""
+    live walkers took.
+
+    ``fpo_cum`` / ``fpo_scale`` (per-APP posterior walk tables, flattened
+    as ``app * U + unit``; :mod:`repro_torch.core.posterior`) switch on
+    posterior sampling: transitions draw against the app's blended CDF and
+    every sampled service is rescaled by the unit's demand ratio.  Returns
+    ``(cur, total, done)`` or ``(cur, total, done, arrivals)``."""
     U = fcum.shape[1] - 1
     S = fsamples.shape[1]
     fsv = fsamples.reshape(-1)
@@ -92,6 +100,7 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
     if with_ov:
         So = fov_samples.shape[1]
         fov = fov_samples.reshape(-1)
+    with_po = fpo_cum is not None
     track = arrivals is not None
     zero = torch.zeros((), dtype=torch.float32, device=total.device)
     for s in range(step0, step0 + n_steps):
@@ -104,8 +113,8 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
         r, r2 = counter_uniforms(stream, ctr)
         row = gi * U + cur
         n_eff = fcounts[row]
+        orow = app * U + cur if (with_ov or with_po) else None
         if with_ov:
-            orow = app * U + cur
             oc = fov_counts[orow]
             n_eff = torch.where(oc > 0, oc, n_eff)
         si = torch.floor(r * n_eff).to(torch.int64)
@@ -113,10 +122,15 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
         if with_ov:
             svc = torch.where(
                 oc > 0, fov[orow * So + torch.clamp(si, max=So - 1)], svc)
+        if with_po:
+            # the max consumes the product, so no later add can contract it
+            # into a fused multiply-add (the reference's guard)
+            svc = torch.maximum(svc * fpo_scale[orow], zero)
         if executed is not None and s == 0:
             svc = torch.maximum(svc - executed, zero)
         total = total + torch.where(done, zero, svc)
-        nxt = (r2[:, None] > fcum[row]).sum(dim=1)
+        cdf = fpo_cum[orow] if with_po else fcum[row]
+        nxt = (r2[:, None] > cdf).sum(dim=1)
         nxt = torch.clamp(nxt, max=U)
         new_done = done | (nxt >= U)
         if track:

@@ -16,9 +16,9 @@ is not ported.)
 
 This is the PyTorch counterpart of ``repro.serving.simulator``, host code
 kept line for line; the scheduler's slot arena and walk kernel run on
-``SimConfig.device`` (default ``cuda``).  ``posterior`` and
-``warmup_model`` are not ported in this slice and raise
-``NotImplementedError`` (ROADMAP.md, modules to port, items 7 and 10).
+``SimConfig.device`` (default ``cuda``).  ``warmup_model`` is not ported
+in this slice and raises ``NotImplementedError`` (ROADMAP.md, modules to
+port, item 10).
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from repro_torch.core.admission import (ADMIT, DEFER, SHED_DEFER_EXPIRED,
                                   DegradeState)
 from repro_torch.core.hermeslet import HermesLet
 from repro_torch.core.pdgraph import PDGraph
+from repro_torch.core.posterior import PosteriorConfig
 from repro_torch.core.refresh_config import RefreshConfig
 from repro_torch.core.scheduler import HermesScheduler
 from repro_torch.runtime.fault_tolerance import (BackendStragglerWatchdog,
@@ -95,8 +96,11 @@ class SimConfig:
     faults: Optional[FaultConfig] = None
     admission: Optional[AdmissionConfig] = None
     degrade: Optional[DegradeConfig] = None
-    # online posterior learning: not ported yet, anything but None raises
-    posterior: Optional[object] = None
+    # online posterior learning (repro_torch.core.posterior): unit
+    # completions self-observe through on_unit_finish and fold into the
+    # arena's posterior rows at the next delta tick.  None (default) keeps
+    # the frozen prior; a PosteriorConfig requires fused_delta mode.
+    posterior: Optional[PosteriorConfig] = None
     # where the scheduler's slot arena and walk kernel run: None = "cuda";
     # "cpu" runs the plain PyTorch versions
     device: Optional[str] = None

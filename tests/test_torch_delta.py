@@ -61,7 +61,9 @@ class _Pair:
         a, b = self.both("admit_many", rows)
         np.testing.assert_array_equal(a, b)
 
-    def tick(self, walked=None, retrigger=True):
+    def tick(self, walked=None, retrigger=True, j_extra=None, t_extra=None):
+        """One delta tick in both; ``j_extra`` / ``t_extra`` are further
+        keyword arguments of each package's ``refresh_ranks_delta``."""
         if walked is None:
             walked = self.j.take_dirty()
             np.testing.assert_array_equal(walked, self.t.take_dirty())
@@ -69,9 +71,11 @@ class _Pair:
                   prewarm_k=0.5, retrigger=retrigger)
         jt = j_pipe.refresh_ranks_delta(self.jp, self.j,
                                         jax.random.PRNGKey(0), SEED,
-                                        prewarm_table=self.jt, **kw)
+                                        prewarm_table=self.jt, **kw,
+                                        **(j_extra or {}))
         tt = t_pipe.refresh_ranks_delta(self.tp, self.t, SEED,
-                                        prewarm_table=self.tt, **kw)
+                                        prewarm_table=self.tt, **kw,
+                                        **(t_extra or {}))
         occ = self.j.occupied()
         np.testing.assert_array_equal(occ, self.t.occupied())
         np.testing.assert_array_equal(jt.ranks[occ], tt.ranks[occ])
@@ -168,3 +172,63 @@ def test_triage_scalars_match(kbs):
         np.testing.assert_array_equal(getattr(pair.t, k)[walked],
                                       getattr(pair.j, k)[walked], err_msg=k)
     assert isinstance(pair.t.d_probs, torch.Tensor)
+
+
+@pytest.mark.parametrize("retrigger", [True, False])
+def test_composed_delta_ticks_match(kbs, retrigger):
+    """``rank_in_kernel=False``: the per-phase walk composed with the
+    reductions, against the reference's composition, over a churned
+    arena; full ticks and event-path subset ticks."""
+    rng = np.random.default_rng(21 + retrigger)
+    pair = _Pair(kbs)
+    extra = dict(rank_in_kernel=False)
+    pair.admit(rng, 14)
+    pair.tick(j_extra=extra, t_extra=extra)
+    for _ in range(3):
+        _churn(pair, rng)
+        pair.admit(rng, int(rng.integers(2, 9)))
+        walked = pair.j.take_dirty()
+        np.testing.assert_array_equal(walked, pair.t.take_dirty())
+        jt, tt = pair.tick(walked=walked, retrigger=retrigger,
+                           j_extra=extra, t_extra=extra)
+        assert jt.spill == tt.spill
+
+
+def test_composed_fused_refresh_matches(kbs):
+    """The first-tick path composed from the per-phase walk (triage on),
+    against the reference's composition and against the port's own fused
+    walk: the same bits."""
+    rng = np.random.default_rng(6)
+    pair = _Pair(kbs)
+    pair.admit(rng, 10)
+    for app in ("app2", "app7"):
+        pair.both("add_progress", app, 2.5)
+    pair.both("set_override", "app3", 1, rng.uniform(0.1, 6.0, 5))
+    kw = dict(n_walkers=W, n_buckets=NB, prewarm_k=0.5, with_triage=True,
+              rank_in_kernel=False)
+    j = j_pipe.refresh_ranks_fused(pair.jp, pair.j, jax.random.PRNGKey(0),
+                                   SEED, prewarm_table=pair.jt, **kw)
+    t = t_pipe.refresh_ranks_fused(pair.tp, pair.t, SEED,
+                                   prewarm_table=pair.tt, **kw)
+    f = t_pipe.refresh_ranks_fused(pair.tp, pair.t, SEED,
+                                   prewarm_table=pair.tt,
+                                   **dict(kw, rank_in_kernel=True))
+    for k in ("ranks", "probs", "edges", "trigger", "reach", "sup", "opt",
+              "mean"):
+        np.testing.assert_array_equal(getattr(j, k), getattr(t, k),
+                                      err_msg=k)
+        np.testing.assert_array_equal(getattr(f, k), getattr(t, k),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("W", [32, 64, 256])
+def test_triage_stats_bitwise_across_walker_counts(W):
+    """The triage scalars of raw totals at the walker counts the simulator
+    uses: XLA sums a row of more than 32 values in windows of 32 (see
+    ``gittins.row_sum``), not left to right."""
+    x = np.random.default_rng(W).lognormal(2.0, 1.0, (300, W)).astype(
+        np.float32)
+    j = jax.jit(j_pipe._triage_stats)(x)
+    t = t_pipe._triage_stats(torch.as_tensor(x))
+    for name, a, b in zip(("sup", "opt", "mean"), j, t):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)

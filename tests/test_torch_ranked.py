@@ -183,3 +183,31 @@ def test_pad_rows_matches():
     for n in list(range(0, 300)) + [1000, 4097, 16385]:
         for m in (1, 8):
             assert tops.pad_rows(n, m) == jops.pad_rows(n, m), (n, m)
+
+
+def test_spilling_ranked_walk_matches_reference():
+    """A loopy graph at 16,384 lanes: the reference's CPU twin compacts
+    with ``walk_schedule`` (three stages there) and spills; the port's CPU
+    version compacts the same way and must report the same spill, totals
+    and ranks."""
+    from repro.core.pdgraph import BackendSpec, PDGraph, UnitNode
+    u = UnitNode(name="loop", backend=BackendSpec(kind="dnn", model="t"),
+                 duration=[1.0, 2.0, 3.5],
+                 next_counts={"loop": 97, "$end": 3})
+    kb = {"loopy": PDGraph("loopy", "loop", {"loop": u})}
+    jp = pack_graphs(kb, T_IN, T_OUT)
+    tpk = tp.pack_graphs({n: tp.PDGraph.from_json(g.to_json())
+                          for n, g in kb.items()}, T_IN, T_OUT, device="cpu")
+    A, W = 64, 256
+    rng = np.random.default_rng(8)
+    q = dict(graph_idx=np.zeros(A, np.int32), start=np.zeros(A, np.int32),
+             executed=rng.uniform(0.0, 0.5, A).astype(np.float32),
+             attained=rng.uniform(0.0, 3.0, A).astype(np.float32),
+             key_ids=np.arange(A), refresh_ids=np.zeros(A, np.int64),
+             valid=np.ones(A, bool))
+    ref = jax.jit(partial(_jax, jp, q, W, 64, impl="ref"))()
+    out = _torch(tpk, q, W, 64, track=False)
+    assert int(out["spill"]) == int(ref["spill"]) > 0
+    for k in ("total", "probs", "edges", "ranks"):
+        np.testing.assert_array_equal(np.asarray(ref[k]), out[k].numpy(),
+                                      err_msg=k)

@@ -39,3 +39,46 @@ def test_default_config_run_sim_matches():
     j, t = _both()
     assert len(t.completion_order) == 30
     _assert_same_run(j, t)
+
+
+def test_composed_refresh_run_sim_matches():
+    """``RefreshConfig(rank_in_kernel=False)``: every delta tick walks
+    through the per-phase walk and composes the reductions."""
+    from repro.core.refresh_config import RefreshConfig as JRefresh
+    from repro_torch.core.refresh_config import RefreshConfig as TRefresh
+    kw = dict(seed=29, t_in=T_IN, t_out=T_OUT)
+    cfg = dict(seed=5, n_llm_slots=8, mc_walkers=32, policy="gittins")
+    j = j_run(j_kb(n_trials=40, seed=3), j_workload(30, 120.0, **kw),
+              JConfig(refresh=JRefresh(rank_in_kernel=False), **cfg))
+    t = t_run(t_kb(n_trials=40, seed=3), t_workload(30, 120.0, **kw),
+              TConfig(refresh=TRefresh(rank_in_kernel=False), device="cpu",
+                      **cfg))
+    assert len(t.completion_order) == 30
+    _assert_same_run(j, t)
+
+
+def test_posterior_run_sim_matches():
+    """Online posterior learning on a short drift trace (the drift
+    benchmark's scenario, cut to 150 s with the shift at 50 s)."""
+    from repro.apps.workload import TenantProfile as JTenant
+    from repro.apps.workload import make_drift_workload as j_drift
+    from repro.core.posterior import PosteriorConfig as JPosterior
+    from repro_torch.apps.workload import TenantProfile as TTenant
+    from repro_torch.apps.workload import make_drift_workload as t_drift
+    from repro_torch.core.posterior import PosteriorConfig as TPosterior
+    mix = {"EV": 0.144, "FEV": 0.144, "CC": 0.144, "ALFWI": 0.144,
+           "KBQAV": 0.144, "CG": 0.13, "PE": 0.13}
+    kw = dict(t_in=T_IN, t_out=T_OUT, shift_at=50.0, rate_per_s=0.3,
+              demand_mult=3.0, p_repeat=0.35,
+              drift_apps=("FEV", "ALFWI", "KBQAV"), n_service_slots=8,
+              seed=11)
+    cfg = dict(policy="gittins", seed=5, prewarm_mode="lru", n_llm_slots=8,
+               mc_walkers=64)
+    j = j_run(j_kb(n_trials=40, seed=3),
+              j_drift(150.0, tenants=[JTenant(name="t0", app_mix=mix)], **kw),
+              JConfig(posterior=JPosterior(), **cfg))
+    t = t_run(t_kb(n_trials=40, seed=3),
+              t_drift(150.0, tenants=[TTenant(name="t0", app_mix=mix)], **kw),
+              TConfig(posterior=TPosterior(), device="cpu", **cfg))
+    assert len(t.completion_order) > 30
+    _assert_same_run(j, t)

@@ -34,7 +34,23 @@ Phases (any failure raises and the script exits non-zero):
    kernel and composed from K2, from the same arena state: bitwise equal,
    timed and profiled;
 7. a small trace on ``cuda`` and on the CPU (the plain versions):
-   identical completion order and ACTs.
+   identical completion order and ACTs;
+8. hold each model kernel against its plain PyTorch version on the card
+   at the reference's tolerances (2e-5 float32, 2e-2 bfloat16): RMSNorm
+   (K3), prefill attention (K4) and decode attention (K5), at the serve
+   path's shapes and at full-width Llama-3-8B shapes, each timed beside
+   its bound, its plain version and one PyTorch library call;
+9. Llama-3-8B at full width cut to 2 layers: a 24-token prompt and 8
+   teacher-forced decode steps on ``cuda`` (through K3-K5) and on the CPU
+   (the plain versions) from the same weights: logits within 5e-2;
+10. the serve path: ``repro_torch.launch.serve`` with ``--apps 10`` on a
+   full-width Llama-3-8B (32 layers, bfloat16, random weights drawn on the
+   card), counters reset and read around it: every LLM request of the
+   trace served, K1 and K3-K5 launched; then one decode step timed and
+   profiled;
+11. a tiny float32 Llama-3 through the engine on ``cuda`` and on the CPU:
+   identical output tokens, completion order, prefix flags and LoRA
+   counters.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -62,6 +78,13 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 33.5e12
 PEAK_I32_S = 16.7e12
+# dense tensor-core bf16 and plain float32 FLOP/s (an FMA counts as two)
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+# the reference's kernel tolerances (tests/test_kernels.py) and its bf16
+# model tolerance (tests/test_torch_model.py)
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MODEL_BF16_TOL = 5e-2
 
 
 def log(*a) -> None:
@@ -83,31 +106,52 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _profiled(fn, iters: int, keep, what: str):
+    """Device events of ``iters`` calls of ``fn`` under torch.profiler that
+    ``keep`` selects.  A profiler session on this card's stack now and then
+    records no device activity at all (seen once in a row of sessions): a
+    session that saw none is run again, at most twice, and said so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if keep(e)]
+        if evs:
+            return evs
+        log(f"[profiler] no {what} in session {attempt + 1}; profiling again")
+    raise AssertionError(f"the profiler saw no {what}")
+
+
 def device_ms(launch, kernel_name: str, iters: int = 10) -> float:
     """The kernel's own device time per launch (torch.profiler), free of
     the host gaps between launches that CUDA events also measure when the
     wrapper's host work outlasts the kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            launch()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel_name in e.key]
-    if not evs:
-        raise AssertionError(f"the profiler saw no {kernel_name} launch")
+    evs = _profiled(launch, iters, lambda e: kernel_name in e.key,
+                    f"{kernel_name} launch")
     return sum(e.self_device_time_total for e in evs) / iters / 1e3
+
+
+def _sources():
+    from repro_torch.kernels.decode_attention import kernel as dec_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    return walk_kernel.SOURCES + (rms_kernel.SOURCE, fa_kernel.SOURCE,
+                                  dec_kernel.SOURCE)
 
 
 def phase_build():
     from repro_torch.kernels import build
-    from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
+    sources = _sources()
     t0 = time.perf_counter()
-    built = build.build_all(walk_kernel.SOURCES)
+    built = build.build_all(sources)
     log(f"[build] {[lib.name for lib, _ in built]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for src, (lib, text) in zip(walk_kernel.SOURCES, built):
+    for src, (lib, text) in zip(sources, built):
         for line in (text or "(library already built)").strip().splitlines():
             log(f"[build:{src.stem}] {line}")
 
@@ -716,6 +760,449 @@ def phase_reference():
                    out["cuda"], 1e-6)
 
 
+
+# --------------------------------------------------------------------------
+# model kernels (K3-K5), the full-width check, the serve path
+
+
+def dev_ms_all(fn, iters: int = 10) -> float:
+    """Device time per call of ``fn``, summed over every kernel and copy it
+    runs (torch.profiler): the time the card spends, free of host gaps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    evs = _profiled(fn, iters, lambda e: str(e.device_type).endswith("CUDA"),
+                    "device work")
+    return sum(e.self_device_time_total for e in evs) / iters / 1e3
+
+
+def _hold(tag, out, want, dtype_name, tol=None):
+    """Raise unless ``out`` matches ``want`` at the dtype's tolerance;
+    returns the max abs error."""
+    import torch
+    tol = KERNEL_TOL[dtype_name] if tol is None else tol
+    a, b = out.float(), want.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{tag}: non-finite output")
+    err = float((a - b).abs().max())
+    ok = bool(torch.allclose(a, b, rtol=tol, atol=tol))
+    log(f"{tag} max_abs_err={err} tol={tol} ok={ok}")
+    if not ok:
+        raise AssertionError(f"{tag}: differs from the plain version "
+                             f"(max abs err {err}, tolerance {tol})")
+    return err
+
+
+def _timed(tag, launch, kernel_name, plain, library, n_bytes, flops=0.0,
+           flops_peak=PEAK_BF16_FLOPS):
+    """Kernel time per launch (profiler device time; CUDA events beside),
+    the plain version's and the library call's device time, and the bound
+    (bytes at the memory rate or FLOPs at ``flops_peak``)."""
+    ev = cuda_time_ms(launch, iters=20)
+    ms = device_ms(launch, kernel_name)
+    plain_ms = dev_ms_all(plain, iters=3)
+    library_ms = dev_ms_all(library)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / flops_peak
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"{tag} kernel {ms:.6f} ms (device; events {ev:.6f})  plain "
+        f"{plain_ms:.6f} ms  library {library_ms:.6f} ms  bound "
+        f"{bound_ms:.6f} ms ({bound_by}; bytes={n_bytes} flops={flops:.4g})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _randn(shape, dtype, gen, device):
+    import torch
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _check_rmsnorm(device, rows, D, dtype_name, seed=0):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = _randn((rows, D), dt, gen, device)
+    s = _randn((D,), torch.float32, gen, device)
+    s_lib = s.to(dt)
+    tag = f"[kernel:rmsnorm rows={rows} D={D} {dtype_name}]"
+    err = _hold(tag, kernel.rmsnorm_kernel(x, s, eps=1e-5),
+                ref.rmsnorm_ref(x, s, 1e-5), dtype_name)
+    t = _timed(tag, lambda: kernel.rmsnorm_kernel(x, s, eps=1e-5),
+               "rmsnorm_kernel", lambda: ref.rmsnorm_ref(x, s, 1e-5),
+               lambda: F.rms_norm(x, (D,), s_lib, 1e-5),
+               n_bytes=2 * rows * D * x.element_size() + 4 * D)
+    return dict(t, max_abs_err=err)
+
+
+def _check_flash(device, B, Sq, Skv, H, K, hd, dtype_name, causal, seed=0):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _randn((B, Sq, H, hd), dt, gen, device)
+    k = _randn((B, Skv, K, hd), dt, gen, device)
+    v = _randn((B, Skv, K, hd), dt, gen, device)
+    G = H // K
+    qf = (q.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4)
+          .reshape(B * K * G, Sq, hd).contiguous())
+    kf = k.permute(0, 2, 1, 3).reshape(B * K, Skv, hd).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(B * K, Skv, hd).contiguous()
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    tag = (f"[kernel:flash_attention B={B} Sq={Sq} Skv={Skv} H={H} K={K} "
+           f"hd={hd} {dtype_name} causal={causal}]")
+    want = (ref.attention_ref(qf, kf, vf, causal=causal)
+            .reshape(B, K, G, Sq, hd).permute(0, 3, 1, 2, 4)
+            .reshape(B, Sq, H, hd))
+    err = _hold(tag, kernel.flash_attention_kernel(q, k, v, causal=causal),
+                want, dtype_name)
+    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
+             else Sq * Skv)
+    t = _timed(tag, lambda: kernel.flash_attention_kernel(q, k, v,
+                                                          causal=causal),
+               "flash_attention_kernel",
+               lambda: ref.attention_ref(qf, kf, vf, causal=causal),
+               lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True),
+               n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
+               flops=4.0 * B * H * hd * pairs,
+               flops_peak=(PEAK_BF16_FLOPS if dtype_name == "bfloat16"
+                           else PEAK_F32_FLOPS))
+    return dict(t, max_abs_err=err)
+
+
+def _check_decode(device, B, H, K, hd, Smax, lengths, dtype_name, seed=0):
+    """Caches laid out (B, K, Smax, hd) and passed as the transposed view
+    the engine passes; per-row ``lengths`` (B,)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _randn((B, H, hd), dt, gen, device)
+    kc = _randn((B, K, Smax, hd), dt, gen, device)
+    vc = _randn((B, K, Smax, hd), dt, gen, device)
+    lengths = torch.as_tensor(lengths, device=device)
+    rows = lengths.repeat_interleave(K).to(torch.int32)
+    G = H // K
+    q4 = q.reshape(B, H, 1, hd)
+    mask = (torch.arange(Smax, device=device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    tag = (f"[kernel:decode_attention B={B} H={H} K={K} hd={hd} Smax={Smax} "
+           f"{dtype_name} lengths={lengths.tolist()[:8]}]")
+
+    def launch():
+        return kernel.decode_attention_kernel(q, kc.transpose(1, 2),
+                                              vc.transpose(1, 2), rows)
+
+    def plain():
+        return ref.decode_attention_ref(q.reshape(B * K, G, hd),
+                                        kc.reshape(B * K, Smax, hd),
+                                        vc.reshape(B * K, Smax, hd), rows)
+
+    err = _hold(tag, launch(), plain().reshape(B, H, hd), dtype_name)
+    es = q.element_size()
+    n_bytes = (2 * K * hd * es * int(lengths.sum()) + 2 * q.numel() * es
+               + 4 * B * K)
+    t = _timed(tag, launch, "decode_attention_kernel", plain,
+               lambda: F.scaled_dot_product_attention(
+                   q4, kc, vc, attn_mask=mask, enable_gqa=True),
+               n_bytes=n_bytes)
+    return dict(t, max_abs_err=err)
+
+
+MODEL_KERNELS = {
+    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/kernel.py:23"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:69"),
+    "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
+                         "decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:63"),
+}
+
+
+def phase_model_kernels(device):
+    """K3-K5 against their plain versions: the serve path's own shapes
+    (the kernels-line entries) and the full-width Llama-3-8B shapes."""
+    import numpy as np
+    main = {
+        # one decode-step row of d_model 4,096, bf16
+        "rmsnorm": _check_rmsnorm(device, 1, 4096, "bfloat16"),
+        # a 24-token prefix prefill of Llama-3-8B's heads
+        "flash_attention": _check_flash(device, 1, 24, 24, 32, 8, 128,
+                                        "bfloat16", True),
+        # one decode step over a slot's 192-position caches
+        "decode_attention": _check_decode(device, 1, 32, 8, 128, 192, [100],
+                                          "bfloat16"),
+    }
+    for dt in ("bfloat16", "float32"):
+        _check_rmsnorm(device, 4096, 4096, dt)
+        _check_rmsnorm(device, 4097, 4096, dt)
+    _check_rmsnorm(device, 4096 * 32, 128, "bfloat16")
+    _check_rmsnorm(device, 24 * 32, 128, "bfloat16")
+    for dt in ("float32", "bfloat16"):
+        for causal in (True, False):
+            for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64),
+                          (1, 64, 256, 4, 1, 128), (1, 23, 23, 8, 2, 128)):
+                _check_flash(device, *shape, dt, causal)
+    _check_flash(device, 1, 8, 8, 32, 8, 128, "bfloat16", True)
+    _check_flash(device, 1, 2048, 2048, 32, 8, 128, "bfloat16", True)
+    rng = np.random.default_rng(13)
+    long_lengths = rng.integers(1, 8193, 8).tolist()
+    for dt in ("bfloat16", "float32"):
+        _check_decode(device, 1, 32, 8, 128, 192, [100], dt)
+        _check_decode(device, 8, 32, 8, 128, 8192, long_lengths, dt)
+    return [{"name": name, "route": "cuda", "source": MODEL_KERNELS[name][0],
+             "replaces": MODEL_KERNELS[name][1], "launches": 0,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            for name, r in main.items()]
+
+
+def _teacher_forced(model, prompt, forced):
+    """Prefill ``prompt`` (1, S), then decode each of ``forced`` (1, n):
+    the logits of every step, as float32 on the CPU."""
+    import torch
+    S, n = prompt.shape[1], forced.shape[1]
+    caches, logits = model.prefill(prompt)
+    out = [logits.float().cpu()]
+    big = model.new_caches(1, S + n)
+    for name in ("k", "v"):
+        big[name][:, :, :, :S] = caches[name]
+    for t in range(n):
+        big, logits = model.decode(big, forced[:, t:t + 1], S + t)
+        out.append(logits.float().cpu())
+    return torch.cat(out, dim=1)
+
+
+def phase_full_width(device):
+    """Llama-3-8B widths at 2 of its 32 layers: the card (K3-K5) against
+    the CPU (the plain versions) from the same weights."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import build_model
+    cfg = get_config("llama3-8b").replace(num_layers=2)
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(1))
+    cpu = build_model(cfg, device="cpu").load_params(
+        {n: p.cpu() for n, p in card.params().items()})
+    log(f"[full_width] {cfg.name} layers=2 d_model={cfg.d_model} "
+        f"vocab={cfg.vocab_size} {cfg.dtype}: weights "
+        f"{sum(p.numel() * p.element_size() for p in card.parameters())} "
+        f"bytes, built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 24), generator=gen)
+    forced = torch.randint(1, cfg.vocab_size, (1, 8), generator=gen)
+    reset_launches()
+    a = _teacher_forced(card, prompt, forced)
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    b = _teacher_forced(cpu, prompt, forced)
+    log(f"[full_width] cpu run {time.perf_counter() - t0:.1f} s; card "
+        f"launches {launches}")
+    for name in ("rmsnorm", "flash_attention", "decode_attention"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"full-width check did not launch {name}")
+    err = _hold("[full_width] logits (prefill + 8 decode steps)", a, b,
+                "bfloat16", tol=MODEL_BF16_TOL)
+    agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+    log(f"[full_width] max_abs_err={err} greedy tokens agree at {agree} of "
+        f"{a.shape[1]} steps; logits max |x| {float(b.abs().max())}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def _trace_llm_requests(n_apps, window, seed):
+    """The LLM requests ``serve`` submits for its trace (fixed by the
+    trace, not the wall clock)."""
+    from repro_torch.apps.suite import SUITE
+    from repro_torch.apps.workload import make_workload
+    from repro_torch.launch import serve
+    insts = make_workload(n_apps, window, seed=seed, t_in=serve.T_IN,
+                          t_out=serve.T_OUT)
+    return sum(int(obs["par"]) for inst in insts
+               for unit, obs in inst.trajectory
+               if SUITE[inst.app_name].units[unit].backend.kind == "llm")
+
+
+def _profile_decode(model, caches, pos, step_ms):
+    """One decode step under torch.profiler: device busy against the
+    profiled wall and against ``step_ms`` (the unprofiled median step), and
+    the shares of matrix products, K3 and K5."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    tok = torch.tensor([[7]], device=model.device)
+    for _ in range(3):        # see _profiled: a session may record nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.decode(caches, tok, pos)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        evs = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+        if evs:
+            break
+    if not evs:
+        raise AssertionError("the profiler saw no device work in a decode "
+                             "step")
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    groups = {"matmul": ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                         "splitK", "matmul"),
+              "rmsnorm": ("rmsnorm_kernel",), "decode_attention":
+              ("decode_attention_kernel",)}
+    share = {g: sum(e.self_device_time_total for e in evs
+                    if any(k in e.key for k in keys)) / 1e3
+             for g, keys in groups.items()}
+    log(f"[serve:decode_profile] wall={wall:.3f} ms (profiled) device_busy="
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} % of the profiled step, "
+        f"{100 * busy / step_ms:.1f} % of the {step_ms:.3f} ms median step) "
+        f"device_ops="
+        f"{sum(e.count for e in evs)} " + " ".join(
+            f"{g}={v:.3f} ms ({100 * v / busy:.1f} % of busy)"
+            for g, v in share.items()))
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        log(f"[serve:decode_profile]   {e.key[:70]:70s} device="
+            f"{e.self_device_time_total / 1e3:.4f} ms calls={e.count}")
+
+
+def phase_serve(device):
+    """The slice's main path: serve on a full-width Llama-3-8B."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
+    cfg = get_config("llama3-8b")
+    expected = _trace_llm_requests(10, 5.0, 0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = serve.run(["--apps", "10"], cfg=cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    eng, model = run.engine, run.model
+    done = eng.done
+    tokens = sum(len(r.output) for r in done)
+    hits = sum(1 for r in done if r.prefix_hit)
+    with_prefix = sum(1 for r in done if r.prefix_id)
+    ttft = [r.ttft for r in done if r.ttft]
+    log(f"[serve] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+        f"{cfg.dtype} params={sum(p.numel() for p in model.parameters())}: "
+        f"apps={run.n_apps} requests_served={len(done)} of {expected} "
+        f"(distinct ids {len({r.req_id for r in done})}) "
+        f"tokens_generated={tokens} engine_steps={eng.steps} "
+        f"prefix_hits={hits}/{with_prefix} lora_merges={eng.lora.merges} "
+        f"lora_hits={eng.lora.hits} lora_misses={eng.lora.misses} "
+        f"mean_ttft={1e3 * float(np.mean(ttft)):.3f} ms "
+        f"init={run.init_s:.3f} s wall={wall:.1f} s "
+        f"max_memory_allocated={peak} launches={launches}")
+    if len(done) != expected:
+        raise AssertionError(f"serve served {len(done)} of the trace's "
+                             f"{expected} LLM requests")
+    bad = [r.req_id for r in done
+           if len(r.output) != r.max_new_tokens
+           or not all(0 <= t < cfg.vocab_size for t in r.output)]
+    if bad:
+        raise AssertionError(f"serve: requests with wrong outputs: {bad[:5]}")
+    need = [walk_kernel.NAME, "rmsnorm", "flash_attention",
+            "decode_attention"]
+    missing = [k for k in need if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"serve did not launch {missing}: {launches}")
+    # one decode step at batch 1 of a slot 100 positions in
+    prompt = torch.randint(1, cfg.vocab_size, (1, 100),
+                           generator=torch.Generator().manual_seed(4))
+    caches, _ = model.prefill(prompt)
+    caches = eng._pad_caches(caches, 100)
+    steps = []
+    tok = torch.tensor([[11]], device=model.device)
+    for i in range(25):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.decode(caches, tok, 100 + i)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t1) * 1e3)
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    median = statistics.median(steps[5:])
+    log(f"[serve:decode] ms per decode step median={median:.3f} "
+        f"min={min(steps[5:]):.3f} "
+        f"(batch 1, positions 105..124; weights {w} bytes, floor "
+        f"{1e3 * w / PEAK_BYTES_S:.3f} ms at {PEAK_BYTES_S:.3g} B/s)")
+    _profile_decode(model, caches, 125, median)
+    del run, eng, model, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _engine_script(eng, Request):
+    """Requests through ``eng`` covering a warm prefix, a cold prefix hit by
+    a second request in the same step, priority admission and LoRA pool
+    eviction; returns what must match between devices."""
+    eng.prewarm_prefix("p1")
+    eng.submit(Request("w", prompt=[1, 2, 3], max_new_tokens=6,
+                       prefix_id="p1"))
+    eng.submit(Request("c", prompt=[5, 6], max_new_tokens=4,
+                       prefix_id="p2", app_id="mid"))
+    eng.submit(Request("d", prompt=[9], max_new_tokens=5, prefix_id="p2",
+                       app_id="hi"))
+    ranks = {"": 1.0, "mid": 0.5, "hi": 0.0}
+    eng.run(rank_fn=lambda r: ranks[r.app_id])
+    for i, lid in enumerate(["l0", "l1", "l2", "l0", "", "l2"]):
+        eng.submit(Request(f"r{i}", prompt=[7, i + 1], max_new_tokens=3,
+                           lora_id=lid, prefix_id="p2" if i % 2 else ""))
+        eng.run()
+    return ([(r.req_id, r.output, r.prefix_hit) for r in eng.done],
+            (eng.lora.hits, eng.lora.misses, eng.lora.merges),
+            (eng.prefix.hits, eng.prefix.misses))
+
+
+def phase_engine_reference(device):
+    """A tiny float32 Llama-3 through the engine on the card and on the
+    CPU from the same weights and adapters: the same tokens, order, prefix
+    flags and LoRA counters."""
+    import torch
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import InferenceEngine, Request
+    from repro_torch.serving.lora import LoraAdapter, make_random_adapter
+    from repro_torch.testing import tiny_config
+    cfg = tiny_config("llama3-8b", num_layers=2, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=device).load_params(cpu.params())
+    adapters = [make_random_adapter(f"l{i}", cpu.params(), seed=i)
+                for i in range(3)]
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        eng = InferenceEngine(model, max_slots=2, max_seq=96,
+                              lora_capacity=2, prefix_prompts={
+                                  "p1": list(range(10, 30)),
+                                  "p2": list(range(40, 70))})
+        for a in adapters:
+            eng.lora.register(LoraAdapter(a.lora_id, a.rank, {
+                n: (x.to(model.device), y.to(model.device))
+                for n, (x, y) in a.deltas.items()}, a.scale))
+        out[dev] = _engine_script(eng, Request)
+    same = out["cuda"] == out["cpu"]
+    log(f"[engine_reference] requests={len(out['cpu'][0])} "
+        f"order={[r[0] for r in out['cpu'][0]]} lora={out['cpu'][1]} "
+        f"prefix={out['cpu'][2]} identical={same}")
+    if not same:
+        raise AssertionError(f"engine on cuda differs from the CPU: "
+                             f"{out['cuda']} vs {out['cpu']}")
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -749,6 +1236,15 @@ def main() -> int:
         k["launches"] = path[k["name"]][k["name"]]
     phase_delta_tick(dev, W)
     phase_reference()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_kernels = phase_model_kernels(dev)
+    phase_full_width(dev)
+    launches_serve = phase_serve(dev)
+    for k in model_kernels:
+        k["launches"] = launches_serve[k["name"]]
+    kernels += model_kernels
+    phase_engine_reference(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,5 +1,6 @@
-"""The walk kernels on the card against their plain versions: the fused
-walk (with and without posterior tables) and the per-phase walk.
+"""The kernels on the card against their plain versions: the fused walk
+(with and without posterior tables), the per-phase walk, and the model
+kernels (RMSNorm, prefill attention, decode attention).
 
 Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` and skip elsewhere
 (the fixture decides, at run time).  On the card:
@@ -175,3 +176,144 @@ def test_phase_kernel_matches_plain_bitwise(dev, W, arrivals, posterior):
                          **dict(kw, valid=cpu(r["valid"]), **cpu_kw))
     for a, b in zip(k, p):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# model kernels: RMSNorm (K3), prefill attention (K4), decode attention (K5),
+# held to their plain versions at the JAX package's kernel tolerances
+# (tests/test_kernels.py: 2e-5 in float32, 2e-2 in bfloat16)
+
+from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                           device=dev).to(dtype)
+
+
+def _close(a, b, dtype):
+    torch.testing.assert_close(a.float(), b.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (4, 32, 128), (3, 5, 7, 64),
+                                   (37, 1000), (9, 4096), (5, 5000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = _normal(rng, shape, dtype, dev)
+    s = _normal(rng, shape[-1:], torch.float32, dev)
+    before = LAUNCHES[rms_kernel.NAME]
+    out = rms_ops.rmsnorm(x, s, eps=1e-5)
+    assert LAUNCHES[rms_kernel.NAME] == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, rmsnorm_ref(x, s, 1e-5), dtype)
+
+
+def _attention_plain(q, k, v, causal):
+    return fa_ops.flash_attention(q.cpu(), k.cpu(),
+                                  v.cpu(), causal=causal)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd", [
+    (1, 128, 128, 4, 4, 32),     # the JAX package's kernel test shapes
+    (2, 256, 256, 8, 2, 64),
+    (1, 64, 256, 4, 1, 128),
+    (1, 23, 23, 8, 2, 16),       # odd lengths
+    (2, 37, 70, 32, 8, 128),     # Llama-3 heads, ragged blocks
+    (1, 9, 9, 28, 4, 128),       # G = 7
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, H, K, hd,
+                                              dtype, causal):
+    rng = np.random.default_rng(Sq * 7 + Skv)
+    q = _normal(rng, (B, Sq, H, hd), dtype, dev)
+    k = _normal(rng, (B, Skv, K, hd), dtype, dev)
+    v = _normal(rng, (B, Skv, K, hd), dtype, dev)
+    before = LAUNCHES[fa_kernel.NAME]
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert LAUNCHES[fa_kernel.NAME] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out.cpu(), _attention_plain(q, k, v, causal), dtype)
+
+
+def test_flash_attention_kernel_takes_strided_operands(dev):
+    """q/k/v sliced out of one fused projection, as a model may pass them."""
+    rng = np.random.default_rng(3)
+    B, S, H, K, hd = 2, 40, 8, 2, 64
+    qkv = _normal(rng, (B, S, H + 2 * K, hd), torch.float32, dev)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    _close(out.cpu(), _attention_plain(q, k, v, True), torch.float32)
+
+
+@pytest.mark.parametrize("B,H,K,hd,Smax,pos", [
+    (2, 8, 4, 64, 512, 300),     # the JAX package's kernel test shapes
+    (1, 4, 4, 32, 256, 255),
+    (3, 6, 2, 128, 1024, 17),
+    (1, 32, 8, 128, 192, 100),   # the engine's shape
+    (2, 28, 4, 128, 77, 0),      # G = 7, odd Smax, first position
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_matches_plain(dev, B, H, K, hd, Smax, pos,
+                                               dtype):
+    rng = np.random.default_rng(Smax + pos)
+    q = _normal(rng, (B, 1, H, hd), dtype, dev)
+    kc = _normal(rng, (B, Smax, K, hd), dtype, dev)
+    vc = _normal(rng, (B, Smax, K, hd), dtype, dev)
+    before = LAUNCHES[dec_kernel.NAME]
+    out = dec_ops.decode_attention(q, kc, vc, pos)
+    assert LAUNCHES[dec_kernel.NAME] == before + 1
+    ref = dec_ops.decode_attention(q.cpu(), kc.cpu(),
+                                   vc.cpu(), pos)
+    _close(out.cpu(), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_per_row_lengths(dev, dtype):
+    """Per-(batch, KV head) lengths over caches laid out (B, K, Smax, hd)
+    in memory and passed as the transposed view the engine passes."""
+    rng = np.random.default_rng(11)
+    B, H, K, hd, Smax = 5, 16, 4, 128, 333
+    q = _normal(rng, (B, 1, H, hd), dtype, dev)
+    kc = _normal(rng, (B, K, Smax, hd), dtype, dev).transpose(1, 2)
+    vc = _normal(rng, (B, K, Smax, hd), dtype, dev).transpose(1, 2)
+    rows = torch.as_tensor(rng.integers(1, Smax + 1, B * K), device=dev,
+                           dtype=torch.int32)
+    out = dec_ops.decode_attention(q, kc, vc, lengths=rows)
+    G = H // K
+    rows = rows.cpu()
+    ref = decode_attention_ref(
+        q.cpu().reshape(B * K, G, hd),
+        kc.cpu().permute(0, 2, 1, 3).reshape(B * K, Smax, hd),
+        vc.cpu().permute(0, 2, 1, 3).reshape(B * K, Smax, hd), rows)
+    _close(out.cpu().reshape(B * K, G, hd), ref, dtype)
+
+
+def test_attention_kernels_refuse_misaligned_rows(dev):
+    """The kernels load 16 bytes at a time: a view whose rows do not start
+    16-byte aligned is refused, not read out of line."""
+    base = torch.zeros(1, 9, 2, 16 + 1, device=dev)
+    k = base[..., 1:]                 # rows 4 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_kernel.flash_attention_kernel(torch.zeros(1, 9, 4, 16, device=dev),
+                                         k, k, causal=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dec_kernel.decode_attention_kernel(
+            torch.zeros(1, 4, 16, device=dev), k, k,
+            torch.ones(2, dtype=torch.int32, device=dev))

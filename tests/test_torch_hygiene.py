@@ -114,3 +114,57 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             z(2, 4, 8), z(2, 4), z(2, 4, 5), None, None, None, None, i,
             z(4), torch.zeros(4, dtype=torch.bool), i, i, i, i, None,
             step0=0, n_steps=4, lanes_per_app=2, n_apps=2)
+
+
+# ---------------------------------------------------------------- model stack
+from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.testing import tiny_config  # noqa: E402
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
+    """The bindings take CUDA tensors only, and the ops take the plain
+    version only for a CPU tensor: any other device goes to the kernel
+    binding, which raises before anything is built."""
+    z = lambda *s, **kw: torch.zeros(*s, device=device, **kw)  # noqa: E731
+    calls = [lambda: rms_kernel.rmsnorm_kernel(z(4, 8), z(8), eps=1e-5),
+             lambda: fa_kernel.flash_attention_kernel(
+                 z(1, 5, 4, 16), z(1, 5, 2, 16), z(1, 5, 2, 16), causal=True),
+             lambda: dec_kernel.decode_attention_kernel(
+                 z(1, 4, 16), z(1, 9, 2, 16), z(1, 9, 2, 16),
+                 z(2, dtype=torch.int32))]
+    if device == "meta":
+        calls += [lambda: rmsnorm(z(2, 3, 8), z(8)),
+                  lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
+                                          z(1, 5, 2, 16)),
+                  lambda: decode_attention(z(1, 1, 4, 16), z(1, 9, 2, 16),
+                                           z(1, 9, 2, 16), 3)]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
+
+
+@pytest.mark.parametrize("family, item", [
+    ("moe", "item 14"), ("hybrid", "item 15"), ("ssm", "item 15"),
+    ("encdec", "item 16"), ("vlm", "item 16")])
+def test_unported_model_families_raise(family, item):
+    with pytest.raises(NotImplementedError, match=item):
+        build_model(tiny_config("llama3-8b").replace(family=family),
+                    device="cpu")
+
+
+def test_bf16_decode_scores_raise_and_model_defaults_to_cuda():
+    with pytest.raises(NotImplementedError, match="decode_f32_scores"):
+        build_model(tiny_config("llama3-8b", decode_f32_scores=False),
+                    device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(tiny_config("llama3-8b"))
+    assert build_model(tiny_config("llama3-8b"),
+                       device="cpu").embed.device.type == "cpu"

@@ -85,6 +85,8 @@ PEAK_F32_FLOPS = 67e12
 # model tolerance (tests/test_torch_model.py)
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MODEL_BF16_TOL = 5e-2
+# profiler sessions tried before a timing falls back to CUDA events
+PROFILER_SESSIONS = 5
 
 
 def log(*a) -> None:
@@ -108,12 +110,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def _profiled(fn, iters: int, keep, what: str):
     """Device events of ``iters`` calls of ``fn`` under torch.profiler that
-    ``keep`` selects.  A profiler session on this card's stack now and then
-    records no device activity at all (seen once in a row of sessions): a
-    session that saw none is run again, at most twice, and said so."""
+    ``keep`` selects, or None.  A profiler session on this card's stack now
+    and then records no device activity at all, several sessions in a row
+    at times: a session that saw none is run again, up to five sessions in
+    all, and said so.  None tells the caller to time with CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
+    for attempt in range(PROFILER_SESSIONS):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -123,15 +127,20 @@ def _profiled(fn, iters: int, keep, what: str):
         if evs:
             return evs
         log(f"[profiler] no {what} in session {attempt + 1}; profiling again")
-    raise AssertionError(f"the profiler saw no {what}")
+    log(f"[profiler] no {what} in {PROFILER_SESSIONS} sessions; timing with "
+        "CUDA events instead (host gaps between launches included)")
+    return None
 
 
 def device_ms(launch, kernel_name: str, iters: int = 10) -> float:
     """The kernel's own device time per launch (torch.profiler), free of
     the host gaps between launches that CUDA events also measure when the
-    wrapper's host work outlasts the kernel."""
+    wrapper's host work outlasts the kernel; CUDA events where the
+    profiler records nothing."""
     evs = _profiled(launch, iters, lambda e: kernel_name in e.key,
                     f"{kernel_name} launch")
+    if evs is None:
+        return cuda_time_ms(launch, iters)
     return sum(e.self_device_time_total for e in evs) / iters / 1e3
 
 
@@ -767,12 +776,15 @@ def phase_reference():
 
 def dev_ms_all(fn, iters: int = 10) -> float:
     """Device time per call of ``fn``, summed over every kernel and copy it
-    runs (torch.profiler): the time the card spends, free of host gaps."""
+    runs (torch.profiler): the time the card spends, free of host gaps;
+    CUDA events where the profiler records nothing."""
     import torch
     fn()
     torch.cuda.synchronize()
     evs = _profiled(fn, iters, lambda e: str(e.device_type).endswith("CUDA"),
                     "device work")
+    if evs is None:
+        return cuda_time_ms(fn, iters)
     return sum(e.self_device_time_total for e in evs) / iters / 1e3
 
 
@@ -1039,7 +1051,7 @@ def _profile_decode(model, caches, pos, step_ms):
     import torch
     from torch.profiler import ProfilerActivity, profile
     tok = torch.tensor([[7]], device=model.device)
-    for _ in range(3):        # see _profiled: a session may record nothing
+    for _ in range(PROFILER_SESSIONS):   # see _profiled
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1052,8 +1064,9 @@ def _profile_decode(model, caches, pos, step_ms):
         if evs:
             break
     if not evs:
-        raise AssertionError("the profiler saw no device work in a decode "
-                             "step")
+        log(f"[serve:decode_profile] not measured: the profiler saw no device "
+            f"work in {PROFILER_SESSIONS} sessions")
+        return
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     groups = {"matmul": ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                          "splitK", "matmul"),

@@ -50,7 +50,21 @@ Phases (any failure raises and the script exits non-zero):
    profiled;
 11. a tiny float32 Llama-3 through the engine on ``cuda`` and on the CPU:
    identical output tokens, completion order, prefix flags and LoRA
-   counters.
+   counters;
+12. hold the grouped expert matmul (K6) against its plain version on the
+   card at the reference's tolerances for it (1e-4 float32, 2e-2
+   bfloat16): Qwen1.5-MoE's decode and short-prefill products,
+   Phi-3.5-MoE's, the reference's test sweep and the tiny models' shapes,
+   in both dtypes, each timed beside its bound, its plain version and
+   ``torch.bmm``;
+13. Qwen1.5-MoE-A2.7B at full width cut to 2 of its 24 layers, in
+   float32: a 24-token prompt and 8 teacher-forced decode steps on
+   ``cuda`` (K3-K6) and on the CPU from the same weights: logits within
+   1e-4, and the tokens whose expert sets differ counted per layer;
+14. the MoE serve path: phase 10 on a full-width Qwen1.5-MoE-A2.7B (24
+   layers, bfloat16, random weights drawn on the card): every LLM request
+   served, K1 and K3-K6 launched; one decode step timed and profiled;
+15. phase 11 on a tiny float32 Qwen1.5-MoE.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -60,6 +74,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -85,8 +100,16 @@ PEAK_F32_FLOPS = 67e12
 # model tolerance (tests/test_torch_model.py)
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MODEL_BF16_TOL = 5e-2
-# profiler sessions tried before a timing falls back to CUDA events
+# the reference's grouped-matmul tolerances (tests/test_kernels.py) and its
+# float32 model tolerance (tests/test_torch_model.py)
+GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MODEL_F32_TOL = 1e-4
+# profiler sessions tried before a step profile says "not measured"
 PROFILER_SESSIONS = 5
+# cycles per second the stream-holding sleep kernel is sized with (at or
+# above the card's 1.98 GHz top SM clock, so the hold lasts at least as
+# long as asked)
+SLEEP_HZ = 2.0e9
 
 
 def log(*a) -> None:
@@ -108,49 +131,45 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _profiled(fn, iters: int, keep, what: str):
-    """Device events of ``iters`` calls of ``fn`` under torch.profiler that
-    ``keep`` selects, or None.  A profiler session on this card's stack now
-    and then records no device activity at all, several sessions in a row
-    at times: a session that saw none is run again, up to five sessions in
-    all, and said so.  None tells the caller to time with CUDA events."""
+def held_ms(fn, iters: int = 10) -> float:
+    """Device time per call of ``fn``: CUDA events around ``iters`` calls
+    that the host enqueues while a sleep kernel holds the stream, so the
+    calls run back to back on the card and no host gap between them is
+    timed.  (torch.profiler on this card's stack at times records fewer
+    or shorter launches than were made.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(PROFILER_SESSIONS):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if keep(e)]
-        if evs:
-            return evs
-        log(f"[profiler] no {what} in session {attempt + 1}; profiling again")
-    log(f"[profiler] no {what} in {PROFILER_SESSIONS} sessions; timing with "
-        "CUDA events instead (host gaps between launches included)")
-    return None
-
-
-def device_ms(launch, kernel_name: str, iters: int = 10) -> float:
-    """The kernel's own device time per launch (torch.profiler), free of
-    the host gaps between launches that CUDA events also measure when the
-    wrapper's host work outlasts the kernel; CUDA events where the
-    profiler records nothing."""
-    evs = _profiled(launch, iters, lambda e: kernel_name in e.key,
-                    f"{kernel_name} launch")
-    if evs is None:
-        return cuda_time_ms(launch, iters)
-    return sum(e.self_device_time_total for e in evs) / iters / 1e3
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    hold_s = 2 * (time.perf_counter() - t0) + 2e-3
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * SLEEP_HZ))
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if enqueue_s > hold_s:
+        log(f"[timing] enqueueing {iters} calls took {1e3 * enqueue_s:.3f} "
+            f"ms, longer than the {1e3 * hold_s:.3f} ms hold: host gaps may "
+            "be timed")
+    return e0.elapsed_time(e1) / iters
 
 
 def _sources():
     from repro_torch.kernels.decode_attention import kernel as dec_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     return walk_kernel.SOURCES + (rms_kernel.SOURCE, fa_kernel.SOURCE,
-                                  dec_kernel.SOURCE)
+                                  dec_kernel.SOURCE, gmm_kernel.SOURCE)
 
 
 def phase_build():
@@ -290,7 +309,7 @@ def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
     ops_ms = cuda_time_ms(lambda: call(ops.pdgraph_walk_ranked), iters=50)
     # the kernel's own device time (no host gaps), to tell whether the
     # event timings above are set by the host
-    dev_ms = device_ms(launch, "walk_fused_kernel")
+    dev_ms = held_ms(launch)
     plain_ms = cuda_time_ms(plain_call, iters=3, warmup=1)
     # the least the card could take: every input read once, every output
     # written once (of the override table, only the samples the counts
@@ -311,7 +330,7 @@ def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
         f"f32_ops={f_ops} i32_ops={i_ops}")
     log(f"{tag} kernel {ms:.4f} ms  ops {ops_ms:.4f} ms  plain "
         f"{plain_ms:.3f} ms  bound {bound_ms:.6f} ms ({bound_by})  "
-        f"profiled device ms/launch {dev_ms}")
+        f"held-stream device ms/launch {dev_ms}")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/pdgraph_walk/csrc/"
                       "walk_fused.cu",
@@ -326,8 +345,8 @@ def _check_phase_kernel(device, A, W, So, STEPS=64, split=16, shrink=4):
     launch by launch on the same state: steps 0..split, compaction of the
     survivors into N / shrink lanes, steps split..STEPS; then once
     single-phase with posterior tables.  Bitwise on cur, total, done and
-    the first-arrival times; each launch timed by the profiler's device
-    time (CUDA events on its wrapper printed beside); the bound from this
+    the first-arrival times; each launch timed on a held stream (CUDA
+    events on its free-running wrapper printed beside); the bound from this
     run's inputs and walker-steps."""
     import torch
     from repro_torch.core.pdgraph import ARRIVAL_NEVER
@@ -407,9 +426,9 @@ def _check_phase_kernel(device, A, W, So, STEPS=64, split=16, shrink=4):
                         f"walk_phase_ref (max abs err {d})")
             # the launches are short enough for the wrapper's host work to
             # set the event timing on a slow host: the kernel's time is
-            # the profiler's device time, the event time is printed beside
+            # taken on a held stream, the event time is printed beside
             t_launch = cuda_time_ms(launch, iters=50)
-            t_dev = device_ms(launch, "walk_phase_kernel")
+            t_dev = held_ms(launch)
             t_plain = cuda_time_ms(plain, iters=3, warmup=1)
             ms[run] += t_dev
             plain_ms[run] += t_plain
@@ -774,20 +793,6 @@ def phase_reference():
 # model kernels (K3-K5), the full-width check, the serve path
 
 
-def dev_ms_all(fn, iters: int = 10) -> float:
-    """Device time per call of ``fn``, summed over every kernel and copy it
-    runs (torch.profiler): the time the card spends, free of host gaps;
-    CUDA events where the profiler records nothing."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    evs = _profiled(fn, iters, lambda e: str(e.device_type).endswith("CUDA"),
-                    "device work")
-    if evs is None:
-        return cuda_time_ms(fn, iters)
-    return sum(e.self_device_time_total for e in evs) / iters / 1e3
-
-
 def _hold(tag, out, want, dtype_name, tol=None):
     """Raise unless ``out`` matches ``want`` at the dtype's tolerance;
     returns the max abs error."""
@@ -805,15 +810,15 @@ def _hold(tag, out, want, dtype_name, tol=None):
     return err
 
 
-def _timed(tag, launch, kernel_name, plain, library, n_bytes, flops=0.0,
+def _timed(tag, launch, plain, library, n_bytes, flops=0.0,
            flops_peak=PEAK_BF16_FLOPS):
-    """Kernel time per launch (profiler device time; CUDA events beside),
-    the plain version's and the library call's device time, and the bound
-    (bytes at the memory rate or FLOPs at ``flops_peak``)."""
+    """Kernel time per launch (on a held stream; free-running CUDA events
+    beside), the plain version's and the library call's device time, and
+    the bound (bytes at the memory rate or FLOPs at ``flops_peak``)."""
     ev = cuda_time_ms(launch, iters=20)
-    ms = device_ms(launch, kernel_name)
-    plain_ms = dev_ms_all(plain, iters=3)
-    library_ms = dev_ms_all(library)
+    ms = held_ms(launch)
+    plain_ms = held_ms(plain, iters=3)
+    library_ms = held_ms(library)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / flops_peak
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -822,6 +827,15 @@ def _timed(tag, launch, kernel_name, plain, library, n_bytes, flops=0.0,
         f"{bound_ms:.6f} ms ({bound_by}; bytes={n_bytes} flops={flops:.4g})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _free():
+    """Release the device memory of dropped models.  The engine and its
+    prefix cache refer to each other, so a served model outlives ``del``
+    until the cycle collector runs."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _randn(shape, dtype, gen, device):
@@ -842,7 +856,7 @@ def _check_rmsnorm(device, rows, D, dtype_name, seed=0):
     err = _hold(tag, kernel.rmsnorm_kernel(x, s, eps=1e-5),
                 ref.rmsnorm_ref(x, s, 1e-5), dtype_name)
     t = _timed(tag, lambda: kernel.rmsnorm_kernel(x, s, eps=1e-5),
-               "rmsnorm_kernel", lambda: ref.rmsnorm_ref(x, s, 1e-5),
+               lambda: ref.rmsnorm_ref(x, s, 1e-5),
                lambda: F.rms_norm(x, (D,), s_lib, 1e-5),
                n_bytes=2 * rows * D * x.element_size() + 4 * D)
     return dict(t, max_abs_err=err)
@@ -874,7 +888,6 @@ def _check_flash(device, B, Sq, Skv, H, K, hd, dtype_name, causal, seed=0):
              else Sq * Skv)
     t = _timed(tag, lambda: kernel.flash_attention_kernel(q, k, v,
                                                           causal=causal),
-               "flash_attention_kernel",
                lambda: ref.attention_ref(qf, kf, vf, causal=causal),
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=True),
@@ -918,7 +931,7 @@ def _check_decode(device, B, H, K, hd, Smax, lengths, dtype_name, seed=0):
     es = q.element_size()
     n_bytes = (2 * K * hd * es * int(lengths.sum()) + 2 * q.numel() * es
                + 4 * B * K)
-    t = _timed(tag, launch, "decode_attention_kernel", plain,
+    t = _timed(tag, launch, plain,
                lambda: F.scaled_dot_product_attention(
                    q4, kc, vc, attn_mask=mask, enable_gqa=True),
                n_bytes=n_bytes)
@@ -934,7 +947,18 @@ MODEL_KERNELS = {
     "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
                          "decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:63"),
+    "moe_gmm": ("src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+                "src/repro/kernels/moe_gmm/kernel.py:41"),
 }
+
+
+def _kernel_entry(name, r):
+    """One kernel's entry of the kernels line (launches filled later)."""
+    return {"name": name, "route": "cuda", "source": MODEL_KERNELS[name][0],
+            "replaces": MODEL_KERNELS[name][1], "launches": 0,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
 def phase_model_kernels(device):
@@ -968,12 +992,7 @@ def phase_model_kernels(device):
     for dt in ("bfloat16", "float32"):
         _check_decode(device, 1, 32, 8, 128, 192, [100], dt)
         _check_decode(device, 8, 32, 8, 128, 8192, long_lengths, dt)
-    return [{"name": name, "route": "cuda", "source": MODEL_KERNELS[name][0],
-             "replaces": MODEL_KERNELS[name][1], "launches": 0,
-             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-            for name, r in main.items()]
+    return [_kernel_entry(name, r) for name, r in main.items()]
 
 
 def _teacher_forced(model, prompt, forced):
@@ -1028,7 +1047,7 @@ def phase_full_width(device):
     log(f"[full_width] max_abs_err={err} greedy tokens agree at {agree} of "
         f"{a.shape[1]} steps; logits max |x| {float(b.abs().max())}")
     del card, cpu
-    torch.cuda.empty_cache()
+    _free()
 
 
 def _trace_llm_requests(n_apps, window, seed):
@@ -1044,14 +1063,14 @@ def _trace_llm_requests(n_apps, window, seed):
                if SUITE[inst.app_name].units[unit].backend.kind == "llm")
 
 
-def _profile_decode(model, caches, pos, step_ms):
+def _profile_decode(tag, model, caches, pos, step_ms):
     """One decode step under torch.profiler: device busy against the
     profiled wall and against ``step_ms`` (the unprofiled median step), and
-    the shares of matrix products, K3 and K5."""
+    the shares of matrix products and of each model kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     tok = torch.tensor([[7]], device=model.device)
-    for _ in range(PROFILER_SESSIONS):   # see _profiled
+    for _ in range(PROFILER_SESSIONS):   # a session may record no device work
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1064,18 +1083,18 @@ def _profile_decode(model, caches, pos, step_ms):
         if evs:
             break
     if not evs:
-        log(f"[serve:decode_profile] not measured: the profiler saw no device "
+        log(f"[{tag}:decode_profile] not measured: the profiler saw no device "
             f"work in {PROFILER_SESSIONS} sessions")
         return
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     groups = {"matmul": ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                          "splitK", "matmul"),
               "rmsnorm": ("rmsnorm_kernel",), "decode_attention":
-              ("decode_attention_kernel",)}
+              ("decode_attention_kernel",), "moe_gmm": ("moe_gmm_kernel",)}
     share = {g: sum(e.self_device_time_total for e in evs
                     if any(k in e.key for k in keys)) / 1e3
              for g, keys in groups.items()}
-    log(f"[serve:decode_profile] wall={wall:.3f} ms (profiled) device_busy="
+    log(f"[{tag}:decode_profile] wall={wall:.3f} ms (profiled) device_busy="
         f"{busy:.3f} ms ({100 * busy / wall:.1f} % of the profiled step, "
         f"{100 * busy / step_ms:.1f} % of the {step_ms:.3f} ms median step) "
         f"device_ops="
@@ -1084,20 +1103,41 @@ def _profile_decode(model, caches, pos, step_ms):
             for g, v in share.items()))
     for e in sorted(evs, key=lambda e: e.self_device_time_total,
                     reverse=True)[:10]:
-        log(f"[serve:decode_profile]   {e.key[:70]:70s} device="
+        log(f"[{tag}:decode_profile]   {e.key[:70]:70s} device="
             f"{e.self_device_time_total / 1e3:.4f} ms calls={e.count}")
+    host = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CPU")),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    log(f"[{tag}:decode_profile] host ops (profiled, self CPU time): "
+        f"{sum(e.count for e in host)} ops, "
+        f"{sum(e.self_cpu_time_total for e in host) / 1e3:.3f} ms; top: "
+        + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in host[:8]))
 
 
-def phase_serve(device):
-    """The slice's main path: serve on a full-width Llama-3-8B."""
+def _step_bytes(model):
+    """Weight bytes one decode step must read: every weight but the
+    embedding table, of which it reads one row."""
+    e = model.embed
+    return (sum(p.numel() * p.element_size() for p in model.parameters())
+            - e.numel() * e.element_size() + e.shape[1] * e.element_size())
+
+
+def phase_serve(device, arch):
+    """A main path: serve on a full-width ``arch`` (random weights drawn on
+    the card), counters reset and read around it; then one batch-1 decode
+    step timed and profiled."""
     import numpy as np
     import torch
     from repro_torch.config import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import serve
     from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
+    tag = "serve" if cfg.family == "dense" else f"serve_{cfg.family}"
     expected = _trace_llm_requests(10, 5.0, 0)
+    _free()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
@@ -1112,7 +1152,7 @@ def phase_serve(device):
     hits = sum(1 for r in done if r.prefix_hit)
     with_prefix = sum(1 for r in done if r.prefix_id)
     ttft = [r.ttft for r in done if r.ttft]
-    log(f"[serve] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+    log(f"[{tag}] {cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
         f"{cfg.dtype} params={sum(p.numel() for p in model.parameters())}: "
         f"apps={run.n_apps} requests_served={len(done)} of {expected} "
         f"(distinct ids {len({r.req_id for r in done})}) "
@@ -1121,20 +1161,21 @@ def phase_serve(device):
         f"lora_hits={eng.lora.hits} lora_misses={eng.lora.misses} "
         f"mean_ttft={1e3 * float(np.mean(ttft)):.3f} ms "
         f"init={run.init_s:.3f} s wall={wall:.1f} s "
-        f"max_memory_allocated={peak} launches={launches}")
+        f"max_memory_allocated={peak} (allocated before: {before}) "
+        f"launches={launches}")
     if len(done) != expected:
-        raise AssertionError(f"serve served {len(done)} of the trace's "
+        raise AssertionError(f"{tag} served {len(done)} of the trace's "
                              f"{expected} LLM requests")
     bad = [r.req_id for r in done
            if len(r.output) != r.max_new_tokens
            or not all(0 <= t < cfg.vocab_size for t in r.output)]
     if bad:
-        raise AssertionError(f"serve: requests with wrong outputs: {bad[:5]}")
+        raise AssertionError(f"{tag}: requests with wrong outputs: {bad[:5]}")
     need = [walk_kernel.NAME, "rmsnorm", "flash_attention",
-            "decode_attention"]
+            "decode_attention"] + (["moe_gmm"] if cfg.family == "moe" else [])
     missing = [k for k in need if launches.get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"serve did not launch {missing}: {launches}")
+        raise AssertionError(f"{tag} did not launch {missing}: {launches}")
     # one decode step at batch 1 of a slot 100 positions in
     prompt = torch.randint(1, cfg.vocab_size, (1, 100),
                            generator=torch.Generator().manual_seed(4))
@@ -1148,15 +1189,15 @@ def phase_serve(device):
         model.decode(caches, tok, 100 + i)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t1) * 1e3)
-    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    w = _step_bytes(model)
     median = statistics.median(steps[5:])
-    log(f"[serve:decode] ms per decode step median={median:.3f} "
+    log(f"[{tag}:decode] ms per decode step median={median:.3f} "
         f"min={min(steps[5:]):.3f} "
-        f"(batch 1, positions 105..124; weights {w} bytes, floor "
+        f"(batch 1, positions 105..124; weights read {w} bytes, floor "
         f"{1e3 * w / PEAK_BYTES_S:.3f} ms at {PEAK_BYTES_S:.3g} B/s)")
-    _profile_decode(model, caches, 125, median)
+    _profile_decode(tag, model, caches, 125, median)
     del run, eng, model, caches
-    torch.cuda.empty_cache()
+    _free()
     return launches
 
 
@@ -1182,8 +1223,8 @@ def _engine_script(eng, Request):
             (eng.prefix.hits, eng.prefix.misses))
 
 
-def phase_engine_reference(device):
-    """A tiny float32 Llama-3 through the engine on the card and on the
+def phase_engine_reference(device, arch):
+    """A tiny float32 ``arch`` through the engine on the card and on the
     CPU from the same weights and adapters: the same tokens, order, prefix
     flags and LoRA counters."""
     import torch
@@ -1191,7 +1232,7 @@ def phase_engine_reference(device):
     from repro_torch.serving.engine import InferenceEngine, Request
     from repro_torch.serving.lora import LoraAdapter, make_random_adapter
     from repro_torch.testing import tiny_config
-    cfg = tiny_config("llama3-8b", num_layers=2, dtype="float32")
+    cfg = tiny_config(arch, num_layers=2, dtype="float32")
     cpu = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
     card = build_model(cfg, device=device).load_params(cpu.params())
@@ -1209,12 +1250,132 @@ def phase_engine_reference(device):
                 for n, (x, y) in a.deltas.items()}, a.scale))
         out[dev] = _engine_script(eng, Request)
     same = out["cuda"] == out["cpu"]
-    log(f"[engine_reference] requests={len(out['cpu'][0])} "
+    log(f"[engine_reference:{arch}] requests={len(out['cpu'][0])} "
         f"order={[r[0] for r in out['cpu'][0]]} lora={out['cpu'][1]} "
         f"prefix={out['cpu'][2]} identical={same}")
     if not same:
-        raise AssertionError(f"engine on cuda differs from the CPU: "
+        raise AssertionError(f"{arch} engine on cuda differs from the CPU: "
                              f"{out['cuda']} vs {out['cpu']}")
+
+# --------------------------------------------------------------------------
+# the MoE family: K6, the full-width MoE check (the MoE serve path is
+# phase_serve on qwen2-moe-a2.7b)
+
+
+def _check_moe_gmm(device, E, C, D, N, dtype_name, seed=0):
+    """K6 against its plain version at one shape: x (E, C, D) normal, w
+    (E, D, N) at the experts' init scale 1/sqrt(D); timed beside its bound,
+    the plain version and ``torch.bmm``."""
+    import torch
+    from repro_torch.kernels.moe_gmm import kernel, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = _randn((E, C, D), dt, gen, device)
+    w = (torch.randn((E, D, N), generator=gen, device=device)
+         * D ** -0.5).to(dt)
+    tag = f"[kernel:moe_gmm E={E} C={C} D={D} N={N} {dtype_name}]"
+    err = _hold(tag, kernel.moe_gmm_kernel(x, w), ref.moe_gmm_ref(x, w),
+                dtype_name, tol=GMM_TOL[dtype_name])
+    t = _timed(tag, lambda: kernel.moe_gmm_kernel(x, w),
+               lambda: ref.moe_gmm_ref(x, w), lambda: torch.bmm(x, w),
+               n_bytes=x.element_size() * (x.numel() + w.numel()
+                                           + E * C * N),
+               flops=2.0 * E * C * D * N,
+               flops_peak=(PEAK_BF16_FLOPS if dtype_name == "bfloat16"
+                           else PEAK_F32_FLOPS))
+    return dict(t, max_abs_err=err)
+
+
+# (E, C, D, N): Qwen1.5-MoE's decode (C = 1) and short-prefill (C = 8)
+# products, wi/wg then wo; Phi-3.5-MoE's; the reference's test sweep
+# (tests/test_kernels.py); the tiny models'
+GMM_SHAPES = ((64, 1, 2048, 1408), (64, 1, 1408, 2048), (64, 8, 2048, 1408),
+              (64, 8, 1408, 2048), (16, 1, 4096, 6400), (16, 1, 6400, 4096),
+              (16, 8, 4096, 6400), (16, 8, 6400, 4096), (4, 64, 128, 256),
+              (2, 128, 256, 128), (8, 32, 64, 64), (16, 3, 64, 96),
+              (16, 3, 96, 64))
+
+
+def phase_moe_kernels(device):
+    """K6 against its plain version at every shape of ``GMM_SHAPES`` in
+    bfloat16 and float32; the kernels-line entry is the serve path's
+    decode shape in bfloat16."""
+    main = _check_moe_gmm(device, *GMM_SHAPES[0], "bfloat16")
+    for dt in ("bfloat16", "float32"):
+        for shape in GMM_SHAPES[int(dt == "bfloat16"):]:
+            _check_moe_gmm(device, *shape, dt)
+    return _kernel_entry("moe_gmm", main)
+
+
+def phase_moe_full_width(device):
+    """Qwen1.5-MoE widths at 2 of its 24 layers in float32 (a bf16
+    rounding near a top-4 tie would move a token to another expert and say
+    nothing about the kernels): the card (K3-K6) against the CPU (the
+    plain versions) from the same weights, with the tokens whose expert
+    sets differ counted per layer."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import moe as X
+    from repro_torch.models.model import build_model
+    cfg = get_config("qwen2-moe-a2.7b").replace(num_layers=2,
+                                                 dtype="float32")
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(1))
+    cpu = build_model(cfg, device="cpu").load_params(
+        {n: p.cpu() for n, p in card.params().items()})
+    log(f"[moe_full_width] {cfg.name} layers=2 d_model={cfg.d_model} "
+        f"experts={cfg.num_experts} top_k={cfg.top_k} vocab={cfg.vocab_size} "
+        f"{cfg.dtype}: weights "
+        f"{sum(p.numel() * p.element_size() for p in card.parameters())} "
+        f"bytes, built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 24), generator=gen)
+    forced = torch.randint(1, cfg.vocab_size, (1, 8), generator=gen)
+    routes = []
+    route = X.route
+
+    def recording(p, xf, c):            # each call's expert sets, per token
+        w, i = route(p, xf, c)
+        routes.append(i.sort(dim=-1).values.cpu())
+        return w, i
+
+    X.route = recording
+    try:
+        reset_launches()
+        a = _teacher_forced(card, prompt, forced)
+        launches = dict(LAUNCHES)
+        on_card = routes[:]
+        routes.clear()
+        t0 = time.perf_counter()
+        b = _teacher_forced(cpu, prompt, forced)
+        on_cpu = routes[:]
+    finally:
+        X.route = route
+    log(f"[moe_full_width] cpu run {time.perf_counter() - t0:.1f} s; card "
+        f"launches {launches}")
+    for name in ("rmsnorm", "flash_attention", "decode_attention", "moe_gmm"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"MoE full-width check did not launch {name}")
+    L = cfg.num_layers
+    if len(on_card) != len(on_cpu) or len(on_card) % L:
+        raise AssertionError(f"route calls differ: {len(on_card)} on the "
+                             f"card, {len(on_cpu)} on the CPU")
+    differ = [sum(int((on_card[j] != on_cpu[j]).any(-1).sum())
+                  for j in range(layer, len(on_card), L))
+              for layer in range(L)]
+    tokens = sum(int(r.shape[0]) for r in on_card[::L])
+    log(f"[moe_full_width] tokens whose expert sets differ, per layer: "
+        f"{differ} of {tokens} each")
+    err = _hold("[moe_full_width] logits (prefill + 8 decode steps)", a, b,
+                "float32", tol=MODEL_F32_TOL)
+    agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+    log(f"[moe_full_width] max_abs_err={err} greedy tokens agree at {agree} "
+        f"of {a.shape[1]} steps; logits max |x| {float(b.abs().max())}")
+    del card, cpu
+    _free()
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1253,11 +1414,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     model_kernels = phase_model_kernels(dev)
     phase_full_width(dev)
-    launches_serve = phase_serve(dev)
+    launches_serve = phase_serve(dev, "llama3-8b")
     for k in model_kernels:
         k["launches"] = launches_serve[k["name"]]
     kernels += model_kernels
-    phase_engine_reference(dev)
+    phase_engine_reference(dev, "llama3-8b")
+    moe_kernel = phase_moe_kernels(dev)
+    phase_moe_full_width(dev)
+    moe_kernel["launches"] = phase_serve(dev, "qwen2-moe-a2.7b")["moe_gmm"]
+    kernels.append(moe_kernel)
+    phase_engine_reference(dev, "qwen2-moe-a2.7b")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -30,6 +30,10 @@ def padded_vocab(v: int, multiple: int = 128) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
+def padded_experts(e: int, multiple: int = 16) -> int:
+    return ((e + multiple - 1) // multiple) * multiple
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 

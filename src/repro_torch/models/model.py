@@ -2,7 +2,7 @@
 ``prefill`` and ``decode``, and ``params_from_jax``.
 
 The port of the JAX package's ``models/model.py`` for decoder-only dense
-models.  ``Model`` owns its weights as an ``nn.Module`` on one device
+and MoE models.  ``Model`` owns its weights as an ``nn.Module`` on one device
 (``cuda`` unless the caller asks for the CPU).  ``prefill`` and ``decode``
 take an optional parameter set — a dict of tensors by parameter name, such
 as a merged LoRA set that replaces a few weights and shares the rest — that
@@ -35,7 +35,8 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family in ("encdec", "vlm"):
             raise T.unported(cfg.family)
-        T.layer_plan(cfg)          # raises for the other unported families
+        T.layer_plan(cfg)   # raises for the other unported families, and
+                            # for a moe config without experts
         if not cfg.decode_f32_scores:
             raise NotImplementedError(
                 "decode_f32_scores=False: the decode-attention kernel scores "
@@ -91,7 +92,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def load_params(self, params: Dict[str, Any]) -> "Model":
         """Copy a parameter set (tensors or arrays by name, every name of
-        the model) into the model's weights, cast to their dtypes."""
+        the model) into the model's weights, cast to their dtypes (norm
+        scales, the MoE router and shared gate stay float32)."""
         own = self.params()
         missing = sorted(set(own) - set(params))
         extra = sorted(set(params) - set(own))
@@ -186,9 +188,10 @@ def _np(a) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's dense parameter tree (arrays, e.g. numpy) as the
-    port's parameter names: ``layers/sub0/...`` unstacked along the leading
-    layer dim, every weight kept in its ``(in, out)`` orientation.  Values
+    """The JAX package's dense or moe parameter tree (arrays, e.g. numpy)
+    as the port's parameter names: ``layers/sub0/...`` unstacked along the
+    leading layer dim, every weight kept in its ``(in, out)`` orientation
+    (expert stacks ``(E, in, out)``, the router ``(D, num_experts)``).  Values
     come as float32 (bfloat16 widened exactly); ``Model.load_params``
     casts them to the model dtype."""
     t = lambda a: torch.tensor(_np(a))  # noqa: E731  (a copy)
@@ -198,12 +201,13 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out["lm_head"] = t(tree["lm_head"]["kernel"])
     subs = tree["layers"]
     if set(subs) != {"sub0"} or "attn" not in subs["sub0"] \
-            or "mlp" not in subs["sub0"]:
-        raise ValueError("params_from_jax takes a dense tree (one attention "
-                         "+ MLP sub-layer per period)")
+            or ("mlp" in subs["sub0"]) == ("moe" in subs["sub0"]):
+        raise ValueError("params_from_jax takes a dense or moe tree (one "
+                         "attention + MLP or MoE sub-layer per period)")
     sub = subs["sub0"]
+    ffn = "mlp" if "mlp" in sub else "moe"
     n = _np(sub["mixer_norm"]["scale"]).shape[0]
-    for group in ("mixer_norm", "attn", "ffn_norm", "mlp"):
+    for group in ("mixer_norm", "attn", "ffn_norm", ffn):
         for name, arr in sub[group].items():
             a = _np(arr)
             if a.shape[0] != n:

@@ -1,7 +1,9 @@
-"""The decoder stack of the dense family, its embedding and unembedding.
+"""The decoder stack of the dense and MoE families, its embedding and
+unembedding.
 
 The port of the JAX package's ``models/transformer.py`` for the ``dense``
-plan: decoder layers are ``nn.Module``s in an ``nn.ModuleList`` and the JAX
+and ``moe`` plans (one attention sub-layer, then an MLP or an MoE layer):
+decoder layers are ``nn.Module``s in an ``nn.ModuleList`` and the JAX
 ``lax.scan`` over stacked weights is a loop.  Modes: ``prefill`` (returns
 caches) and ``decode`` (one token, writes its keys and values into the
 caches in place).  The other families raise ``NotImplementedError``.
@@ -19,24 +21,31 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as X
 
 Caches = Dict[str, torch.Tensor]
 
 # the ROADMAP item that ports each family the port does not run yet
-FAMILY_ITEMS = {"moe": "item 14", "hybrid": "item 15", "ssm": "item 15",
-                "encdec": "item 16", "vlm": "item 16"}
+FAMILY_ITEMS = {"hybrid": "item 15", "ssm": "item 15", "encdec": "item 16",
+                "vlm": "item 16"}
 
 
 def unported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"model family {family!r} is not ported yet (ROADMAP.md, modules to "
-        f"port, {FAMILY_ITEMS[family]}); the port serves the dense family")
+        f"port, {FAMILY_ITEMS[family]}); the port serves the dense and moe "
+        "families")
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """(mixer, ffn) pattern for one period: the dense family only."""
-    if cfg.family in ("moe", "hybrid", "ssm"):
+    """(mixer, ffn) pattern for one period: the dense and moe families."""
+    if cfg.family in ("hybrid", "ssm"):
         raise unported(cfg.family)
+    if cfg.family == "moe":
+        if cfg.num_experts <= 0:
+            raise ValueError(f"{cfg.name}: the moe family needs "
+                             f"num_experts > 0, got {cfg.num_experts}")
+        return [("attn", "moe")]
     return [("attn", "dense")]
 
 
@@ -47,7 +56,11 @@ class DecoderLayer(nn.Module):
         self.mixer_norm = L.Norm(cfg.d_model, device, with_bias=gelu)
         self.attn = L.Attention(cfg, dtype, device)
         self.ffn_norm = L.Norm(cfg.d_model, device, with_bias=gelu)
-        self.mlp = L.MLP(cfg, cfg.d_ff, dtype, device)
+        (_, self.ffn), = layer_plan(cfg)
+        if self.ffn == "moe":
+            self.moe = X.MoE(cfg, dtype, device)
+        else:
+            self.mlp = L.MLP(cfg, cfg.d_ff, dtype, device)
 
     def run(self, x: torch.Tensor, cfg: ModelConfig, mode: str, rope,
             k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -68,7 +81,13 @@ class DecoderLayer(nn.Module):
             v_cache.copy_(v.transpose(1, 2))
         x = x + L.attn_out(self.attn, a)
         h = L.apply_norm(x, self.ffn_norm, cfg)
-        return x + L.mlp_apply(self.mlp, h, cfg)
+        if self.ffn == "dense":
+            return x + L.mlp_apply(self.mlp, h, cfg)
+        # the reference's rule: every expert on the token of a small decode
+        # step, the configured dispatch otherwise
+        small = mode == "decode" and h.shape[0] * h.shape[1] <= 16
+        apply = X.moe_apply_dense if small else X.moe_apply
+        return x + apply(self.moe, h, cfg)
 
 
 def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,

@@ -9,7 +9,7 @@ _TINY_COMMON = dict(remat=False, scan_layers=True, moe_impl="sort",
 
 def tiny_config(name: str, **extra) -> ModelConfig:
     """Reduced config of the same family as the full arch ``name`` (the
-    registered archs are dense: two layers, as the JAX package's
+    registered archs are dense or MoE: two layers, as the JAX package's
     ``tiny_config`` gives them)."""
     cfg = get_config(name)
     over = dict(

@@ -1,6 +1,7 @@
 """The kernels on the card against their plain versions: the fused walk
 (with and without posterior tables), the per-phase walk, and the model
-kernels (RMSNorm, prefill attention, decode attention).
+kernels (RMSNorm, prefill attention, decode attention, the grouped expert
+matmul).
 
 Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` and skip elsewhere
 (the fixture decides, at run time).  On the card:
@@ -317,3 +318,71 @@ def test_attention_kernels_refuse_misaligned_rows(dev):
         dec_kernel.decode_attention_kernel(
             torch.zeros(1, 4, 16, device=dev), k, k,
             torch.ones(2, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the grouped expert matmul (K6), held to its plain version at the JAX
+# package's tolerances for it (tests/test_kernels.py: 1e-4 in float32,
+# 2e-2 in bfloat16)
+
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref  # noqa: E402
+
+
+def _gmm_close(a, b, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("E,C,D,N", [
+    (4, 64, 128, 256),           # the JAX package's kernel test shapes
+    (2, 128, 256, 128),
+    (8, 32, 64, 64),
+    (64, 1, 2048, 1408),         # Qwen1.5-MoE decode: wi / wg, then wo
+    (64, 1, 1408, 2048),
+    (64, 8, 2048, 1408),         # its short prefill (C = 8)
+    (64, 8, 1408, 2048),
+    (16, 3, 64, 96),             # tiny models, ragged C and N tiles
+    (16, 13, 96, 64),
+    (5, 2, 8, 8),
+    (3, 37, 520, 200),           # D past a stage, N past a tile
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gmm_kernel_matches_plain(dev, E, C, D, N, dtype):
+    rng = np.random.default_rng(E + C + D + N)
+    x = _normal(rng, (E, C, D), dtype, dev)
+    w = (_normal(rng, (E, D, N), torch.float32, dev) * 0.1).to(dtype)
+    before = LAUNCHES[gmm_kernel.NAME]
+    out = gmm_ops.moe_gmm(x, w)
+    assert LAUNCHES[gmm_kernel.NAME] == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (E, C, N)
+    _gmm_close(out, moe_gmm_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gmm_kernel_takes_strided_token_buffers(dev, dtype):
+    """The MoE layer's operands: a buffer cut from (E, C + 1, D) and one
+    token row repeated across the experts (expert stride 0)."""
+    rng = np.random.default_rng(4)
+    E, C, D, N = 16, 8, 256, 96
+    w = (_normal(rng, (E, D, N), torch.float32, dev) * 0.1).to(dtype)
+    buf = _normal(rng, (E, C + 1, D), dtype, dev)[:, :C]
+    _gmm_close(gmm_ops.moe_gmm(buf, w), moe_gmm_ref(buf, w), dtype)
+    rep = _normal(rng, (1, D), dtype, dev).unsqueeze(0).expand(E, 1, D)
+    _gmm_close(gmm_ops.moe_gmm(rep, w), moe_gmm_ref(rep, w), dtype)
+
+
+def test_moe_gmm_kernel_refuses_what_it_cannot_take(dev):
+    x = torch.zeros(4, 2, 16, device=dev)
+    w = torch.zeros(4, 16, 24, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gmm_kernel.moe_gmm_kernel(torch.zeros(4, 2, 17, device=dev)[..., 1:],
+                                  w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm_kernel.moe_gmm_kernel(x, torch.zeros(4, 16, 20, device=dev))
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm_kernel.moe_gmm_kernel(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_kernel.moe_gmm_kernel(x, w.transpose(1, 2).contiguous()
+                                  .transpose(1, 2)[:, :, :16])

@@ -11,8 +11,9 @@ asserts that the JAX engine's smallest top-2 logit margin exceeds ten times
 the float32 logits tolerance of ``tests/test_torch_model.py`` (1e-4), so a
 flipped token can only be a defect.
 
-Also: ``serve.main`` on the CPU serves as many LLM requests as the JAX
-package's."""
+The same scenarios run on a tiny float32 Qwen1.5-MoE.  Also: ``serve.main``
+on the CPU serves as many LLM requests as the JAX package's, and the tiny
+MoE model serves every request of the ten-app trace."""
 import re
 
 import jax
@@ -38,15 +39,24 @@ LOGITS_TOL = 1e-4
 PREFIXES = {"p1": list(range(10, 30)), "p2": list(range(40, 70))}
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(arch):
     kw = dict(num_layers=2, dtype="float32")
-    jm = jax_build_model(jax_tiny_config("llama3-8b", **kw))
+    jm = jax_build_model(jax_tiny_config(arch, **kw))
     jp = jm.init(jax.random.PRNGKey(0))
-    pm = build_model(tiny_config("llama3-8b", **kw), device="cpu")
+    pm = build_model(tiny_config(arch, **kw), device="cpu")
     pm.load_params(params_from_jax(jax.tree_util.tree_map(np.asarray, jp)))
     adapters = [_adapter(jp, i) for i in range(3)]
     return jm, jp, pm, adapters
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("llama3-8b")
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    return _models("qwen2-moe-a2.7b")
 
 
 def _adapter(params, i, rank=8):
@@ -185,8 +195,7 @@ def _summary(eng):
             (eng.prefix.hits, eng.prefix.misses))
 
 
-@pytest.mark.parametrize("scenario", list(SCENARIOS))
-def test_engine_matches_jax(models, scenario):
+def _same_engine_run(models, scenario):
     fn, kw = SCENARIOS[scenario]
     jside, pside = _engines(models, **kw)
     if fn is None:
@@ -199,8 +208,29 @@ def test_engine_matches_jax(models, scenario):
     assert _summary(pside.eng) == _summary(jside.eng)
 
 
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_engine_matches_jax(models, scenario):
+    _same_engine_run(models, scenario)
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_moe_engine_matches_jax(moe_models, scenario):
+    """The tiny float32 Qwen1.5-MoE: LoRA merges touch ``attn.wq``/``wv``
+    as in the dense model; decode steps take the dense MoE dispatch and
+    prefills the sort dispatch, on both sides."""
+    _same_engine_run(moe_models, scenario)
+
+
 def _served(text):
     return int(re.search(r"(\d+) llm requests served", text).group(1))
+
+
+def test_serve_main_serves_the_moe_model(capsys):
+    """``serve`` on the tiny MoE model serves the trace's 43 distinct LLM
+    requests, as it does on the dense model."""
+    cfg = tiny_config("qwen2-moe-a2.7b")
+    assert serve.main(["--apps", "10"], cfg=cfg, device="cpu") == 0
+    assert _served(capsys.readouterr().out) == 43
 
 
 def test_serve_main_serves_as_many_requests_as_jax(capsys):

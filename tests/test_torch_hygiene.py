@@ -121,10 +121,13 @@ from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
+from repro_torch.kernels.moe_gmm.ops import moe_gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.testing import tiny_config  # noqa: E402
+from repro_torch.configs import MOE_ARCHS  # noqa: E402
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -138,13 +141,15 @@ def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
                  z(1, 5, 4, 16), z(1, 5, 2, 16), z(1, 5, 2, 16), causal=True),
              lambda: dec_kernel.decode_attention_kernel(
                  z(1, 4, 16), z(1, 9, 2, 16), z(1, 9, 2, 16),
-                 z(2, dtype=torch.int32))]
+                 z(2, dtype=torch.int32)),
+             lambda: gmm_kernel.moe_gmm_kernel(z(4, 2, 16), z(4, 16, 24))]
     if device == "meta":
         calls += [lambda: rmsnorm(z(2, 3, 8), z(8)),
                   lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
                                           z(1, 5, 2, 16)),
                   lambda: decode_attention(z(1, 1, 4, 16), z(1, 9, 2, 16),
-                                           z(1, 9, 2, 16), 3)]
+                                           z(1, 9, 2, 16), 3),
+                  lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24))]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
@@ -154,9 +159,18 @@ def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
     ("moe", "item 14"), ("hybrid", "item 15"), ("ssm", "item 15"),
     ("encdec", "item 16"), ("vlm", "item 16")])
 def test_unported_model_families_raise(family, item):
+    """The families still to port raise, naming their ROADMAP item.  The
+    moe family is ported (item 14): a dense config relabelled ``moe`` has
+    no experts and raises ``ValueError``; the MoE archs build."""
+    cfg = tiny_config("llama3-8b").replace(family=family)
+    if family == "moe":
+        with pytest.raises(ValueError, match="num_experts > 0"):
+            build_model(cfg, device="cpu")
+        for arch in MOE_ARCHS:
+            assert build_model(tiny_config(arch), device="cpu").layers[0].moe
+        return
     with pytest.raises(NotImplementedError, match=item):
-        build_model(tiny_config("llama3-8b").replace(family=family),
-                    device="cpu")
+        build_model(cfg, device="cpu")
 
 
 def test_bf16_decode_scores_raise_and_model_defaults_to_cuda():
@@ -168,3 +182,15 @@ def test_bf16_decode_scores_raise_and_model_defaults_to_cuda():
             build_model(tiny_config("llama3-8b"))
     assert build_model(tiny_config("llama3-8b"),
                        device="cpu").embed.device.type == "cpu"
+
+
+def test_moe_model_defaults_to_cuda():
+    """The full-width MoE config lands on the card when no device is
+    given (refused before any weight is allocated where there is none)."""
+    from repro_torch.config import get_config
+    if torch.cuda.is_available():
+        cfg = tiny_config("qwen2-moe-a2.7b")
+        assert build_model(cfg).layers[0].moe.wi.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(get_config("qwen2-moe-a2.7b"))

@@ -50,7 +50,8 @@ def _cache(caches, name):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-4b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-4b", "qwen2-moe-a2.7b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_prefill_and_decode_match_jax(name, dtype):
     jm, jp = _jax_model(name, dtype)
     pm = _port_model(name, dtype, jp)
@@ -113,8 +114,19 @@ def test_params_from_jax_names_and_orientation():
     ("internvl2-26b", "vlm", "item 16"),
 ])
 def test_unported_families_raise(arch, family, item):
+    """The families still to port raise, naming their ROADMAP item.  The
+    moe family, ported with item 14, builds on the CPU (tiny: an MoE layer
+    in every decoder layer), and a moe config without experts raises."""
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
     assert cfg.family == family
+    if family == "moe":
+        tiny = tiny_config(arch, dtype="float32")
+        m = build_model(tiny, device="cpu")
+        assert all(layer.ffn == "moe" and not hasattr(layer, "mlp")
+                   for layer in m.layers)
+        with pytest.raises(ValueError, match="num_experts"):
+            build_model(tiny.replace(num_experts=0), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg, device="cpu")
 
@@ -132,3 +144,45 @@ def test_init_draws_on_the_device_with_the_reference_scales():
     assert abs(std(a.layers[0].attn.wq) * 16 - 1) < 0.05
     assert abs(std(a.layers[1].mlp.wo) * np.sqrt(512) - 1) < 0.05
     assert torch.equal(a.layers[0].mixer_norm.scale, torch.ones(256))
+
+
+def test_params_from_jax_takes_an_moe_tree():
+    """The ``moe`` group: expert stacks (E, in, out), the router
+    (D, num_experts) and the shared weights (in, out), float32 router and
+    gate kept float32 in a bfloat16 model."""
+    jm, jp = _jax_model("qwen2-moe-a2.7b", "bfloat16")
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    conv = params_from_jax(tree)
+    pm = build_model(tiny_config("qwen2-moe-a2.7b", dtype="bfloat16"),
+                     device="cpu")
+    assert set(conv) == set(pm.params())
+    moe = tree["layers"]["sub0"]["moe"]
+    for name in ("wi", "wo", "router", "shared_wg", "shared_gate"):
+        np.testing.assert_array_equal(conv[f"layers.1.moe.{name}"].numpy(),
+                                      _f32(moe[name][1]))
+    assert tuple(conv["layers.0.moe.wi"].shape) == (16, 64, 96)
+    assert tuple(conv["layers.0.moe.wo"].shape) == (16, 96, 64)
+    assert tuple(conv["layers.0.moe.router"].shape) == (64, 4)
+    pm.load_params(conv)
+    assert pm.layers[0].moe.router.dtype == torch.float32
+    assert pm.layers[0].moe.shared_gate.dtype == torch.float32
+    assert pm.layers[0].moe.wi.dtype == torch.bfloat16
+
+
+def test_moe_init_draws_every_weight_with_the_reference_scales():
+    """No MoE weight is left to the norm fill of ones (``Model.init``
+    fills any parameter without an ``init_std``): router and gate std
+    1/sqrt(D), expert stacks 1/sqrt(D) in and 1/sqrt(Fe) out, shared
+    output 1/sqrt(Fs)."""
+    cfg = tiny_config("qwen2-moe-a2.7b", dtype="float32", d_model=256,
+                      d_ff_expert=384)
+    m = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    moe = m.layers[1].moe
+    want = {"router": 256, "wi": 256, "wg": 256, "wo": 384,
+            "shared_wi": 256, "shared_wg": 256, "shared_wo": 384,
+            "shared_gate": 256}
+    assert set(want) == {n for n, _ in moe.named_parameters()}
+    for name, fan_in in want.items():
+        t = getattr(moe, name)
+        assert abs(float(t.std()) * np.sqrt(fan_in) - 1) < 0.1, name
+        assert abs(float(t.mean())) < 0.1 / np.sqrt(fan_in), name

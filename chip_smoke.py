@@ -64,7 +64,23 @@ Phases (any failure raises and the script exits non-zero):
 14. the MoE serve path: phase 10 on a full-width Qwen1.5-MoE-A2.7B (24
    layers, bfloat16, random weights drawn on the card): every LLM request
    served, K1 and K3-K6 launched; one decode step timed and profiled;
-15. phase 11 on a tiny float32 Qwen1.5-MoE.
+15. phase 11 on a tiny float32 Qwen1.5-MoE;
+16. hold the SSD chunk scan (K7) against its plain chunked version on the
+   card at the reference's SSD tolerances (1e-4 float32, 5e-2 bfloat16),
+   y and the final state: the reference's test sweep, the SSM serve path's
+   prompts (S = 8, 24), mamba2-1.3b's widths at S = 2,048 and a ragged
+   S = 300, in both dtypes, each timed beside its bound and its plain
+   version (no single PyTorch call computes the scan);
+17. mamba2-1.3b at full width cut to 2 of its 48 layers, in float32: a
+   300-token prompt (two full chunks and a 44-token tail, through K7) and
+   8 teacher-forced decode steps on ``cuda`` and on the CPU from the same
+   weights: logits within 1e-4;
+18. the SSM serve path: phase 10 on a full-width mamba2-1.3b (48 layers,
+   bfloat16, random weights drawn on the card): every LLM request served,
+   K1, K3 and K7 launched; one decode step timed and profiled;
+19. phase 11 on a tiny float32 mamba2-1.3b and a tiny float32
+   jamba-1.5-large-398b (two periods of one attention and seven Mamba
+   layers, MoE in every second: K3-K7 in one model).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -104,6 +120,8 @@ MODEL_BF16_TOL = 5e-2
 # float32 model tolerance (tests/test_torch_model.py)
 GMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MODEL_F32_TOL = 1e-4
+# the reference's SSD scan tolerances (tests/test_kernels.py)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # profiler sessions tried before a step profile says "not measured"
 PROFILER_SESSIONS = 5
 # cycles per second the stream-holding sleep kernel is sized with (at or
@@ -168,8 +186,10 @@ def _sources():
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     return walk_kernel.SOURCES + (rms_kernel.SOURCE, fa_kernel.SOURCE,
-                                  dec_kernel.SOURCE, gmm_kernel.SOURCE)
+                                  dec_kernel.SOURCE, gmm_kernel.SOURCE,
+                                  ssd_kernel.SOURCE)
 
 
 def phase_build():
@@ -813,17 +833,18 @@ def _hold(tag, out, want, dtype_name, tol=None):
 def _timed(tag, launch, plain, library, n_bytes, flops=0.0,
            flops_peak=PEAK_BF16_FLOPS):
     """Kernel time per launch (on a held stream; free-running CUDA events
-    beside), the plain version's and the library call's device time, and
-    the bound (bytes at the memory rate or FLOPs at ``flops_peak``)."""
+    beside), the plain version's and the library call's device time (None
+    where no library call computes the function), and the bound (bytes at
+    the memory rate or FLOPs at ``flops_peak``)."""
     ev = cuda_time_ms(launch, iters=20)
     ms = held_ms(launch)
     plain_ms = held_ms(plain, iters=3)
-    library_ms = held_ms(library)
+    library_ms = None if library is None else held_ms(library)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / flops_peak
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"{tag} kernel {ms:.6f} ms (device; events {ev:.6f})  plain "
-        f"{plain_ms:.6f} ms  library {library_ms:.6f} ms  bound "
+        f"{plain_ms:.6f} ms  library {library_ms} ms  bound "
         f"{bound_ms:.6f} ms ({bound_by}; bytes={n_bytes} flops={flops:.4g})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -949,6 +970,16 @@ MODEL_KERNELS = {
                          "src/repro/kernels/decode_attention/kernel.py:63"),
     "moe_gmm": ("src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
                 "src/repro/kernels/moe_gmm/kernel.py:41"),
+    "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:63"),
+}
+# the model kernels each family's layers run
+FAMILY_KERNELS = {
+    "dense": ("rmsnorm", "flash_attention", "decode_attention"),
+    "moe": ("rmsnorm", "flash_attention", "decode_attention", "moe_gmm"),
+    "ssm": ("rmsnorm", "ssd_scan"),
+    "hybrid": ("rmsnorm", "flash_attention", "decode_attention", "moe_gmm",
+               "ssd_scan"),
 }
 
 
@@ -1003,8 +1034,11 @@ def _teacher_forced(model, prompt, forced):
     caches, logits = model.prefill(prompt)
     out = [logits.float().cpu()]
     big = model.new_caches(1, S + n)
-    for name in ("k", "v"):
-        big[name][:, :, :, :S] = caches[name]
+    for name, c in caches.items():
+        if name in ("k", "v"):
+            big[name][:, :, :, :S] = c
+        else:
+            big[name].copy_(c)
     for t in range(n):
         big, logits = model.decode(big, forced[:, t:t + 1], S + t)
         out.append(logits.float().cpu())
@@ -1115,12 +1149,18 @@ def _profile_decode(tag, model, caches, pos, step_ms):
                     f"x{e.count}" for e in host[:8]))
 
 
-def _step_bytes(model):
-    """Weight bytes one decode step must read: every weight but the
-    embedding table, of which it reads one row."""
+def _step_bytes(model, caches):
+    """Bytes one decode step must move: every weight read once (the
+    embedding table too where the unembedding is tied to it, else one row
+    of it), and each Mamba layer's state and conv windows read and written
+    (``caches``: the step's; the attention caches are not counted)."""
     e = model.embed
+    row = e.shape[1] * e.element_size()
+    table = 0 if model.lm_head is None else e.numel() * e.element_size()
+    state = sum(t.numel() * t.element_size() for n, t in caches.items()
+                if n not in ("k", "v"))
     return (sum(p.numel() * p.element_size() for p in model.parameters())
-            - e.numel() * e.element_size() + e.shape[1] * e.element_size())
+            - table + row + 2 * state)
 
 
 def phase_serve(device, arch):
@@ -1171,8 +1211,7 @@ def phase_serve(device, arch):
            or not all(0 <= t < cfg.vocab_size for t in r.output)]
     if bad:
         raise AssertionError(f"{tag}: requests with wrong outputs: {bad[:5]}")
-    need = [walk_kernel.NAME, "rmsnorm", "flash_attention",
-            "decode_attention"] + (["moe_gmm"] if cfg.family == "moe" else [])
+    need = [walk_kernel.NAME, *FAMILY_KERNELS[cfg.family]]
     missing = [k for k in need if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{tag} did not launch {missing}: {launches}")
@@ -1189,11 +1228,12 @@ def phase_serve(device, arch):
         model.decode(caches, tok, 100 + i)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t1) * 1e3)
-    w = _step_bytes(model)
+    w = _step_bytes(model, caches)
     median = statistics.median(steps[5:])
     log(f"[{tag}:decode] ms per decode step median={median:.3f} "
         f"min={min(steps[5:]):.3f} "
-        f"(batch 1, positions 105..124; weights read {w} bytes, floor "
+        f"(batch 1, positions 105..124; weights and state moved {w} bytes, "
+        f"floor "
         f"{1e3 * w / PEAK_BYTES_S:.3f} ms at {PEAK_BYTES_S:.3g} B/s)")
     _profile_decode(tag, model, caches, 125, median)
     del run, eng, model, caches
@@ -1228,11 +1268,12 @@ def phase_engine_reference(device, arch):
     CPU from the same weights and adapters: the same tokens, order, prefix
     flags and LoRA counters."""
     import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import InferenceEngine, Request
     from repro_torch.serving.lora import LoraAdapter, make_random_adapter
     from repro_torch.testing import tiny_config
-    cfg = tiny_config(arch, num_layers=2, dtype="float32")
+    cfg = tiny_config(arch, dtype="float32")
     cpu = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
     card = build_model(cfg, device=device).load_params(cpu.params())
@@ -1248,11 +1289,20 @@ def phase_engine_reference(device, arch):
             eng.lora.register(LoraAdapter(a.lora_id, a.rank, {
                 n: (x.to(model.device), y.to(model.device))
                 for n, (x, y) in a.deltas.items()}, a.scale))
+        reset_launches()
         out[dev] = _engine_script(eng, Request)
+        if dev == "cuda":
+            launches = dict(LAUNCHES)
     same = out["cuda"] == out["cpu"]
-    log(f"[engine_reference:{arch}] requests={len(out['cpu'][0])} "
+    log(f"[engine_reference:{arch}] layers={cfg.num_layers} "
+        f"requests={len(out['cpu'][0])} "
         f"order={[r[0] for r in out['cpu'][0]]} lora={out['cpu'][1]} "
-        f"prefix={out['cpu'][2]} identical={same}")
+        f"prefix={out['cpu'][2]} identical={same} card launches={launches}")
+    missing = [k for k in FAMILY_KERNELS[cfg.family]
+               if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{arch} engine on cuda did not launch "
+                             f"{missing}: {launches}")
     if not same:
         raise AssertionError(f"{arch} engine on cuda differs from the CPU: "
                              f"{out['cuda']} vs {out['cpu']}")
@@ -1377,6 +1427,124 @@ def phase_moe_full_width(device):
     _free()
 
 
+# --------------------------------------------------------------------------
+# the SSM family: K7, the full-width Mamba2 check (the SSM serve path is
+# phase_serve on mamba2-1.3b)
+
+
+def _ssd_inputs(device, B, S, H, P, N, dtype, gen):
+    """The reference test's distributions (tests/test_kernels.py): x, B, C
+    normal; dt uniform in [0.001, 0.1]; A in [-2, -0.5]."""
+    import torch
+    f32 = dict(generator=gen, device=device)
+    return (_randn((B, S, H, P), dtype, gen, device),
+            torch.rand((B, S, H), **f32) * 0.099 + 0.001,
+            -(torch.rand((H,), **f32) * 1.5 + 0.5),
+            _randn((B, S, N), dtype, gen, device),
+            _randn((B, S, N), dtype, gen, device))
+
+
+def _check_ssd(device, B, S, H, P, N, chunk, dtype_name, seed=0):
+    """K7 against the chunked plain version at one shape: y at the dtype's
+    SSD tolerance, the float32 final state at float32's in either dtype;
+    timed beside its bound and the plain version.  The bound counts each
+    input read and each output written once, and the FLOPs the chunked
+    algorithm needs at the reference's chunk: per (batch, chunk of Lc
+    positions) Lc (Lc + 1) N for the causal half of C B^T, which every head
+    shares, and per (batch, head, chunk) Lc (Lc + 1) P for its product with
+    x and 4 Lc N P for the state's read and update; at the bf16 tensor-core
+    rate for bf16 inputs, else the f32 rate."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel, ref
+    dt_ = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    args = _ssd_inputs(device, B, S, H, P, N, dt_, gen)
+    tag = (f"[kernel:ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk} "
+           f"{dtype_name}]")
+    y, final = kernel.ssd_scan_kernel(*args, chunk=chunk)
+    want_y, want_final = ref.ssd_chunked(*args, chunk)
+    err = max(_hold(f"{tag} y", y, want_y, dtype_name,
+                    tol=SSD_TOL[dtype_name]),
+              _hold(f"{tag} final_state", final, want_final, "float32",
+                    tol=SSD_TOL["float32"]))
+    es = args[0].element_size()
+    n_bytes = (2 * B * S * H * P * es + 2 * B * S * N * es + 4 * B * S * H
+               + 4 * H + 4 * B * H * N * P)
+    lens = [min(chunk, S - t0) for t0 in range(0, S, chunk)]
+    flops = float(B * sum(Lc * (Lc + 1) * (N + H * P) + 4 * H * Lc * N * P
+                          for Lc in lens))
+    t = _timed(tag, lambda: kernel.ssd_scan_kernel(*args, chunk=chunk),
+               lambda: ref.ssd_chunked(*args, chunk), None,
+               n_bytes=n_bytes, flops=flops,
+               flops_peak=(PEAK_BF16_FLOPS if dtype_name == "bfloat16"
+                           else PEAK_F32_FLOPS))
+    return dict(t, max_abs_err=err)
+
+
+# (B, S, H, P, N, chunk): the reference's test sweep (tests/test_kernels.py);
+# mamba2-1.3b's serve prompts, its widths at S = 2,048 and a ragged S = 300;
+# Jamba's head width P = 128 at its config's chunk (the kernel takes 64)
+SSD_SHAPES = ((1, 24, 64, 64, 128, 128), (1, 8, 64, 64, 128, 128),
+              (1, 2048, 64, 64, 128, 128), (1, 300, 64, 64, 128, 128),
+              (1, 128, 2, 32, 16, 32), (2, 256, 4, 64, 32, 64),
+              (1, 64, 8, 16, 8, 64), (1, 300, 8, 128, 128, 128))
+
+
+def phase_ssd_kernels(device):
+    """K7 against its plain version at every shape of ``SSD_SHAPES`` in
+    bfloat16 and float32; the kernels-line entry is the serve path's
+    24-token prefix prefill in bfloat16."""
+    main = _check_ssd(device, *SSD_SHAPES[0], "bfloat16")
+    for dt in ("bfloat16", "float32"):
+        for shape in SSD_SHAPES[int(dt == "bfloat16"):]:
+            _check_ssd(device, *shape, dt)
+    return _kernel_entry("ssd_scan", main)
+
+
+def phase_ssm_full_width(device):
+    """mamba2-1.3b widths at 2 of its 48 layers in float32: a 300-token
+    prompt (two full chunks of 128 and a 44-token tail: the carried state
+    and the ragged chunk, which the serve path's short prompts never
+    reach) and 8 teacher-forced decode steps, the card (K3, K7) against
+    the CPU (the plain versions) from the same weights."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import build_model
+    cfg = get_config("mamba2-1.3b").replace(num_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(1))
+    cpu = build_model(cfg, device="cpu").load_params(
+        {n: p.cpu() for n, p in card.params().items()})
+    log(f"[ssm_full_width] {cfg.name} layers=2 d_model={cfg.d_model} "
+        f"heads={cfg.ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
+        f"chunk={cfg.ssm_chunk} vocab={cfg.vocab_size} {cfg.dtype}: weights "
+        f"{sum(p.numel() * p.element_size() for p in card.parameters())} "
+        f"bytes, built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 300), generator=gen)
+    forced = torch.randint(1, cfg.vocab_size, (1, 8), generator=gen)
+    reset_launches()
+    a = _teacher_forced(card, prompt, forced)
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    b = _teacher_forced(cpu, prompt, forced)
+    log(f"[ssm_full_width] cpu run {time.perf_counter() - t0:.1f} s; card "
+        f"launches {launches}")
+    for name in FAMILY_KERNELS["ssm"]:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"SSM full-width check did not launch {name}")
+    err = _hold("[ssm_full_width] logits (prefill + 8 decode steps)", a, b,
+                "float32", tol=MODEL_F32_TOL)
+    agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+    log(f"[ssm_full_width] max_abs_err={err} greedy tokens agree at {agree} "
+        f"of {a.shape[1]} steps; logits max |x| "
+        f"{float(b[..., :cfg.vocab_size].abs().max())} (real vocab)")
+    del card, cpu
+    _free()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -1424,6 +1592,12 @@ def main() -> int:
     moe_kernel["launches"] = phase_serve(dev, "qwen2-moe-a2.7b")["moe_gmm"]
     kernels.append(moe_kernel)
     phase_engine_reference(dev, "qwen2-moe-a2.7b")
+    ssd_kernel = phase_ssd_kernels(dev)
+    phase_ssm_full_width(dev)
+    ssd_kernel["launches"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
+    kernels.append(ssd_kernel)
+    phase_engine_reference(dev, "mamba2-1.3b")
+    phase_engine_reference(dev, "jamba-1.5-large-398b")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``ModelConfig``, ``ShapeConfig`` and registry
 (the port imports nothing of that package).  ``repro_torch.configs``
-registers the dense configurations the port serves; the other families
-raise ``NotImplementedError`` when a model is built from them.
+registers the dense, MoE, SSM and hybrid configurations the port serves;
+the encoder-decoder and VLM families raise ``NotImplementedError`` when a
+model is built from them.
 """
 from __future__ import annotations
 

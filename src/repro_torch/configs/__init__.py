@@ -1,9 +1,11 @@
 """The configurations the port serves (one module per arch, as in the JAX
-package's ``configs``): the dense family and the MoE family.  The hybrid,
-SSM, encoder-decoder and VLM configurations are not registered here: their
-model families are not ported yet (ROADMAP.md)."""
+package's ``configs``): the dense, MoE, SSM and hybrid families.  The
+encoder-decoder and VLM configurations are not registered here: their model
+families are not ported yet (ROADMAP.md)."""
 from repro_torch.configs import (  # noqa: F401
+    jamba_1_5_large_398b,
     llama3_8b,
+    mamba2_1_3b,
     phi3_5_moe_42b_a6_6b,
     qwen2_7b,
     qwen2_moe_a2_7b,
@@ -13,3 +15,5 @@ from repro_torch.configs import (  # noqa: F401
 
 DENSE_ARCHS = ("qwen2-7b", "qwen3-4b", "llama3-8b", "yi-9b")
 MOE_ARCHS = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")
+SSM_ARCHS = ("mamba2-1.3b",)
+HYBRID_ARCHS = ("jamba-1.5-large-398b",)

@@ -1,0 +1,184 @@
+"""Mamba2 block (state-space duality, arXiv:2405.21060).
+
+The port of the JAX package's ``models/mamba.py``.  A prefill runs the
+chunked SSD scan through ``kernels.ssd_scan`` (the kernel on the card, its
+plain chunked version on the CPU; the JAX model computes the same function
+with ``ssd_chunked`` in XLA) and the gated RMSNorm through
+``kernels.rmsnorm``.  A decode step is one state update in plain tensor
+ops, as in the JAX package.
+
+Weights of one layer, ``(in, out)`` as there:
+  in_proj_{z,x}: (D, d_inner)       gate / value streams
+  in_proj_{b,c}: (D, N)             input / output SSM projections (G = 1)
+  in_proj_dt:    (D, H)             per-head timestep
+  conv_{x,b,c}:  (k, dim)           depthwise causal conv weights
+  dt_bias, a_log, d: (H,)           timestep bias, decay, skip (float32)
+  norm_scale:    (d_inner,)         gated RMSNorm (float32)
+  out_proj:      (d_inner, D)
+
+The decode caches of one layer are ``ssm`` (B, H, N, P) float32 and
+``conv_{x,b,c}`` (B, k - 1, dim): the last k - 1 activated inputs of each
+convolution, before the convolution.  ``mamba_decode`` updates them in
+place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.layers import new_param, rms_norm
+
+Cache = Dict[str, torch.Tensor]
+
+
+def _dt_bias(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """softplus^-1 of dt drawn log-uniform in [1e-3, 1e-1], as the
+    reference initialises ``dt_bias``."""
+    u = torch.empty(shape, dtype=torch.float32, device=device)
+    u.uniform_(math.log(1e-3), math.log(1e-1), generator=generator)
+    return torch.log(torch.expm1(torch.exp(u)))
+
+
+def _zeros(shape, generator: torch.Generator, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+class Mamba(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        D, din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        k = cfg.ssm_conv
+        f32 = torch.float32
+        self.in_proj_z = new_param((D, din), dtype, device)
+        self.in_proj_x = new_param((D, din), dtype, device)
+        self.in_proj_b = new_param((D, N), dtype, device)
+        self.in_proj_c = new_param((D, N), dtype, device)
+        self.in_proj_dt = new_param((D, H), dtype, device)
+        self.conv_x = new_param((k, din), dtype, device)
+        self.conv_b = new_param((k, N), dtype, device)
+        self.conv_c = new_param((k, N), dtype, device)
+        self.dt_bias = new_param((H,), f32, device)
+        self.a_log = new_param((H,), f32, device, 0.0)
+        self.d = new_param((H,), f32, device, 1.0)
+        self.norm_scale = new_param((din,), f32, device, 1.0)
+        self.out_proj = new_param((din, D), dtype, device)
+        # std of each weight drawn at init, and the leaves drawn otherwise
+        # (the JAX package's ``mamba_params``); ``d`` and ``norm_scale``
+        # are ones
+        s, sk = 1.0 / math.sqrt(D), 1.0 / math.sqrt(k)
+        self.init_std = {"in_proj_z": s, "in_proj_x": s, "in_proj_b": s,
+                         "in_proj_c": s, "in_proj_dt": s, "conv_x": sk,
+                         "conv_b": sk, "conv_c": sk,
+                         "out_proj": 1.0 / math.sqrt(din)}
+        self.init_fn = {"dt_bias": _dt_bias, "a_log": _zeros}
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) for every x (``F.softplus``
+    returns x itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv as the reference's k shifted adds (not
+    ``F.conv1d``, which cuDNN may run in TF32 and sums in another order).
+    x: (B, S, C), w: (k, C)."""
+    k = w.shape[0]
+    out = x * w[k - 1]
+    for i in range(1, k):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :-i, :]
+        out = out + shifted * w[k - 1 - i]
+    return out
+
+
+def _conv_step(state: torch.Tensor, xt: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """One decode step.  state: (B, k - 1, C) past inputs, shifted in place
+    to hold ``xt`` last; xt: (B, C).  Returns the conv output (B, C): a
+    float32 sum over the window, in xt's dtype."""
+    window = torch.cat([state, xt[:, None, :]], dim=1)           # (B, k, C)
+    out = (window.float() * w.float()).sum(dim=1).to(xt.dtype)
+    state.copy_(window[:, 1:, :])
+    return out
+
+
+def ssd_step(state: torch.Tensor, xt: torch.Tensor, dt: torch.Tensor,
+             A: torch.Tensor, Bt: torch.Tensor, Ct: torch.Tensor
+             ) -> torch.Tensor:
+    """One decode token, the state updated in place.  state: (B, H, N, P)
+    float32; xt: (B, H, P); dt: (B, H); Bt / Ct: (B, N).  Returns y
+    (B, H, P) in xt's dtype."""
+    dA = torch.exp(dt * A[None, :])                               # (B, H)
+    upd = torch.einsum("bn,bhp->bhnp", Bt.float(),
+                       (xt * dt[..., None]).float())
+    state.copy_(state * dA[:, :, None, None] + upd)
+    y = torch.einsum("bn,bhnp->bhp", Ct.float(), state)
+    return y.to(xt.dtype)
+
+
+def _window(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The last k - 1 rows of a (B, S, C), zero rows first where S < k - 1
+    (the causal conv's zero padding)."""
+    if a.shape[1] < k - 1:
+        a = F.pad(a, (0, 0, k - 1 - a.shape[1], 0))
+    return a[:, a.shape[1] - (k - 1):, :]
+
+
+def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
+                cache: Cache) -> torch.Tensor:
+    """Full sequence (prefill).  u: (B, S, D) -> (B, S, D); writes the
+    decode caches (``ssm``, ``conv_{x,b,c}``) into ``cache`` in place."""
+    Bsz, S, _ = u.shape
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    z = u @ p.in_proj_z
+    xa = F.silu(u @ p.in_proj_x)
+    ba = F.silu(u @ p.in_proj_b)
+    ca = F.silu(u @ p.in_proj_c)
+    dt = (u @ p.in_proj_dt).float()
+    x = _causal_conv(xa, p.conv_x).reshape(Bsz, S, H, P)
+    b = _causal_conv(ba, p.conv_b)
+    c = _causal_conv(ca, p.conv_c)
+    dt = softplus(dt + p.dt_bias[None, None, :])
+    A = -torch.exp(p.a_log)
+    y, final = ssd_scan(x, dt, A, b, c, chunk=cfg.ssm_chunk)
+    y = y + x * p.d[None, None, :, None].to(x.dtype)
+    y = y.reshape(Bsz, S, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
+    k = cfg.ssm_conv
+    cache["ssm"].copy_(final)
+    cache["conv_x"].copy_(_window(xa, k))
+    cache["conv_b"].copy_(_window(ba, k))
+    cache["conv_c"].copy_(_window(ca, k))
+    return y @ p.out_proj
+
+
+def mamba_decode(p: Mamba, cache: Cache, u: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One token.  u: (B, 1, D) -> (B, 1, D); ``cache`` updated in
+    place."""
+    Bsz = u.shape[0]
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    ut = u[:, 0, :]
+    z = ut @ p.in_proj_z
+    x = F.silu(ut @ p.in_proj_x)
+    b = F.silu(ut @ p.in_proj_b)
+    c = F.silu(ut @ p.in_proj_c)
+    dt = (ut @ p.in_proj_dt).float()
+    x = _conv_step(cache["conv_x"], x, p.conv_x)
+    b = _conv_step(cache["conv_b"], b, p.conv_b)
+    c = _conv_step(cache["conv_c"], c, p.conv_c)
+    dt = softplus(dt + p.dt_bias[None, :])
+    A = -torch.exp(p.a_log)
+    xh = x.reshape(Bsz, H, P)
+    y = ssd_step(cache["ssm"], xh, dt, A, b, c)
+    y = y + xh * p.d[None, :, None].to(xh.dtype)
+    y = y.reshape(Bsz, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
+    return (y @ p.out_proj)[:, None, :]

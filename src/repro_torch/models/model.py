@@ -1,17 +1,20 @@
 """Public model API: ``build_model(cfg) -> Model`` with ``init``,
 ``prefill`` and ``decode``, and ``params_from_jax``.
 
-The port of the JAX package's ``models/model.py`` for decoder-only dense
-and MoE models.  ``Model`` owns its weights as an ``nn.Module`` on one device
-(``cuda`` unless the caller asks for the CPU).  ``prefill`` and ``decode``
-take an optional parameter set — a dict of tensors by parameter name, such
-as a merged LoRA set that replaces a few weights and shares the rest — that
-stands in for the model's own weights during the call.
+The port of the JAX package's ``models/model.py`` for decoder-only dense,
+MoE, SSM and hybrid models.  ``Model`` owns its weights as an
+``nn.Module`` on one device (``cuda`` unless the caller asks for the CPU).
+``prefill`` and ``decode`` take an optional parameter set — a dict of
+tensors by parameter name, such as a merged LoRA set that replaces a few
+weights and shares the rest — that stands in for the model's own weights
+during the call.
 
 Batch layouts
   prefill: tokens (B, S) -> (caches, last-position logits (B, 1, V) f32)
   decode:  (caches, token (B, 1), pos) -> (caches, logits (B, 1, V) f32);
            the caches are written in place and returned
+Caches are a dict by kind (``transformer.py``): ``k``/``v`` for the
+attention layers, ``ssm`` and ``conv_{x,b,c}`` for the Mamba layers.
 """
 from __future__ import annotations
 
@@ -33,10 +36,8 @@ Params = Dict[str, torch.Tensor]
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.family in ("encdec", "vlm"):
-            raise T.unported(cfg.family)
-        T.layer_plan(cfg)   # raises for the other unported families, and
-                            # for a moe config without experts
+        kinds = T.layer_kinds(cfg)  # raises for the unported families
+                                    # and for a config its family cannot run
         if not cfg.decode_f32_scores:
             raise NotImplementedError(
                 "decode_f32_scores=False: the decode-attention kernel scores "
@@ -50,8 +51,9 @@ class Model(nn.Module):
         self.final_norm = L.Norm(D, dev, with_bias=(cfg.act == "gelu"))
         self.lm_head = (None if cfg.tie_embeddings
                         else L.new_param((D, V), dt, dev))
-        self.layers = nn.ModuleList(T.DecoderLayer(cfg, dt, dev)
-                                    for _ in range(cfg.num_layers))
+        self.layers = T.build_layers(cfg, dt, dev)
+        self.n_attn = sum(m == "attn" for m, _ in kinds)
+        self.n_mamba = len(kinds) - self.n_attn
         self._slots = {name: (mod, attr)
                        for mod_name, mod in self.named_modules()
                        for attr, _ in mod.named_parameters(recurse=False)
@@ -68,14 +70,22 @@ class Model(nn.Module):
         """Draw every weight from ``generator`` (on the model's device) with
         the JAX package's scales: normal in float32 times the scale, cast to
         the model dtype, one tensor at a time (so the largest float32
-        temporary is one weight, the embedding); norms ones, biases zeros."""
+        temporary is one weight, the embedding); a module's ``init_fn``
+        leaves (the Mamba ``dt_bias`` and ``a_log``) as that function
+        draws them; norms ones, biases zeros."""
         stds = {"embed": 0.02}
+        fns = {}
         if self.lm_head is not None:
             stds["lm_head"] = 1.0 / np.sqrt(self.cfg.d_model)
         for mod_name, mod in self.named_modules():
             for name, std in getattr(mod, "init_std", {}).items():
                 stds[f"{mod_name}.{name}"] = std
+            for name, fn in getattr(mod, "init_fn", {}).items():
+                fns[f"{mod_name}.{name}"] = fn
         for name, p in self.named_parameters():
+            if name in fns:
+                p.copy_(fns[name](p.shape, generator, p.device))
+                continue
             if name not in stds:        # norm scales, biases
                 p.fill_(0.0 if name.split(".")[-1].startswith("b") else 1.0)
                 continue
@@ -93,7 +103,8 @@ class Model(nn.Module):
     def load_params(self, params: Dict[str, Any]) -> "Model":
         """Copy a parameter set (tensors or arrays by name, every name of
         the model) into the model's weights, cast to their dtypes (norm
-        scales, the MoE router and shared gate stay float32)."""
+        scales, the MoE router and shared gate and the Mamba ``dt_bias``,
+        ``a_log`` and ``d`` stay float32)."""
         own = self.params()
         missing = sorted(set(own) - set(params))
         extra = sorted(set(params) - set(own))
@@ -130,17 +141,31 @@ class Model(nn.Module):
         return self.embed.t() if self.lm_head is None else self.lm_head
 
     def new_caches(self, batch: int, seq: int) -> T.Caches:
+        """Zeroed caches for ``batch`` rows of ``seq`` positions (the JAX
+        package's ``cache_spec``, stacked by kind)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, seq,
-                 cfg.resolved_head_dim())
-        return {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for n in ("k", "v")}
+        z = lambda *s, dtype=self.dtype: torch.zeros(  # noqa: E731
+            s, dtype=dtype, device=self.device)
+        caches = {}
+        if self.n_attn:
+            for n in T.ATTN_CACHES:
+                caches[n] = z(self.n_attn, batch, cfg.num_kv_heads, seq,
+                              cfg.resolved_head_dim())
+        if self.n_mamba:
+            k1 = cfg.ssm_conv - 1
+            caches["ssm"] = z(self.n_mamba, batch, cfg.ssm_heads,
+                              cfg.ssm_state, cfg.ssm_head_dim,
+                              dtype=torch.float32)
+            caches["conv_x"] = z(self.n_mamba, batch, k1, cfg.d_inner)
+            caches["conv_b"] = z(self.n_mamba, batch, k1, cfg.ssm_state)
+            caches["conv_c"] = z(self.n_mamba, batch, k1, cfg.ssm_state)
+        return caches
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, params: Optional[Params] = None
                 ) -> Tuple[T.Caches, torch.Tensor]:
-        """tokens (B, S) -> (caches (L, B, K, S, hd), last-position logits
-        (B, 1, V) float32)."""
+        """tokens (B, S) -> (caches, last-position logits (B, 1, V)
+        float32)."""
         tokens = tokens.to(self.device)
         B, S = tokens.shape
         with self._using(params):
@@ -158,10 +183,11 @@ class Model(nn.Module):
                params: Optional[Params] = None
                ) -> Tuple[T.Caches, torch.Tensor]:
         """token (B, 1) at position ``pos`` (the current length): writes its
-        keys and values into ``caches`` at ``pos`` in place and returns
-        ``(caches, logits (B, 1, V) float32)``."""
+        keys and values into ``caches`` at ``pos`` and advances the Mamba
+        states, in place, and returns ``(caches, logits (B, 1, V)
+        float32)``."""
         pos = int(pos)
-        if not 0 <= pos < caches["k"].shape[3]:
+        if "k" in caches and not 0 <= pos < caches["k"].shape[3]:
             raise ValueError(f"decode position {pos} outside the caches' "
                              f"{caches['k'].shape[3]} positions")
         token = token.to(self.device)
@@ -188,31 +214,39 @@ def _np(a) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's dense or moe parameter tree (arrays, e.g. numpy)
-    as the port's parameter names: ``layers/sub0/...`` unstacked along the
-    leading layer dim, every weight kept in its ``(in, out)`` orientation
-    (expert stacks ``(E, in, out)``, the router ``(D, num_experts)``).  Values
-    come as float32 (bfloat16 widened exactly); ``Model.load_params``
-    casts them to the model dtype."""
+    """The JAX package's parameter tree (arrays, e.g. numpy) of a dense,
+    moe, ssm or hybrid model as the port's parameter names: the stacked
+    leaves of ``layers/sub<i>/...`` unstacked along their leading period
+    dim, period ``p`` sub-layer ``i`` becoming layer ``p * period + i``;
+    every weight kept in its ``(in, out)`` orientation (expert stacks
+    ``(E, in, out)``, the router ``(D, num_experts)``).  Values come as
+    float32 (bfloat16 widened exactly); ``Model.load_params`` casts them to
+    the model dtype."""
     t = lambda a: torch.tensor(_np(a))  # noqa: E731  (a copy)
     out = {"embed": t(tree["embed"]["table"]),
            "final_norm.scale": t(tree["final_norm"]["scale"])}
     if "lm_head" in tree:
         out["lm_head"] = t(tree["lm_head"]["kernel"])
     subs = tree["layers"]
-    if set(subs) != {"sub0"} or "attn" not in subs["sub0"] \
-            or ("mlp" in subs["sub0"]) == ("moe" in subs["sub0"]):
-        raise ValueError("params_from_jax takes a dense or moe tree (one "
-                         "attention + MLP or MoE sub-layer per period)")
-    sub = subs["sub0"]
-    ffn = "mlp" if "mlp" in sub else "moe"
-    n = _np(sub["mixer_norm"]["scale"]).shape[0]
-    for group in ("mixer_norm", "attn", "ffn_norm", ffn):
-        for name, arr in sub[group].items():
-            a = _np(arr)
-            if a.shape[0] != n:
-                raise ValueError(f"{group}/{name}: leading dim {a.shape[0]} "
-                                 f"!= {n} layers")
-            for i in range(n):
-                out[f"layers.{i}.{group}.{name}"] = t(a[i])
+    period = len(subs)
+    if set(subs) != {f"sub{i}" for i in range(period)}:
+        raise ValueError(f"params_from_jax: sub-layers {sorted(subs)} are "
+                         "not sub0..sub<n-1>")
+    n = None
+    for i in range(period):
+        sub = subs[f"sub{i}"]
+        if ("attn" in sub) == ("mamba" in sub) or ("mlp" in sub and
+                                                   "moe" in sub):
+            raise ValueError(f"params_from_jax: sub{i} must hold one mixer "
+                             "(attn or mamba) and at most one FFN (mlp or "
+                             f"moe), got {sorted(sub)}")
+        for group in sub:
+            for name, arr in sub[group].items():
+                a = _np(arr)
+                n = a.shape[0] if n is None else n
+                if a.shape[0] != n:
+                    raise ValueError(f"sub{i}/{group}/{name}: leading dim "
+                                     f"{a.shape[0]} != {n} periods")
+                for p in range(n):
+                    out[f"layers.{p * period + i}.{group}.{name}"] = t(a[p])
     return out

@@ -1,16 +1,23 @@
-"""The decoder stack of the dense and MoE families, its embedding and
-unembedding.
+"""The decoder stack of the dense, MoE, SSM and hybrid families, its
+embedding and unembedding.
 
-The port of the JAX package's ``models/transformer.py`` for the ``dense``
-and ``moe`` plans (one attention sub-layer, then an MLP or an MoE layer):
-decoder layers are ``nn.Module``s in an ``nn.ModuleList`` and the JAX
-``lax.scan`` over stacked weights is a loop.  Modes: ``prefill`` (returns
-caches) and ``decode`` (one token, writes its keys and values into the
-caches in place).  The other families raise ``NotImplementedError``.
+The port of the JAX package's ``models/transformer.py``.  A layer's mixer
+is attention or a Mamba2 block and its FFN none, a dense MLP or an MoE
+layer, after the family's plan (one period: ``dense`` and ``moe`` one
+attention layer, ``ssm`` one Mamba layer, ``hybrid`` ``attn_every`` layers,
+attention first).  Decoder layers are ``nn.Module``s in an
+``nn.ModuleList``, period after period: port layer ``j`` is period
+``j // len(plan)``, sub-layer ``j % len(plan)`` of the JAX tree, whose
+``lax.scan`` over stacked weights is a loop here.  Modes: ``prefill``
+(writes the caches) and ``decode`` (one token, updates the caches in
+place).  The encoder-decoder and VLM families raise
+``NotImplementedError``.
 
-Caches are ``{"k": (L, B, K, S, hd), "v": ...}`` in the model dtype: laid out
-per KV head so the decode-attention kernel reads each head's positions
-contiguously, with no per-step transpose.
+Caches are a dict by kind, each stacked over the layers of that kind:
+``k``/``v`` ``(n_attn, B, K, S, hd)`` in the model dtype, laid out per KV
+head so the decode-attention kernel reads each head's positions
+contiguously; ``ssm`` ``(n_mamba, B, H, N, P)`` float32 and ``conv_x``/
+``conv_b``/``conv_c`` ``(n_mamba, B, k - 1, dim)`` in the model dtype.
 """
 from __future__ import annotations
 
@@ -21,26 +28,43 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
 
 Caches = Dict[str, torch.Tensor]
 
 # the ROADMAP item that ports each family the port does not run yet
-FAMILY_ITEMS = {"hybrid": "item 15", "ssm": "item 15", "encdec": "item 16",
-                "vlm": "item 16"}
+FAMILY_ITEMS = {"encdec": "item 16", "vlm": "item 16"}
+ATTN_CACHES = ("k", "v")
+MAMBA_CACHES = ("ssm", "conv_x", "conv_b", "conv_c")
 
 
 def unported(family: str) -> NotImplementedError:
     return NotImplementedError(
         f"model family {family!r} is not ported yet (ROADMAP.md, modules to "
-        f"port, {FAMILY_ITEMS[family]}); the port serves the dense and moe "
-        "families")
+        f"port, {FAMILY_ITEMS[family]}); the port serves the dense, moe, "
+        "ssm and hybrid families")
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """(mixer, ffn) pattern for one period: the dense and moe families."""
-    if cfg.family in ("hybrid", "ssm"):
+    """(mixer, ffn) pattern for one period."""
+    if cfg.family in FAMILY_ITEMS:
         raise unported(cfg.family)
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_state <= 0:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs "
+                         f"ssm_state > 0, got {cfg.ssm_state}")
+    if cfg.family == "ssm":
+        return [("mamba", "none")]
+    if cfg.family == "hybrid":
+        if cfg.attn_every <= 0:
+            raise ValueError(f"{cfg.name}: the hybrid family needs "
+                             f"attn_every > 0, got {cfg.attn_every}")
+        plan = []
+        for i in range(cfg.attn_every):
+            mixer = "attn" if i % cfg.attn_every == 0 else "mamba"
+            moe = (i % cfg.moe_every == cfg.moe_every - 1) and cfg.num_experts
+            plan.append((mixer, "moe" if moe else "dense"))
+        return plan
     if cfg.family == "moe":
         if cfg.num_experts <= 0:
             raise ValueError(f"{cfg.name}: the moe family needs "
@@ -49,37 +73,64 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return [("attn", "dense")]
 
 
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(mixer, ffn) of every layer, period after period."""
+    plan = layer_plan(cfg)
+    if cfg.num_layers % len(plan):
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole "
+                         f"periods of {len(plan)}")
+    return [plan[j % len(plan)] for j in range(cfg.num_layers)]
+
+
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: Tuple[str, str],
+                 cache_index: int, dtype, device):
         super().__init__()
         gelu = cfg.act == "gelu"
+        self.mixer, self.ffn = kind
+        # this layer's index in the caches of its mixer's kind
+        self.cache_index = cache_index
         self.mixer_norm = L.Norm(cfg.d_model, device, with_bias=gelu)
-        self.attn = L.Attention(cfg, dtype, device)
-        self.ffn_norm = L.Norm(cfg.d_model, device, with_bias=gelu)
-        (_, self.ffn), = layer_plan(cfg)
+        if self.mixer == "attn":
+            self.attn = L.Attention(cfg, dtype, device)
+        else:
+            self.mamba = M.Mamba(cfg, dtype, device)
+        if self.ffn != "none":
+            self.ffn_norm = L.Norm(cfg.d_model, device, with_bias=gelu)
         if self.ffn == "moe":
             self.moe = X.MoE(cfg, dtype, device)
-        else:
+        elif self.ffn == "dense":
             self.mlp = L.MLP(cfg, cfg.d_ff, dtype, device)
 
     def run(self, x: torch.Tensor, cfg: ModelConfig, mode: str, rope,
-            k_cache: torch.Tensor, v_cache: torch.Tensor,
-            pos: Optional[int] = None,
+            caches: Caches, pos: Optional[int] = None,
             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``prefill``: writes k/v of every position into the caches (B, K,
-        S, hd); ``decode``: writes position ``pos`` and attends over the
-        first ``lengths`` positions."""
+        """``prefill``: writes this layer's caches (k/v of every position,
+        or the Mamba state and conv windows); ``decode``: writes position
+        ``pos`` and attends over the first ``lengths`` positions, or
+        advances the Mamba state by one token."""
+        i = self.cache_index
         h = L.apply_norm(x, self.mixer_norm, cfg)
-        q, k, v = L.qkv_project(self.attn, h, cfg, rope)
-        if mode == "decode":
-            k_cache[:, :, pos] = k[:, 0]
-            v_cache[:, :, pos] = v[:, 0]
-            a = L.decode_step_attention(q, k_cache, v_cache, lengths)
+        if self.mixer == "attn":
+            k_cache, v_cache = caches["k"][i], caches["v"][i]
+            q, k, v = L.qkv_project(self.attn, h, cfg, rope)
+            if mode == "decode":
+                k_cache[:, :, pos] = k[:, 0]
+                v_cache[:, :, pos] = v[:, 0]
+                a = L.decode_step_attention(q, k_cache, v_cache, lengths)
+            else:
+                a = L.prefill_attention(q, k, v)
+                k_cache.copy_(k.transpose(1, 2))
+                v_cache.copy_(v.transpose(1, 2))
+            x = x + L.attn_out(self.attn, a)
         else:
-            a = L.prefill_attention(q, k, v)
-            k_cache.copy_(k.transpose(1, 2))
-            v_cache.copy_(v.transpose(1, 2))
-        x = x + L.attn_out(self.attn, a)
+            cache = {n: caches[n][i] for n in MAMBA_CACHES}
+            if mode == "decode":
+                x = x + M.mamba_decode(self.mamba, cache, h, cfg)
+            else:
+                x = x + M.mamba_apply(self.mamba, h, cfg, cache)
+        if self.ffn == "none":
+            return x
         h = L.apply_norm(x, self.ffn_norm, cfg)
         if self.ffn == "dense":
             return x + L.mlp_apply(self.mlp, h, cfg)
@@ -90,18 +141,28 @@ class DecoderLayer(nn.Module):
         return x + apply(self.moe, h, cfg)
 
 
+def build_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
+    counts = {"attn": 0, "mamba": 0}
+    layers = []
+    for kind in layer_kinds(cfg):
+        layers.append(DecoderLayer(cfg, kind, counts[kind[0]], dtype, device))
+        counts[kind[0]] += 1
+    return nn.ModuleList(layers)
+
+
 def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
               mode: str, positions: torch.Tensor, caches: Caches,
               pos: Optional[int] = None) -> torch.Tensor:
     """x: (B, S, D) through every layer; caches written in place."""
-    rope = L.rope_tables(positions, cfg.resolved_head_dim(), cfg.rope_theta)
-    lengths = None
-    if mode == "decode":        # every (batch, KV head) row, once per step
-        lengths = torch.full((x.shape[0] * cfg.num_kv_heads,), pos + 1,
-                             dtype=torch.int32, device=x.device)
-    for i, layer in enumerate(layers):
-        x = layer.run(x, cfg, mode, rope, caches["k"][i], caches["v"][i],
-                      pos, lengths)
+    rope = lengths = None
+    if "k" in caches:
+        rope = L.rope_tables(positions, cfg.resolved_head_dim(),
+                             cfg.rope_theta)
+        if mode == "decode":    # every (batch, KV head) row, once per step
+            lengths = torch.full((x.shape[0] * cfg.num_kv_heads,), pos + 1,
+                                 dtype=torch.int32, device=x.device)
+    for layer in layers:
+        x = layer.run(x, cfg, mode, rope, caches, pos, lengths)
     return x
 
 

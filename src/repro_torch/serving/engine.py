@@ -12,7 +12,10 @@ The port of the JAX package's ``serving/engine.py``, with the same
 admission, prefix, LoRA and step behaviour.  The model writes each decoded
 position into a slot's caches in place, so a slot's caches are cloned from
 its prefix entry on admission (the entry stays as it was for later hits).
-Caches are laid out for the decode-attention kernel: ``(L, B, K, S, hd)``.
+Caches are a dict by kind (``models/transformer.py``): the attention caches
+``k``/``v`` laid out for the decode-attention kernel, ``(L, B, K, S, hd)``,
+and the Mamba layers' ``ssm`` and ``conv_{x,b,c}``, which do not grow with
+the sequence.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.model import Model, Params
-from repro_torch.models.transformer import Caches
+from repro_torch.models.transformer import ATTN_CACHES, Caches
 from repro_torch.serving.kvcache import PagedAllocator, PrefixCache
 from repro_torch.serving.lora import LoraPool
 
@@ -98,11 +101,14 @@ class InferenceEngine:
         return caches, len(toks)
 
     def _pad_caches(self, caches: Caches, cur_len: int) -> Caches:
-        """Zero-pad the sequence dim of the k/v caches to ``max_seq``."""
+        """Zero-pad the sequence dim of the k/v caches to ``max_seq`` (the
+        JAX engine pads by name too: the Mamba caches have no sequence
+        dim)."""
         pad = self.max_seq - cur_len
         if pad <= 0:
             return caches
-        return {n: F.pad(t, (0, 0, 0, pad)) for n, t in caches.items()}
+        return {n: F.pad(t, (0, 0, 0, pad)) if n in ATTN_CACHES else t
+                for n, t in caches.items()}
 
     # ----------------------------------------------------------- interface
     def prewarm_prefix(self, prefix_id: str) -> None:

@@ -60,18 +60,25 @@ def make_random_adapter(lora_id: str, params: Params, rank: int = 8,
     return LoraAdapter(lora_id, rank, deltas, scale)
 
 
-def lora_from_jax(adapter: Any, device="cpu") -> LoraAdapter:
+def lora_from_jax(adapter: Any, device="cpu",
+                  period: int = 1) -> LoraAdapter:
     """The JAX package's ``LoraAdapter`` (deltas on stacked leaves
-    ``layers/sub0/attn/wq``, arrays of shape (n, din, r) and (n, r, dout))
-    as the port's per-layer adapter."""
+    ``layers/sub<i>/attn/wq``, arrays of shape (n, din, r) and (n, r, dout)
+    over the n periods) as the port's per-layer adapter: period ``p``,
+    sub-layer ``i`` is layer ``p * period + i``, ``period`` being the
+    length of the model's layer plan (8 for Jamba, else 1)."""
     deltas = {}
     for path, (a, b) in adapter.deltas.items():
-        *_, group, leaf = path.split("/")
+        *_, sub, group, leaf = path.split("/")
+        i = int(sub[len("sub"):])
+        if not 0 <= i < period:
+            raise ValueError(f"{path}: sub-layer {i} outside a period of "
+                             f"{period}")
         a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
-        for i in range(a.shape[0]):
-            deltas[f"layers.{i}.{group}.{leaf}"] = (
-                torch.tensor(a[i], device=device),
-                torch.tensor(b[i], device=device))
+        for p in range(a.shape[0]):
+            deltas[f"layers.{p * period + i}.{group}.{leaf}"] = (
+                torch.tensor(a[p], device=device),
+                torch.tensor(b[p], device=device))
     return LoraAdapter(adapter.lora_id, adapter.rank, deltas, adapter.scale)
 
 

@@ -8,12 +8,12 @@ _TINY_COMMON = dict(remat=False, scan_layers=True, moe_impl="sort",
 
 
 def tiny_config(name: str, **extra) -> ModelConfig:
-    """Reduced config of the same family as the full arch ``name`` (the
-    registered archs are dense or MoE: two layers, as the JAX package's
-    ``tiny_config`` gives them)."""
+    """Reduced config of the same family as the full arch ``name``, as the
+    JAX package's ``tiny_config`` gives it: two layers, or two periods of a
+    hybrid plan."""
     cfg = get_config(name)
     over = dict(
-        num_layers=2,
+        num_layers=max(2, len_plan(cfg)),
         d_model=64,
         d_ff=128,
         d_ff_expert=96 if cfg.d_ff_expert else 0,
@@ -34,3 +34,9 @@ def tiny_config(name: str, **extra) -> ModelConfig:
     )
     over.update(extra)
     return cfg.replace(**over)
+
+
+def len_plan(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return cfg.attn_every * 2  # two periods
+    return 2

@@ -1,7 +1,7 @@
 """The kernels on the card against their plain versions: the fused walk
 (with and without posterior tables), the per-phase walk, and the model
 kernels (RMSNorm, prefill attention, decode attention, the grouped expert
-matmul).
+matmul, the SSD chunk scan).
 
 Marked ``cuda``: they need an NVIDIA GPU and ``nvcc`` and skip elsewhere
 (the fixture decides, at run time).  On the card:
@@ -386,3 +386,91 @@ def test_moe_gmm_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         gmm_kernel.moe_gmm_kernel(x, w.transpose(1, 2).contiguous()
                                   .transpose(1, 2)[:, :, :16])
+
+
+# ---------------------------------------------------------------- SSD scan
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunked,  # noqa: E402
+                                              ssd_scan_ref)
+
+
+def _ssd_inputs(rng, B, S, H, P, N, dtype, dev):
+    """The reference test's distributions (tests/test_kernels.py)."""
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    return (_normal(rng, (B, S, H, P), dtype, dev),
+            t(rng.uniform(0.001, 0.1, size=(B, S, H))),
+            t(-rng.uniform(0.5, 2.0, size=(H,))),
+            _normal(rng, (B, S, N), dtype, dev),
+            _normal(rng, (B, S, N), dtype, dev))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 128, 2, 32, 16, 32),     # the JAX package's kernel test shapes
+    (2, 256, 4, 64, 32, 64),
+    (1, 64, 8, 16, 8, 64),
+    (1, 8, 64, 64, 128, 128),    # mamba2-1.3b's serve prompts
+    (1, 24, 64, 64, 128, 128),
+    (1, 300, 64, 64, 128, 128),  # two chunks and a ragged 44-position tail
+    (2, 37, 8, 16, 16, 8),       # the tiny models: chunk 8, ragged
+    (1, 5, 3, 4, 4, 128),        # fewer rows than a 4-row tile
+    (1, 200, 2, 128, 128, 64),   # P = 128 (Jamba's head width)
+    (1, 200, 2, 128, 128, 128),  # ... at its config's chunk: K7 takes 64
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_kernel_matches_plain(dev, B, S, H, P, N, chunk, dtype):
+    """y against the chunked plain version at the reference's SSD
+    tolerances (1e-4 float32, 5e-2 bfloat16), and against the sequential
+    oracle; the float32 final state at 1e-4 in either dtype (both sides
+    carry it in float32 from the same rounded inputs)."""
+    rng = np.random.default_rng(B + S + H + P + N)
+    args = _ssd_inputs(rng, B, S, H, P, N, dtype, dev)
+    before = LAUNCHES[ssd_kernel.NAME]
+    y, final = ssd_ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES[ssd_kernel.NAME] == before + 1
+    assert y.dtype == dtype and tuple(y.shape) == (B, S, H, P)
+    assert final.dtype == torch.float32 and tuple(final.shape) == (B, H, N, P)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    want_y, want_final = ssd_chunked(*args, chunk)
+    for got, want, t in ((y, want_y, tol), (final, want_final, 1e-4),
+                         (y, ssd_scan_ref(*args), tol)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+
+
+def test_ssd_scan_shared_memory_plan(dev):
+    """The built source's plan: one block at mamba2-1.3b's widths (chunk
+    128, N 128, P 64) fits the 227 KB a block can use; a chunk of 128 at
+    P = 128 (Jamba's head width) does not, and one of 64 does, which the
+    wrapper then takes."""
+    assert ssd_kernel.smem_bytes(128, 128, 64) == 221184
+    assert ssd_kernel.smem_bytes(128, 128, 64) <= ssd_kernel.SMEM_MAX
+    assert ssd_kernel.smem_bytes(128, 128, 128) > ssd_kernel.SMEM_MAX
+    assert ssd_kernel.smem_bytes(64, 128, 128) <= ssd_kernel.SMEM_MAX
+    assert ssd_kernel.smem_bytes(8, 16, 16) == ssd_kernel.smem_bytes(32, 16,
+                                                                     16)
+    assert ssd_kernel.fitting_chunk(128, 2048, 128, 128) == 64
+
+
+def test_ssd_scan_kernel_refuses_what_it_cannot_take(dev):
+    rng = np.random.default_rng(1)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 16, 2, 8, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd_kernel.ssd_scan_kernel(x[..., :6].contiguous(), dt, A, Bm, Cm,
+                                   chunk=8)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssd_kernel.ssd_scan_kernel(x, dt, A, Bm.to(torch.bfloat16), Cm,
+                                   chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_kernel.ssd_scan_kernel(x.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="disagree"):
+        ssd_kernel.ssd_scan_kernel(x, dt[:, :8].contiguous(), A, Bm, Cm,
+                                   chunk=8)
+    with pytest.raises(ValueError, match="chunk must be in"):
+        ssd_kernel.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=129)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 1, 16, 2, 128, 512, torch.float32,
+                                   dev)
+    with pytest.raises(ValueError, match="shared memory at chunk 1"):
+        ssd_kernel.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=128)

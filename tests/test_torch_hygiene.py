@@ -125,9 +125,11 @@ from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm.ops import moe_gmm  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.testing import tiny_config  # noqa: E402
-from repro_torch.configs import MOE_ARCHS  # noqa: E402
+from repro_torch.configs import HYBRID_ARCHS, MOE_ARCHS, SSM_ARCHS  # noqa: E402,E501
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -142,14 +144,19 @@ def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
              lambda: dec_kernel.decode_attention_kernel(
                  z(1, 4, 16), z(1, 9, 2, 16), z(1, 9, 2, 16),
                  z(2, dtype=torch.int32)),
-             lambda: gmm_kernel.moe_gmm_kernel(z(4, 2, 16), z(4, 16, 24))]
+             lambda: gmm_kernel.moe_gmm_kernel(z(4, 2, 16), z(4, 16, 24)),
+             lambda: ssd_kernel.ssd_scan_kernel(
+                 z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4), z(1, 4, 4),
+                 chunk=4)]
     if device == "meta":
         calls += [lambda: rmsnorm(z(2, 3, 8), z(8)),
                   lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
                                           z(1, 5, 2, 16)),
                   lambda: decode_attention(z(1, 1, 4, 16), z(1, 9, 2, 16),
                                            z(1, 9, 2, 16), 3),
-                  lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24))]
+                  lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24)),
+                  lambda: ssd_scan(z(1, 4, 2, 8), z(1, 4, 2), z(2),
+                                   z(1, 4, 4), z(1, 4, 4), chunk=4)]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
@@ -160,14 +167,22 @@ def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
     ("encdec", "item 16"), ("vlm", "item 16")])
 def test_unported_model_families_raise(family, item):
     """The families still to port raise, naming their ROADMAP item.  The
-    moe family is ported (item 14): a dense config relabelled ``moe`` has
-    no experts and raises ``ValueError``; the MoE archs build."""
+    moe (item 14), ssm and hybrid (item 15) families are ported: a dense
+    config relabelled as one of them lacks its experts, SSM state or
+    attention period and raises ``ValueError``; their archs build."""
     cfg = tiny_config("llama3-8b").replace(family=family)
-    if family == "moe":
-        with pytest.raises(ValueError, match="num_experts > 0"):
+    ported = {"moe": ("num_experts > 0", MOE_ARCHS, "moe"),
+              "ssm": ("ssm_state > 0", SSM_ARCHS, "mamba"),
+              "hybrid": ("attn_every > 0", HYBRID_ARCHS, "attn")}
+    if family in ported:
+        match, archs, leaf = ported[family]
+        if family == "hybrid":
+            cfg = cfg.replace(ssm_state=16)
+        with pytest.raises(ValueError, match=match):
             build_model(cfg, device="cpu")
-        for arch in MOE_ARCHS:
-            assert build_model(tiny_config(arch), device="cpu").layers[0].moe
+        for arch in archs:
+            model = build_model(tiny_config(arch), device="cpu")
+            assert getattr(model.layers[0], leaf)
         return
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg, device="cpu")

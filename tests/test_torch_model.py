@@ -115,17 +115,40 @@ def test_params_from_jax_names_and_orientation():
 ])
 def test_unported_families_raise(arch, family, item):
     """The families still to port raise, naming their ROADMAP item.  The
-    moe family, ported with item 14, builds on the CPU (tiny: an MoE layer
-    in every decoder layer), and a moe config without experts raises."""
+    moe family (item 14) and the ssm and hybrid families (item 15) build on
+    the CPU (tiny: an MoE layer in every decoder layer; a Mamba layer in
+    every layer; two periods of one attention and seven Mamba layers, MoE
+    in every second), and a config without experts, SSM state or attention
+    period raises."""
     cfg = ModelConfig(**dataclasses.asdict(jax_get_config(arch)))
     assert cfg.family == family
+    tiny = tiny_config(arch, dtype="float32") if family in (
+        "moe", "ssm", "hybrid") else None
     if family == "moe":
-        tiny = tiny_config(arch, dtype="float32")
         m = build_model(tiny, device="cpu")
         assert all(layer.ffn == "moe" and not hasattr(layer, "mlp")
                    for layer in m.layers)
         with pytest.raises(ValueError, match="num_experts"):
             build_model(tiny.replace(num_experts=0), device="cpu")
+        return
+    if family == "ssm":
+        m = build_model(tiny, device="cpu")
+        assert [(layer.mixer, layer.ffn) for layer in m.layers] == \
+            [("mamba", "none")] * 2
+        assert not any(hasattr(layer, "attn") for layer in m.layers)
+        with pytest.raises(ValueError, match="ssm_state"):
+            build_model(tiny.replace(ssm_state=0), device="cpu")
+        return
+    if family == "hybrid":
+        m = build_model(tiny, device="cpu")
+        kinds = [(layer.mixer, layer.ffn) for layer in m.layers]
+        assert len(kinds) == 16 and kinds[:8] == kinds[8:]
+        assert [k[0] for k in kinds[:8]] == ["attn"] + ["mamba"] * 7
+        assert [k[1] for k in kinds[:8]] == ["dense", "moe"] * 4
+        with pytest.raises(ValueError, match="attn_every"):
+            build_model(tiny.replace(attn_every=0), device="cpu")
+        with pytest.raises(ValueError, match="whole periods"):
+            build_model(tiny.replace(num_layers=12), device="cpu")
         return
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg, device="cpu")

@@ -8,7 +8,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA source of the port, one ``nvcc`` each, all at once,
-   and print ptxas's register / shared-memory / spill report;
+   and print ptxas's register / shared-memory / spill report, with a
+   summary for the attention kernels and the HGMMA (tensor-core)
+   instruction count of the prefill-attention library (none fails);
 2. the main path: ``run_sim`` on an open-arrival trace at ``SimConfig()``
    defaults on ``cuda`` (the fused walk kernel, K1), with every kernel
    launch counter set to 0 just before and read just after.  The trace is
@@ -38,8 +40,10 @@ Phases (any failure raises and the script exits non-zero):
 8. hold each model kernel against its plain PyTorch version on the card
    at the reference's tolerances (2e-5 float32, 2e-2 bfloat16): RMSNorm
    (K3), prefill attention (K4) and decode attention (K5), at the serve
-   path's shapes and at full-width Llama-3-8B shapes, each timed beside
-   its bound, its plain version and one PyTorch library call;
+   path's shapes and at full-width Llama-3-8B shapes (K4 also at
+   qwen2-7b's G = 7 and Whisper's 1,500 frames; K5 over one to 16
+   sequence splits, two launches bitwise equal), each timed beside its
+   bound, its plain version and one PyTorch library call;
 9. Llama-3-8B at full width cut to 2 layers: a 24-token prompt and 8
    teacher-forced decode steps on ``cuda`` (through K3-K5) and on the CPU
    (the plain versions) from the same weights: logits within 5e-2;
@@ -192,7 +196,22 @@ def _sources():
                                   ssd_kernel.SOURCE)
 
 
+def _hgmma_count(lib):
+    """HGMMA (wgmma) instructions in a built library's SASS, or None where
+    the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(1 for line in sass.splitlines() if "HGMMA" in line)
+
+
 def phase_build():
+    """Build every source; log nvcc's output, and for the attention kernels
+    (K4, K5) the register and spill lines of each entry and the HGMMA
+    count of the K4 library (which must hold tensor-core instructions)."""
     from repro_torch.kernels import build
     sources = _sources()
     t0 = time.perf_counter()
@@ -202,6 +221,23 @@ def phase_build():
     for src, (lib, text) in zip(sources, built):
         for line in (text or "(library already built)").strip().splitlines():
             log(f"[build:{src.stem}] {line}")
+        if src.stem not in ("flash_attention", "decode_attention"):
+            continue
+        lines = (text or "").splitlines()
+        spills = [ln.strip() for ln in lines if "spill" in ln
+                  and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                if "registers" in ln and "Used " in ln]
+        log(f"[build:{src.stem}] {len(regs)} entries, registers "
+            f"{min(regs, default=None)}-{max(regs, default=None)}, spills: "
+            f"{spills or 'none'}")
+        if src.stem == "flash_attention":
+            n = _hgmma_count(lib)
+            log(f"[build:{src.stem}] HGMMA instructions in the SASS: "
+                f"{'not measured (no cuobjdump)' if n is None else n}")
+            if n == 0:
+                raise AssertionError("the flash-attention library holds no "
+                                     "HGMMA (wgmma) instruction")
 
 
 def _bound(n_bytes, f_ops, i_ops):
@@ -948,7 +984,11 @@ def _check_decode(device, B, H, K, hd, Smax, lengths, dtype_name, seed=0):
                                         kc.reshape(B * K, Smax, hd),
                                         vc.reshape(B * K, Smax, hd), rows)
 
-    err = _hold(tag, launch(), plain().reshape(B, H, hd), dtype_name)
+    out = launch()
+    err = _hold(tag, out, plain().reshape(B, H, hd), dtype_name)
+    if not torch.equal(out, launch()):
+        raise AssertionError(f"{tag}: two launches differ (the split merge "
+                             "must not depend on the blocks' order)")
     es = q.element_size()
     n_bytes = (2 * K * hd * es * int(lengths.sum()) + 2 * q.numel() * es
                + 4 * B * K)
@@ -1018,11 +1058,19 @@ def phase_model_kernels(device):
                 _check_flash(device, *shape, dt, causal)
     _check_flash(device, 1, 8, 8, 32, 8, 128, "bfloat16", True)
     _check_flash(device, 1, 2048, 2048, 32, 8, 128, "bfloat16", True)
+    # qwen2-7b's G = 7 at a ragged S, and Whisper's 1,500-frame encoder
+    # (ROADMAP item 16: G = 1, hd 64, not causal)
+    _check_flash(device, 1, 300, 300, 28, 4, 128, "bfloat16", True)
+    _check_flash(device, 1, 1500, 1500, 20, 20, 64, "bfloat16", False)
     rng = np.random.default_rng(13)
     long_lengths = rng.integers(1, 8193, 8).tolist()
     for dt in ("bfloat16", "float32"):
         _check_decode(device, 1, 32, 8, 128, 192, [100], dt)
         _check_decode(device, 8, 32, 8, 128, 8192, long_lengths, dt)
+        # one long row over 16 splits; lengths inside the first split, on
+        # its end and one past it
+        _check_decode(device, 1, 32, 8, 128, 8192, [8192], dt)
+        _check_decode(device, 4, 32, 8, 128, 2048, [5, 512, 513, 2048], dt)
     return [_kernel_entry(name, r) for name, r in main.items()]
 
 

@@ -17,7 +17,7 @@ need.  Under overload the scheduler therefore
   behind everyone else instead of starving them;
 * **degrades** gracefully: past a hysteresis pressure threshold the
   MC-refinement walker depth is capped and best-effort LLM units route to a
-  smaller model config from the ``repro.configs`` zoo, restoring full
+  smaller model config from the ``repro_torch.configs`` zoo, restoring full
   quality when pressure drains.
 
 Three SLO classes ship by default (see ``DEFAULT_SLO_CLASSES``):
@@ -297,7 +297,7 @@ class DegradeConfig:
       ``walker_cap`` (cheaper refresh ticks exactly when ticks are
       biggest);
     * LLM units of *degradable* SLO classes route to ``degrade_model``
-      from the ``repro.configs`` zoo — service time divides by the
+      from the ``repro_torch.configs`` zoo — service time divides by the
       parameter-count ratio against ``base_model`` (decode cost is
       parameter-bound), clipped to ``max_speedup``.
     """
@@ -328,10 +328,10 @@ def degrade_speedup(base_model: str, degrade_model: str, *,
     """Decode-time speedup from routing to the smaller config: the
     parameter-count ratio (decode FLOPs scale ~ params), clipped to
     [1, max_speedup] so an inverted pair never *slows* degraded work."""
-    raise NotImplementedError(
-        f"degrade_speedup({base_model!r}, {degrade_model!r}): the model-config "
-        "zoo is not ported yet (ROADMAP.md, modules to port, item 10: model "
-        "stack); set DegradeConfig(llm_speedup=...) explicitly")
+    from repro_torch.config import get_config
+    base = get_config(base_model).param_counts()["total"]
+    small = get_config(degrade_model).param_counts()["total"]
+    return float(min(max(base / max(small, 1.0), 1.0), max_speedup))
 
 
 class DegradeState:

@@ -47,8 +47,8 @@ def warmup_table_from_model(model: str,
     """Derive LLM-side warm-up costs from the model-config zoo.
 
     The Fig. 2 defaults are calibrated to an A100-class llama3-8b engine;
-    serving a different architecture from ``repro.configs`` rescales the two
-    LLM warmables against that reference:
+    serving a different architecture from ``repro_torch.configs`` rescales
+    the two LLM warmables against that reference:
 
     * ``kv``   — prefix-cache load moves KV bytes, which scale with
                  layers x kv-heads x head-dim;
@@ -56,11 +56,18 @@ def warmup_table_from_model(model: str,
                  scales with total parameter count.
 
     Merge the result into ``SimConfig.warmup_table`` (explicit entries win).
+    The encoder-decoder and VLM configurations raise
+    ``NotImplementedError`` (ROADMAP.md, item 16).
     """
-    raise NotImplementedError(
-        f"warmup_table_from_model({model!r}): the model-config zoo is not "
-        "ported yet (ROADMAP.md, modules to port, item 10: model stack); "
-        "pass explicit warmup_table entries instead")
+    from repro_torch.config import get_config
+    cfg, ref = get_config(model), get_config(reference)
+    kv_bytes = lambda c: c.num_layers * c.num_kv_heads * c.resolved_head_dim()  # noqa: E731
+    kv_scale = kv_bytes(cfg) / max(kv_bytes(ref), 1)
+    lora_scale = cfg.param_counts()["total"] / max(ref.param_counts()["total"], 1)
+    out = {"lora": DEFAULT_WARMUP_S["lora"] * lora_scale}
+    if kv_scale > 0:       # attention-free archs (kv_heads=0): a zero scale
+        out["kv"] = DEFAULT_WARMUP_S["kv"] * kv_scale
+    return out             # would make KV cold starts free — keep the default
 
 
 @dataclass

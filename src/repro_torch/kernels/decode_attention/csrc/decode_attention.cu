@@ -9,31 +9,95 @@
 // Replaces the TPU kernel decode_attention_kernel
 // (src/repro/kernels/decode_attention/kernel.py).  Same algorithm: an
 // online-softmax state (m, l, acc) in float32 over sequence blocks, the
-// output acc / max(l, 1e-30).  What differs:
+// output acc / max(l, 1e-30).
 //
-//   * one block per (batch, KV head) loops over the sequence in 64-position
-//     blocks staged in shared memory as float32 (16-byte loads, all of a
-//     block's in flight before any is stored); its G query rows share
-//     every K/V read;
-//   * the loop stops at the row's length, so positions past it are never
-//     read (the TPU kernel fetches every block and masks);
-//   * scores: one thread per (query row, position); softmax statistics:
-//     one warp per query row; the accumulator (G, hd) lives in shared
-//     memory, one thread per element;
-//   * no split of the sequence across blocks yet: at batch 1 the card runs
-//     K blocks.
+// Bound on the card: bytes (the K/V rows up to each length, read once; G
+// multiply-adds per element read are far below the card's rate).  What the
+// design does about it:
 //
-// Bound on the card: bytes (the K/V rows up to each length, read once).
+//   * the sequence is split: the grid is (n_splits, B * K * group chunks),
+//     n_splits = ceil(Smax / split) chosen on the host from Smax (lengths
+//     live on the device), so a batch-1 step runs n_splits * K blocks, not
+//     K.  A block whose split starts at or past its row's length writes an
+//     empty partial (m = -inf, l = 0) and exits;
+//   * with more than one split, each block writes its partial (m, l, acc)
+//     in float32 to a workspace; the last block of a row to finish (an
+//     atomic counter per row, reset by that block) merges the partials in
+//     split order 0, 1, ..., so the result does not depend on the order in
+//     which blocks finish.  One launch.  With one split (every Smax up to
+//     the split, the engine's 192 included) the block writes the output
+//     directly: no workspace, no atomics;
+//   * inside a block each of four warps walks its own positions with its
+//     own online-softmax state, merged across warps once at the end: no
+//     block-wide barrier in the loop.  A lane owns one 16-byte slice of the
+//     head dim of one position per pass (bf16: 8 values, f32: 4), and streams
+//     its own K and V slices through a four-stage ring of cp.async 16-byte
+//     copies in shared memory (kept in the cache's dtype), so a lane's loads
+//     for the next three iterations are in flight while it computes, and
+//     it reads back only what it copied itself (no barrier at all);
+//   * q (pre-scaled by scale * log2 e) and the accumulator live in the
+//     lanes' registers for the whole split: each lane keeps its head-dim
+//     slice of every query row of the group chunk (up to 8 rows, the
+//     template's GM).  Scores are warp dot products: the slice products are
+//     summed across the lanes of a position by xor shuffles.  Warp dot
+//     products, not mma.sync: one code path serves float32 and bfloat16,
+//     and at G <= 8 rows the multiply-adds and shuffles stay below the time
+//     the bytes take;
+//   * positions past the row's length are never read (zero-filled copies).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BS = 64;           // sequence positions per block
-constexpr int THREADS = 256;
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int PASSES = 4;        // position rows a lane reads per iteration
+constexpr int STAGES = 4;        // iterations in the cp.async ring
+constexpr int MERGE_LOADS = 8;   // partials a merging thread loads at once
 
+template <typename T, int HD>
+struct Shape {
+  static constexpr int EPL = 16 / sizeof(T);   // elements of a lane slice
+  static constexpr int LPR = HD / EPL;         // lanes per position row
+  static constexpr int RPP = 32 / LPR;         // positions per pass
+  static constexpr int NPW = RPP * PASSES;     // positions a warp iteration
+  static constexpr int NPB = NPW * WARPS;      // positions a block iteration
+  // one warp's stage: K then V, PASSES x 32 lanes x 16 bytes each
+  static constexpr int STAGE_BYTES = 2 * PASSES * 32 * 16;
+  static constexpr int WARP_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = WARPS * WARP_BYTES;
+};
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int32_t* lengths;
+  void* o;
+  float* ws;                     // n_splits > 1: (m, l) then acc partials
+  int32_t* counters;             // n_splits > 1: one per (row, group chunk)
+  int K, G, Smax, split, n_splits, n_gc;
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float sl2;                     // the softmax scale times log2(e)
+};
+
+__device__ __forceinline__ void to_f32(const uint4& u, float* f, float) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void to_f32(const uint4& u, float* f,
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -47,209 +111,323 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// 16 bytes of T from global memory (read-only path) as float32 values;
-// the address is 16-byte aligned (the wrapper checks the caches' pointers
-// and strides).
-__device__ __forceinline__ void load16(const float* p, float* f) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
+// 16 bytes global -> shared, zero-filled when !valid (nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// float32 values into shared memory, 16-byte aligned
 template <int N>
-__device__ __forceinline__ void store_shared(float* p, const float* f) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4)
-    *reinterpret_cast<float4*>(p + i) = make_float4(f[i], f[i + 1], f[i + 2],
-                                                    f[i + 3]);
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int32_t* lengths;
-  void* o;
-  int K, G, Smax;
-  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  float scale;
-};
-
+// The copies of iteration `it` (if it < n_iter) into its ring stage: a
+// lane's K and V slices of positions p0 + p * RPP, zeros at or past `end`;
+// one commit group either way
 template <typename T, int HD>
+__device__ __forceinline__ void issue(uint32_t ring, const T* kbase,
+                                      const T* vbase, long long k_ss,
+                                      long long v_ss, int it, int n_iter,
+                                      int p0, int end) {
+  using S = Shape<T, HD>;
+  if (it < n_iter) {
+    const uint32_t st = ring + (it % STAGES) * S::STAGE_BYTES;
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int pos = p0 + p * S::RPP;
+      const bool ok = pos < end;
+      const long long at = ok ? pos : 0;
+      cp_async16(st + p * 512, kbase + at * k_ss, ok);
+      cp_async16(st + (PASSES + p) * 512, vbase + at * v_ss, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const Args a) {
-  constexpr int LD = HD + 4;     // padded shared row (floats)
-  constexpr int VEC = 16 / sizeof(T);            // elements per 16 bytes
-  constexpr int CH = HD / VEC;                   // 16-byte chunks per row
-  constexpr int CHUNKS = BS * CH;                // per K or V block
-  constexpr int PER = (CHUNKS + THREADS - 1) / THREADS;
+  using S = Shape<T, HD>;
+  constexpr int EPL = S::EPL, LPR = S::LPR, RPP = S::RPP;
   extern __shared__ float4 smem4[];
-  const int G = a.G;
-  float* sq = reinterpret_cast<float*>(smem4);   // (G, LD)
-  float* sk = sq + G * LD;                        // (BS, LD)
-  float* sv = sk + BS * LD;                       // (BS, LD)
-  float* sp = sv + BS * LD;                       // (G, BS) scores, then p
-  float* sacc = sp + G * BS;                      // (G, HD)
-  float* sm = sacc + G * HD;                      // (G,) running max
-  float* sl = sm + G;                             // (G,) running sum
-  float* salpha = sl + G;                         // (G,) this block's rescale
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
-  const int row = blockIdx.x, b = row / a.K, kvh = row % a.K;
+  const int split = blockIdx.x, gc = blockIdx.y % a.n_gc;
+  const int row = blockIdx.y / a.n_gc, b = row / a.K, kvh = row % a.K;
+  const int G = a.G, g0 = gc * GM, gn = min(GM, G - g0);
   const int len = max(0, min(a.lengths[row], a.Smax));
+  const int s0 = split * a.split;
+  const int end = min(len, min(s0 + a.split, a.Smax));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_warps = THREADS >> 5;
+  const int r = lane / LPR, c = lane % LPR;
+  // partials of (row, head) h go to ws: (m, l) at [(row * G + h) *
+  // n_splits + split], acc after all of those
+  const long long n_ml = static_cast<long long>(gridDim.y / a.n_gc) * G *
+                         a.n_splits;
+  float* ws_ml = a.ws;
+  float* ws_acc = a.ws + 2 * n_ml;
+  __shared__ int last;
 
-  for (int e = tid; e < G * HD; e += blockDim.x) {
-    const int g = e / HD, d = e % HD;
-    sq[g * LD + d] = to_f32(q[b * a.q_sb + (kvh * G + g) * a.q_sh + d]);
-    sacc[e] = 0.0f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    sm[g] = NEG_INF;
-    sl[g] = 0.0f;
-  }
-  for (int s0 = 0; s0 < len; s0 += BS) {
-    const int n = min(BS, len - s0);
-    __syncthreads();             // the previous block is consumed
-    // 16-byte loads, every one of a thread's issued before any is stored,
-    // so a block's loads are in flight together; rows past n are zeros
-    float fk[PER][VEC], fv[PER][VEC];
+  if (s0 < end) {
+    const T* kbase = k + b * a.k_sb + kvh * a.k_sh + c * EPL;
+    const T* vbase = v + b * a.v_sb + kvh * a.v_sh + c * EPL;
+    const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(
+                              smem + warp * S::WARP_BYTES)) + lane * 16;
+    const int n_iter = (end - s0 + S::NPB - 1) / S::NPB;
+    const int p_lane = s0 + warp * S::NPW + r;   // iteration 0, pass 0
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = tid + i * THREADS, j = c / CH, d = (c % CH) * VEC;
-      if (c < CHUNKS && j < n) {
-        load16(k + b * a.k_sb + (s0 + j) * a.k_ss + kvh * a.k_sh + d, fk[i]);
-        load16(v + b * a.v_sb + (s0 + j) * a.v_ss + kvh * a.v_sh + d, fv[i]);
-      } else {
+    for (int it = 0; it < STAGES - 1; ++it)
+      issue<T, HD>(ring, kbase, vbase, a.k_ss, a.v_ss, it, n_iter,
+                   p_lane + it * S::NPB, end);
+
+    float qr[GM][EPL], acc[GM][EPL], m[GM], l[GM];
 #pragma unroll
-        for (int t = 0; t < VEC; ++t) fk[i][t] = fv[i][t] = 0.0f;
+    for (int g = 0; g < GM; ++g) {
+      const T* qrow = q + b * a.q_sb + (kvh * G + g0 + g) * a.q_sh + c * EPL;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        qr[g][e] = g < gn ? to_f32(qrow[e]) * a.sl2 : 0.0f;
+        acc[g][e] = 0.0f;
       }
+      m[g] = -INFINITY;
+      l[g] = 0.0f;
     }
+
+    for (int it = 0; it < n_iter; ++it) {
+      issue<T, HD>(ring, kbase, vbase, a.k_ss, a.v_ss, it + STAGES - 1,
+                   n_iter, p_lane + (it + STAGES - 1) * S::NPB, end);
+      cp_async_wait<STAGES - 1>();             // iteration it has landed
+      const uint8_t* st = smem + warp * S::WARP_BYTES +
+                          (it % STAGES) * S::STAGE_BYTES + lane * 16;
+      const int p0 = p_lane + it * S::NPB;
+      // scores (base-2 units) of this lane's positions
+      float sc[PASSES][GM];
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int c = tid + i * THREADS, j = c / CH, d = (c % CH) * VEC;
-      if (c < CHUNKS) {
-        store_shared<VEC>(sk + j * LD + d, fk[i]);
-        store_shared<VEC>(sv + j * LD + d, fv[i]);
-      }
-    }
-    __syncthreads();
-    // scores: thread per (query row g, position j)
-    for (int i = tid; i < G * BS; i += blockDim.x) {
-      const int g = i / BS, j = i % BS;
-      float s = NEG_INF;
-      if (j < n) {
-        const float4* x4 = reinterpret_cast<const float4*>(sq + g * LD);
-        const float4* y4 = reinterpret_cast<const float4*>(sk + j * LD);
-        float acc = 0.0f;
+      for (int p = 0; p < PASSES; ++p) {
+        float kf[EPL];
+        to_f32(*reinterpret_cast<const uint4*>(st + p * 512), kf, T());
 #pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 x = x4[d4], y = y4[d4];
-          acc = fmaf(x.x, y.x, acc);
-          acc = fmaf(x.y, y.y, acc);
-          acc = fmaf(x.z, y.z, acc);
-          acc = fmaf(x.w, y.w, acc);
+        for (int g = 0; g < GM; ++g) {
+          float d = 0.0f;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+          for (int o = 1; o < LPR; o <<= 1)
+            d += __shfl_xor_sync(0xffffffffu, d, o);
+          sc[p][g] = p0 + p * RPP < end ? d : -INFINITY;
         }
-        s = acc * a.scale;
       }
-      sp[i] = s;
+      // the warp's running max, rescale, probabilities, then acc += p v
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float mx = sc[0][g];
+#pragma unroll
+        for (int p = 1; p < PASSES; ++p) mx = fmaxf(mx, sc[p][g]);
+#pragma unroll
+        for (int o = LPR; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[g], mx);
+        const float m_use = m_new == -INFINITY ? 0.0f : m_new;
+        const float alpha = exp2f(m[g] - m_use);
+        m[g] = m_new;
+        l[g] *= alpha;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p) {
+          sc[p][g] = exp2f(sc[p][g] - m_use);
+          l[g] += sc[p][g];
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        float vf[EPL];
+        to_f32(*reinterpret_cast<const uint4*>(st + (PASSES + p) * 512), vf,
+               T());
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            acc[g][e] = fmaf(sc[p][g], vf[e], acc[g][e]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+    // sum l and acc over the warp's positions (lanes of one slice), then
+    // publish the warp's state in its own ring region
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1) {
+        l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      }
+    float* wst = reinterpret_cast<float*>(smem + warp * S::WARP_BYTES);
+    if (r == 0) {
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          wst[2 * GM + g * HD + c * EPL + e] = acc[g][e];
+      if (c == 0) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          wst[g] = m[g];
+          wst[GM + g] = l[g];
+        }
+      }
     }
     __syncthreads();
-    // softmax statistics: warp per query row, two positions per lane
-    for (int g = warp; g < G; g += n_warps) {
-      float* pr = sp + g * BS;
-      const float s_a = pr[lane], s_b = pr[lane + 32];
-      const bool ok_a = lane < n, ok_b = lane + 32 < n;
-      const float m_old = sm[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(ok_a ? s_a : NEG_INF,
-                                                      ok_b ? s_b : NEG_INF)));
-      const float p_a = ok_a ? expf(s_a - m_new) : 0.0f;
-      const float p_b = ok_b ? expf(s_b - m_new) : 0.0f;
-      const float alpha = expf(m_old - m_new);
-      const float psum = warp_sum(p_a + p_b);
-      pr[lane] = p_a;
-      pr[lane + 32] = p_b;
-      __syncwarp();
-      if (lane == 0) {
-        sl[g] = sl[g] * alpha + psum;
-        sm[g] = m_new;
-        salpha[g] = alpha;
+    // merge the warps in order 0..3: this block's partial, or the output
+    for (int i = tid; i < gn * HD; i += THREADS) {
+      const int g = i / HD, d = i % HD;
+      float mb = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        mb = fmaxf(mb, reinterpret_cast<const float*>(
+                           smem + w * S::WARP_BYTES)[g]);
+      float lb = 0.0f, ab = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float* ww = reinterpret_cast<const float*>(
+            smem + w * S::WARP_BYTES);
+        if (ww[g] == -INFINITY) continue;      // a warp with no position
+        const float f = exp2f(ww[g] - mb);
+        lb = fmaf(ww[GM + g], f, lb);
+        ab = fmaf(ww[2 * GM + g * HD + d], f, ab);
+      }
+      const int h = kvh * G + g0 + g;
+      if (a.n_splits == 1) {
+        static_cast<T*>(a.o)[(static_cast<long long>(b) * a.K * G + h) * HD +
+                             d] = from_f32<T>(ab / fmaxf(lb, 1e-30f));
+      } else {
+        const long long pi = (static_cast<long long>(row) * G + g0 + g) *
+                                 a.n_splits + split;
+        ws_acc[pi * HD + d] = ab;
+        if (d == 0) {
+          ws_ml[2 * pi] = mb;
+          ws_ml[2 * pi + 1] = lb;
+        }
       }
     }
-    __syncthreads();
-    // acc = acc * alpha + p v: thread per accumulator element
-    for (int e = tid; e < G * HD; e += blockDim.x) {
-      const int g = e / HD, d = e % HD;
-      const float* pr = sp + g * BS;
-      float acc = sacc[e] * salpha[g];
-      for (int j = 0; j < n; ++j) acc = fmaf(pr[j], sv[j * LD + d], acc);
-      sacc[e] = acc;
+    if (a.n_splits == 1) return;
+  } else {
+    if (a.n_splits == 1) {                    // a row of length 0
+      for (int i = tid; i < gn * HD; i += THREADS)
+        static_cast<T*>(a.o)[(static_cast<long long>(b) * a.K * G + kvh * G +
+                              g0) * HD + i] = from_f32<T>(0.0f);
+      return;
     }
+    for (int g = tid; g < gn; g += THREADS) {   // an empty partial
+      const long long pi = (static_cast<long long>(row) * G + g0 + g) *
+                               a.n_splits + split;
+      ws_ml[2 * pi] = -INFINITY;
+      ws_ml[2 * pi + 1] = 0.0f;
+    }
+  }
+
+  // the last block of this (row, group chunk) merges the splits in order
+  __threadfence();
+  __syncthreads();
+  int32_t* counter = a.counters + blockIdx.y;
+  if (tid == 0) last = atomicAdd(counter, 1) == a.n_splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the largest m of each row (a warp a row, its lanes over the splits),
+  // then a thread a (row, element) sums the splits' l and acc in split
+  // order, weighted by exp2(m_s - m), MERGE_LOADS splits' loads in flight
+  // at a time (an empty split's m is -inf, its l and acc zeros)
+  const int NS = a.n_splits;
+  float* smax = reinterpret_cast<float*>(smem);         // (gn,)
+  for (int g = warp; g < gn; g += WARPS) {
+    const long long p0 = (static_cast<long long>(row) * G + g0 + g) * NS;
+    float mt = -INFINITY;
+    for (int s = lane; s < NS; s += 32)
+      mt = fmaxf(mt, __ldcg(ws_ml + 2 * (p0 + s)));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+    if (lane == 0) smax[g] = mt;
   }
   __syncthreads();
-  for (int e = tid; e < G * HD; e += blockDim.x) {
-    const int g = e / HD, d = e % HD;
-    o[(static_cast<long long>(b) * a.K * G + kvh * G + g) * HD + d] =
-        from_f32<T>(sacc[e] / fmaxf(sl[g], 1e-30f));
+  for (int i = tid; i < gn * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    const long long p0 = (static_cast<long long>(row) * G + g0 + g) * NS;
+    const float mt = smax[g];
+    float lt = 0.0f, at = 0.0f;
+#pragma unroll 1
+    for (int s0 = 0; s0 < NS; s0 += MERGE_LOADS) {
+      float m[MERGE_LOADS], l[MERGE_LOADS], v[MERGE_LOADS];
+#pragma unroll
+      for (int j = 0; j < MERGE_LOADS; ++j) {
+        const long long ps = p0 + min(s0 + j, NS - 1);
+        m[j] = __ldcg(ws_ml + 2 * ps);
+        l[j] = __ldcg(ws_ml + 2 * ps + 1);
+        v[j] = __ldcg(ws_acc + ps * HD + d);
+      }
+#pragma unroll
+      for (int j = 0; j < MERGE_LOADS; ++j) {
+        if (s0 + j < NS && m[j] != -INFINITY) {
+          const float w = exp2f(m[j] - mt);
+          lt = fmaf(l[j], w, lt);
+          at = fmaf(v[j], w, at);
+        }
+      }
+    }
+    static_cast<T*>(a.o)[(static_cast<long long>(b) * a.K * G + kvh * G +
+                          g0 + g) * HD + d] =
+        from_f32<T>(at / fmaxf(lt, 1e-30f));
   }
+  if (tid == 0) *counter = 0;                  // ready for the next call
 }
 
-size_t smem_bytes(int G, int hd) {
-  return sizeof(float) *
-         (static_cast<size_t>(G + 2 * BS) * (hd + 4) + G * BS + G * hd +
-          3 * G);
+// The group chunk: the fewest of 1, 2, 4, 8 query rows a block that holds
+// the group (G > 8 takes chunks of 8)
+int group_chunk(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
+
+template <typename T, int HD, int GM>
+int launch(const Args& a, int rows, cudaStream_t stream) {
+  constexpr int smem = Shape<T, HD>::SMEM;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_attention_kernel<T, HD, GM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid(a.n_splits, rows * a.n_gc);
+  decode_attention_kernel<T, HD, GM><<<grid, THREADS, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int launch(const Args& a, int rows, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.G, HD);
-  static size_t configured = 0;  // per instantiation
-  if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
+int launch_g(const Args& a, int rows, cudaStream_t s) {
+  switch (group_chunk(a.G)) {
+    case 1: return launch<T, HD, 1>(a, rows, s);
+    case 2: return launch<T, HD, 2>(a, rows, s);
+    case 4: return launch<T, HD, 4>(a, rows, s);
+    default: return launch<T, HD, 8>(a, rows, s);
   }
-  decode_attention_kernel<T, HD><<<rows, THREADS, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(const Args& a, int rows, int hd, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(a, rows, s);
-    case 32: return launch<T, 32>(a, rows, s);
-    case 64: return launch<T, 64>(a, rows, s);
-    case 128: return launch<T, 128>(a, rows, s);
+    case 16: return launch_g<T, 16>(a, rows, s);
+    case 32: return launch_g<T, 32>(a, rows, s);
+    case 64: return launch_g<T, 64>(a, rows, s);
+    case 128: return launch_g<T, 128>(a, rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -258,21 +436,27 @@ int launch_hd(const Args& a, int rows, int hd, cudaStream_t s) {
 
 extern "C" {
 
-// Dynamic shared memory one block needs.
-size_t decode_attention_smem(int G, int hd) { return smem_bytes(G, hd); }
-
 // Launches the decode attention on `stream`: dtype 0 = float32,
-// 1 = bfloat16; strides in elements.  Returns a cudaError_t code
-// (0 = launched).
+// 1 = bfloat16; strides in elements; `split` positions a block.  With
+// n_splits = ceil(Smax / split) > 1, `ws` holds B*K*G*n_splits*(2 + hd)
+// floats and `counters` B*K*G int32 zeros (left zero after the launch).
+// Returns a cudaError_t code (0 = launched).
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const int32_t* lengths, void* o, int B, int Smax,
-                            int H, int K, int hd, int dtype, long long q_sb,
+                            const int32_t* lengths, void* o, float* ws,
+                            int32_t* counters, int B, int Smax, int H, int K,
+                            int hd, int dtype, int split, long long q_sb,
                             long long q_sh, long long k_sb, long long k_ss,
                             long long k_sh, long long v_sb, long long v_ss,
                             long long v_sh, float scale, void* stream) {
-  if (K < 1 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, lengths, o, K, H / K, Smax, q_sb, q_sh, k_sb, k_ss,
-         k_sh, v_sb, v_ss, v_sh, scale};
+  if (K < 1 || H % K != 0 || split < 1 || Smax < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / K, n_splits = (Smax + split - 1) / split;
+  if (n_splits > 1 && (ws == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_gc = (G + group_chunk(G) - 1) / group_chunk(G);
+  Args a{q, k, v, lengths, o, ws, counters, K, G, Smax, split, n_splits,
+         n_gc, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+         scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_hd<float>(a, B * K, hd, s);
   if (dtype == 1) return launch_hd<__nv_bfloat16>(a, B * K, hd, s);

@@ -4,7 +4,14 @@ which replaces the TPU kernel ``decode_attention_kernel`` of
 
 The wrapper checks its operands, allocates the output, launches the kernel
 on the current stream and raises if the launch is refused.  CUDA tensors
-only: the plain version is ``ref.decode_attention_ref``.
+only: the plain version is ``ref.decode_attention_ref`` (and
+``ref.decode_attention_split_ref`` for the kernel's split of the sequence).
+
+The kernel splits the sequence into ``ceil(Smax / SPLIT)`` parts, one block
+each per (batch, KV head).  With more than one, the blocks' partials go to
+a float32 workspace and a per-row int32 counter picks the block that merges
+them; both are cached per (device, stream), the counters zeroed once when
+allocated and left zero by every launch.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,8 +32,10 @@ from repro_torch.kernels.binding import (check_aligned16, check_hd,
 NAME = "decode_attention"
 SOURCE = Path(__file__).parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
-SMEM_MAX = 232448               # bytes of shared memory one block may use
+SPLIT = 512                     # cache positions per block (tuned on an H100)
 LAUNCHES.setdefault(NAME, 0)
+# (device index, stream) -> (counters int32, workspace float32)
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,13 +44,25 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 5 + [I] * 6 + [L] * 8 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 7 + [I] * 7 + [L] * 8 + [ctypes.c_float, P]
         fn.restype = I
-        lib.decode_attention_smem.argtypes = [I, I]
-        lib.decode_attention_smem.restype = ctypes.c_size_t
         lib.decode_attention_error_string.argtypes = [I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _scratch(dev: torch.device, stream: int, n_counters: int,
+             n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split merge's counters and workspace for ``stream``, grown (and
+    new counters zeroed) when a launch needs more than they hold."""
+    key = (dev.index, stream)
+    counters, ws = _SCRATCH.get(key, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(n_floats, dtype=torch.float32, device=dev)
+    _SCRATCH[key] = (counters, ws)
+    return counters, ws
 
 
 def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
@@ -70,21 +92,26 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{NAME}: lengths must be contiguous ({B * K},), got "
                          f"{tuple(lengths.shape)}")
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
-    if B == 0:
-        return out
+    if B == 0 or Smax == 0:
+        return out.zero_()
     lib = _lib()
-    smem = lib.decode_attention_smem(H // K, hd)
-    if smem > SMEM_MAX:
-        raise ValueError(f"{NAME} needs {smem} B of shared memory per block "
-                         f"(G={H // K}, hd={hd}); the card offers {SMEM_MAX}")
+    stream = stream_of(dev)
+    split = SPLIT
+    n_splits = -(-Smax // split)
+    ws_ptr = counters_ptr = None
+    if n_splits > 1:
+        counters, ws = _scratch(dev, stream, B * H,
+                                B * H * n_splits * (2 + hd))
+        ws_ptr, counters_ptr = ws.data_ptr(), counters.data_ptr()
     with on_device(dev):
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), B, Smax, H, K, hd, code,
+            lengths.data_ptr(), out.data_ptr(), ws_ptr, counters_ptr, B,
+            Smax, H, K, hd, code, split,
             q.stride(0), q.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-            1.0 / math.sqrt(hd), stream_of(dev))
+            1.0 / math.sqrt(hd), stream)
     raise_on_error(rc, lib, "decode_attention_error_string", NAME)
     LAUNCHES[NAME] += 1
     return out

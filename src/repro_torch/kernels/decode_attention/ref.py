@@ -19,3 +19,41 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(valid, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgs,bsh->bgh", p, v.float()).to(q.dtype)
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, lengths: torch.Tensor, *,
+                               n_splits: int) -> torch.Tensor:
+    """The kernel's split of the sequence, in plain PyTorch: positions
+    ``[s*P, (s+1)*P)`` with ``P = ceil(Smax / n_splits)`` give split ``s``
+    a partial (m, l, acc) in float32 (m = -inf, l = 0 where the split holds
+    no position below the row's length), merged in split order 0, 1, ...
+    as the kernel's last block merges them.  Shapes as
+    :func:`decode_attention_ref`; nothing on the main path calls it."""
+    BK, G, hd = q.shape
+    Smax = k.shape[1]
+    P = -(-Smax // n_splits)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lengths = lengths.to(q.device)[:, None, None]
+    m_all = torch.full((BK, G, 1), -math.inf, device=q.device)
+    parts = []
+    for s in range(n_splits):
+        lo, hi = s * P, min((s + 1) * P, Smax)
+        if lo >= hi:
+            continue
+        sc = torch.einsum("bgh,bsh->bgs", qf, kf[:, lo:hi]) / math.sqrt(hd)
+        pos = torch.arange(lo, hi, device=q.device)[None, None, :]
+        sc = torch.where(pos < lengths, sc, torch.full_like(sc, -math.inf))
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - torch.where(m == -math.inf, 0.0, m))
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bgs,bsh->bgh", p, vf[:, lo:hi])))
+        m_all = torch.maximum(m_all, m)
+    m_ref = torch.where(m_all == -math.inf, 0.0, m_all)
+    l_tot = torch.zeros((BK, G, 1), device=q.device)
+    acc = torch.zeros((BK, G, hd), device=q.device)
+    for m, l_s, acc_s in parts:
+        w = torch.exp(m - m_ref)          # 0 for an empty split
+        l_tot = l_tot + l_s * w
+        acc = acc + acc_s * w
+    return (acc / torch.clamp(l_tot, min=1e-30)).to(q.dtype)

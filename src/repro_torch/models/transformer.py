@@ -26,24 +26,15 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import FAMILY_ITEMS, ModelConfig, unported
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
 
 Caches = Dict[str, torch.Tensor]
 
-# the ROADMAP item that ports each family the port does not run yet
-FAMILY_ITEMS = {"encdec": "item 16", "vlm": "item 16"}
 ATTN_CACHES = ("k", "v")
 MAMBA_CACHES = ("ssm", "conv_x", "conv_b", "conv_c")
-
-
-def unported(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"model family {family!r} is not ported yet (ROADMAP.md, modules to "
-        f"port, {FAMILY_ITEMS[family]}); the port serves the dense, moe, "
-        "ssm and hybrid families")
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:

@@ -16,9 +16,10 @@ is not ported.)
 
 This is the PyTorch counterpart of ``repro.serving.simulator``, host code
 kept line for line; the scheduler's slot arena and walk kernel run on
-``SimConfig.device`` (default ``cuda``).  ``warmup_model`` is not ported
-in this slice and raises ``NotImplementedError`` (ROADMAP.md, modules to
-port, item 10).
+``SimConfig.device`` (default ``cuda``).  ``warmup_model`` derives the
+LLM-side warm-up costs from ``repro_torch.configs`` as the reference does;
+the encoder-decoder and VLM configurations raise ``NotImplementedError``
+(ROADMAP.md, modules to port, item 16).
 """
 from __future__ import annotations
 

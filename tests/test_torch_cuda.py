@@ -186,8 +186,8 @@ def test_phase_kernel_matches_plain_bitwise(dev, W, arrivals, posterior):
 
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import \
-    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
@@ -237,6 +237,13 @@ def _attention_plain(q, k, v, causal):
     (1, 23, 23, 8, 2, 16),       # odd lengths
     (2, 37, 70, 32, 8, 128),     # Llama-3 heads, ragged blocks
     (1, 9, 9, 28, 4, 128),       # G = 7
+    (1, 300, 300, 28, 4, 128),   # qwen2-7b's G = 7 over several row blocks
+    (2, 77, 77, 48, 8, 128),     # internvl2-26b's G = 6
+    (1, 1500, 1500, 20, 20, 64),  # Whisper's encoder frames, G = 1
+    (1, 23, 23, 32, 8, 128),     # S not a multiple of a tile
+    (2, 70, 300, 16, 4, 64),     # Sq != Skv
+    (1, 300, 70, 16, 4, 32),
+    (1, 2048, 2048, 32, 8, 128),  # Llama-3 at S = 2,048
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
@@ -285,18 +292,30 @@ def test_decode_attention_kernel_matches_plain(dev, B, H, K, hd, Smax, pos,
     _close(out.cpu(), ref, dtype)
 
 
+@pytest.mark.parametrize("B,H,K,Smax,lengths", [
+    (5, 16, 4, 333, None),               # random per-(batch, head) lengths
+    (1, 32, 8, 8192, [8192]),            # one long row over 16 splits
+    (4, 32, 8, 2048, [5, 512, 513, 2048]),  # inside, on, past a boundary
+    (2, 32, 8, 192, [100, 192]),         # the engine's Smax: one split
+    (3, 32, 8, 1500, [1500, 1, 1024]),
+])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_attention_kernel_per_row_lengths(dev, dtype):
+def test_decode_attention_kernel_per_row_lengths(dev, B, H, K, Smax, lengths,
+                                                 dtype):
     """Per-(batch, KV head) lengths over caches laid out (B, K, Smax, hd)
-    in memory and passed as the transposed view the engine passes."""
+    in memory and passed as the transposed view the engine passes; Smax
+    over one or several splits of the sequence."""
     rng = np.random.default_rng(11)
-    B, H, K, hd, Smax = 5, 16, 4, 128, 333
+    hd = 128
     q = _normal(rng, (B, 1, H, hd), dtype, dev)
     kc = _normal(rng, (B, K, Smax, hd), dtype, dev).transpose(1, 2)
     vc = _normal(rng, (B, K, Smax, hd), dtype, dev).transpose(1, 2)
-    rows = torch.as_tensor(rng.integers(1, Smax + 1, B * K), device=dev,
-                           dtype=torch.int32)
+    rows = (rng.integers(1, Smax + 1, B * K) if lengths is None
+            else np.repeat(lengths, K))
+    rows = torch.as_tensor(rows, device=dev, dtype=torch.int32)
+    before = LAUNCHES[dec_kernel.NAME]
     out = dec_ops.decode_attention(q, kc, vc, lengths=rows)
+    assert LAUNCHES[dec_kernel.NAME] == before + 1
     G = H // K
     rows = rows.cpu()
     ref = decode_attention_ref(
@@ -304,6 +323,35 @@ def test_decode_attention_kernel_per_row_lengths(dev, dtype):
         kc.cpu().permute(0, 2, 1, 3).reshape(B * K, Smax, hd),
         vc.cpu().permute(0, 2, 1, 3).reshape(B * K, Smax, hd), rows)
     _close(out.cpu().reshape(B * K, G, hd), ref, dtype)
+
+
+@pytest.mark.parametrize("split", [64, 128, 512])   # 16, 8, 2 splits
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_merge_is_fixed(dev, monkeypatch, split, dtype):
+    """Back-to-back launches on one stream give identical outputs: the
+    merge counters are left zero and the splits merge in a fixed order;
+    the result is the plain split merge's."""
+    monkeypatch.setattr(dec_kernel, "SPLIT", split)
+    rng = np.random.default_rng(split)
+    B, H, K, hd, Smax = 3, 28, 4, 128, 1024
+    q = _normal(rng, (B, H, hd), dtype, dev)
+    kc = _normal(rng, (B, Smax, K, hd), dtype, dev)
+    vc = _normal(rng, (B, Smax, K, hd), dtype, dev)
+    rows = torch.as_tensor(rng.integers(1, Smax + 1, B * K), device=dev,
+                           dtype=torch.int32)
+    outs = [dec_kernel.decode_attention_kernel(q, kc, vc, rows)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters, _ = dec_kernel._SCRATCH[(dev.index or 0, stream)]
+    assert int(counters.abs().sum()) == 0
+    G = H // K
+    kf = kc.permute(0, 2, 1, 3).reshape(B * K, Smax, hd)
+    vf = vc.permute(0, 2, 1, 3).reshape(B * K, Smax, hd)
+    want = decode_attention_split_ref(q.reshape(B * K, G, hd), kf, vf, rows,
+                                      n_splits=-(-Smax // split))
+    _close(outs[0].reshape(B * K, G, hd), want, dtype)
 
 
 def test_attention_kernels_refuse_misaligned_rows(dev):

@@ -66,13 +66,17 @@ def test_bare_scheduler_runs_the_default_refresh(kb):
 
 def test_posterior_and_warmup_model_raise(kb):
     """Posterior learning is ported but rides the delta tick, so another
-    mode raises as in the reference; the warmup model is not ported."""
+    mode raises as in the reference; the warmup model works for a ported
+    configuration and raises, naming item 16, for an unported one."""
     with pytest.raises(ValueError, match="fused_delta"):
         ClusterSim(kb, SimConfig(posterior=PosteriorConfig(),
                                  refresh=RefreshConfig(mode="fused"),
                                  device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ClusterSim(kb, SimConfig(warmup_model="llama3-8b", device="cpu"))
+    sim = ClusterSim(kb, SimConfig(warmup_model="qwen3-4b", device="cpu"))
+    assert set(sim.warmup_table) == {"kv", "lora"}
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ClusterSim(kb, SimConfig(warmup_model="whisper-large-v3",
+                                 device="cpu"))
 
 
 @pytest.mark.parametrize("refresh", [

@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA source of the port, one ``nvcc`` each, all at once,
    and print ptxas's register / shared-memory / spill report, with a
-   summary for the attention kernels and the HGMMA (tensor-core)
-   instruction count of the prefill-attention library (none fails);
+   summary for the attention and grouped-matmul kernels and the HGMMA
+   (tensor-core) instruction count of the prefill-attention and
+   grouped-matmul libraries (none fails);
 2. the main path: ``run_sim`` on an open-arrival trace at ``SimConfig()``
    defaults on ``cuda`` (the fused walk kernel, K1), with every kernel
    launch counter set to 0 just before and read just after.  The trace is
@@ -36,7 +37,10 @@ Phases (any failure raises and the script exits non-zero):
    kernel and composed from K2, from the same arena state: bitwise equal,
    timed and profiled;
 7. a small trace on ``cuda`` and on the CPU (the plain versions):
-   identical completion order and ACTs;
+   identical completion order and ACTs; then the threefry walker (no
+   kernel) on the first 200 applications of phase 2's trace, composed
+   with Gittins and with ``srpt_mean``, on ``cuda`` and on the CPU:
+   identical schedules, ms per refresh call;
 8. hold each model kernel against its plain PyTorch version on the card
    at the reference's tolerances (2e-5 float32, 2e-2 bfloat16): RMSNorm
    (K3), prefill attention (K4) and decode attention (K5), at the serve
@@ -50,24 +54,25 @@ Phases (any failure raises and the script exits non-zero):
 10. the serve path: ``repro_torch.launch.serve`` with ``--apps 10`` on a
    full-width Llama-3-8B (32 layers, bfloat16, random weights drawn on the
    card), counters reset and read around it: every LLM request of the
-   trace served, K1 and K3-K5 launched; then one decode step timed and
-   profiled;
+   trace served, K3-K5 launched, the scheduler in the reference's bare
+   default (``composed``: threefry host samples, no K1); then one decode
+   step timed and profiled;
 11. a tiny float32 Llama-3 through the engine on ``cuda`` and on the CPU:
    identical output tokens, completion order, prefix flags and LoRA
    counters;
 12. hold the grouped expert matmul (K6) against its plain version on the
    card at the reference's tolerances for it (1e-4 float32, 2e-2
-   bfloat16): Qwen1.5-MoE's decode and short-prefill products,
-   Phi-3.5-MoE's, the reference's test sweep and the tiny models' shapes,
-   in both dtypes, each timed beside its bound, its plain version and
-   ``torch.bmm``;
+   bfloat16): Qwen1.5-MoE's decode, short-prefill and 2,048-token
+   prefill (C = 160) products, Phi-3.5-MoE's, the reference's test sweep
+   and the tiny models' shapes, in both dtypes, each timed beside its
+   bound, its plain version and ``torch.bmm``;
 13. Qwen1.5-MoE-A2.7B at full width cut to 2 of its 24 layers, in
    float32: a 24-token prompt and 8 teacher-forced decode steps on
    ``cuda`` (K3-K6) and on the CPU from the same weights: logits within
    1e-4, and the tokens whose expert sets differ counted per layer;
 14. the MoE serve path: phase 10 on a full-width Qwen1.5-MoE-A2.7B (24
    layers, bfloat16, random weights drawn on the card): every LLM request
-   served, K1 and K3-K6 launched; one decode step timed and profiled;
+   served, K3-K6 launched; one decode step timed and profiled;
 15. phase 11 on a tiny float32 Qwen1.5-MoE;
 16. hold the SSD chunk scan (K7) against its plain chunked version on the
    card at the reference's SSD tolerances (1e-4 float32, 5e-2 bfloat16),
@@ -81,7 +86,7 @@ Phases (any failure raises and the script exits non-zero):
    weights: logits within 1e-4;
 18. the SSM serve path: phase 10 on a full-width mamba2-1.3b (48 layers,
    bfloat16, random weights drawn on the card): every LLM request served,
-   K1, K3 and K7 launched; one decode step timed and profiled;
+   K3 and K7 launched; one decode step timed and profiled;
 19. phase 11 on a tiny float32 mamba2-1.3b and a tiny float32
    jamba-1.5-large-398b (two periods of one attention and seven Mamba
    layers, MoE in every second: K3-K7 in one model).
@@ -209,9 +214,10 @@ def _hgmma_count(lib):
 
 
 def phase_build():
-    """Build every source; log nvcc's output, and for the attention kernels
-    (K4, K5) the register and spill lines of each entry and the HGMMA
-    count of the K4 library (which must hold tensor-core instructions)."""
+    """Build every source; log nvcc's output, and for the attention and
+    grouped-matmul kernels (K4-K6) the register and spill lines of each
+    entry and the HGMMA count of the K4 and K6 libraries (which must hold
+    tensor-core instructions)."""
     from repro_torch.kernels import build
     sources = _sources()
     t0 = time.perf_counter()
@@ -221,7 +227,8 @@ def phase_build():
     for src, (lib, text) in zip(sources, built):
         for line in (text or "(library already built)").strip().splitlines():
             log(f"[build:{src.stem}] {line}")
-        if src.stem not in ("flash_attention", "decode_attention"):
+        if src.stem not in ("flash_attention", "decode_attention",
+                            "moe_gmm"):
             continue
         lines = (text or "").splitlines()
         spills = [ln.strip() for ln in lines if "spill" in ln
@@ -231,12 +238,12 @@ def phase_build():
         log(f"[build:{src.stem}] {len(regs)} entries, registers "
             f"{min(regs, default=None)}-{max(regs, default=None)}, spills: "
             f"{spills or 'none'}")
-        if src.stem == "flash_attention":
+        if src.stem in ("flash_attention", "moe_gmm"):
             n = _hgmma_count(lib)
             log(f"[build:{src.stem}] HGMMA instructions in the SASS: "
                 f"{'not measured (no cuobjdump)' if n is None else n}")
             if n == 0:
-                raise AssertionError("the flash-attention library holds no "
+                raise AssertionError(f"the {src.stem} library holds no "
                                      "HGMMA (wgmma) instruction")
 
 
@@ -827,6 +834,42 @@ def phase_posterior_path(device):
     return out["cuda"][1]
 
 
+def phase_threefry_path(n_apps=200):
+    """The threefry walker (plain PyTorch, no kernel) on the first
+    ``n_apps`` applications of the main path's trace: the composed refresh
+    with Gittins, and ``srpt_mean`` (host samples in every mode), each on
+    the card and on the CPU from the same knowledge base: the same
+    schedule; the refresh's ms per call on each."""
+    from repro_torch.apps.suite import build_knowledge_base
+    from repro_torch.core.refresh_config import RefreshConfig
+    insts = _trace(n_apps)
+    arms = (("composed", dict(refresh=RefreshConfig(mode="composed"))),
+            ("srpt_mean", dict(policy="srpt_mean")))
+    for arm, kw in arms:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            kb = build_knowledge_base(n_trials=100, seed=3)
+            res, launches, sim = _run_path(f"threefry:{arm}:{dev}", kb,
+                                           insts,
+                                           _main_config(device=dev, **kw))
+            s = sim.sched
+            log(f"[threefry:{arm}:{dev}] mode={s.mode} policy="
+                f"{s.policy.name} refresh calls={res.policy_calls} ms per "
+                f"refresh call="
+                f"{1e3 * res.policy_time_s / max(res.policy_calls, 1):.3f}")
+            _check_completed(f"threefry {arm} ({dev})", res, insts, launches,
+                             [])
+            if s._fused_active() or any(launches.values()):
+                raise AssertionError(f"threefry {arm}: refreshed through "
+                                     f"a kernel: {launches}")
+            if dev == "cuda" and not s._base_key.is_cuda:
+                raise AssertionError(f"threefry {arm}: the walk keys are "
+                                     "not on cuda")
+            out[dev] = res
+        _same_schedule(f"threefry:{arm} cuda vs cpu", out["cpu"], out["cuda"],
+                       1e-6)
+
+
 def phase_reference():
     """A small trace on the card and on the CPU: the kernel path and the
     plain path must schedule identically."""
@@ -1172,7 +1215,8 @@ def _profile_decode(tag, model, caches, pos, step_ms):
     groups = {"matmul": ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                          "splitK", "matmul"),
               "rmsnorm": ("rmsnorm_kernel",), "decode_attention":
-              ("decode_attention_kernel",), "moe_gmm": ("moe_gmm_kernel",)}
+              ("decode_attention_kernel",),
+              "moe_gmm": ("moe_gmm_kernel", "moe_gmm_tc")}
     share = {g: sum(e.self_device_time_total for e in evs
                     if any(k in e.key for k in keys)) / 1e3
              for g, keys in groups.items()}
@@ -1220,7 +1264,6 @@ def phase_serve(device, arch):
     from repro_torch.config import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import serve
-    from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel
     cfg = get_config(arch)
     tag = "serve" if cfg.family == "dense" else f"serve_{cfg.family}"
     expected = _trace_llm_requests(10, 5.0, 0)
@@ -1250,7 +1293,7 @@ def phase_serve(device, arch):
         f"mean_ttft={1e3 * float(np.mean(ttft)):.3f} ms "
         f"init={run.init_s:.3f} s wall={wall:.1f} s "
         f"max_memory_allocated={peak} (allocated before: {before}) "
-        f"launches={launches}")
+        f"refresh_mode={run.sched.mode} launches={launches}")
     if len(done) != expected:
         raise AssertionError(f"{tag} served {len(done)} of the trace's "
                              f"{expected} LLM requests")
@@ -1259,10 +1302,13 @@ def phase_serve(device, arch):
            or not all(0 <= t < cfg.vocab_size for t in r.output)]
     if bad:
         raise AssertionError(f"{tag}: requests with wrong outputs: {bad[:5]}")
-    need = [walk_kernel.NAME, *FAMILY_KERNELS[cfg.family]]
-    missing = [k for k in need if launches.get(k, 0) <= 0]
+    missing = [k for k in FAMILY_KERNELS[cfg.family]
+               if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{tag} did not launch {missing}: {launches}")
+    if run.sched.mode != "composed":
+        raise AssertionError(f"{tag}: the scheduler runs {run.sched.mode!r},"
+                             " not the reference's bare default 'composed'")
     # one decode step at batch 1 of a slot 100 positions in
     prompt = torch.randint(1, cfg.vocab_size, (1, 100),
                            generator=torch.Generator().manual_seed(4))
@@ -1384,11 +1430,12 @@ def _check_moe_gmm(device, E, C, D, N, dtype_name, seed=0):
     return dict(t, max_abs_err=err)
 
 
-# (E, C, D, N): Qwen1.5-MoE's decode (C = 1) and short-prefill (C = 8)
-# products, wi/wg then wo; Phi-3.5-MoE's; the reference's test sweep
-# (tests/test_kernels.py); the tiny models'
+# (E, C, D, N): Qwen1.5-MoE's decode (C = 1), short-prefill (C = 8) and
+# 2,048-token prefill (C = 160) products, wi/wg then wo; Phi-3.5-MoE's;
+# the reference's test sweep (tests/test_kernels.py); the tiny models'
 GMM_SHAPES = ((64, 1, 2048, 1408), (64, 1, 1408, 2048), (64, 8, 2048, 1408),
-              (64, 8, 1408, 2048), (16, 1, 4096, 6400), (16, 1, 6400, 4096),
+              (64, 8, 1408, 2048), (64, 160, 2048, 1408),
+              (64, 160, 1408, 2048), (16, 1, 4096, 6400), (16, 1, 6400, 4096),
               (16, 8, 4096, 6400), (16, 8, 6400, 4096), (4, 64, 128, 256),
               (2, 128, 256, 128), (8, 32, 64, 64), (16, 3, 64, 96),
               (16, 3, 96, 64))
@@ -1626,6 +1673,7 @@ def main() -> int:
         k["launches"] = path[k["name"]][k["name"]]
     phase_delta_tick(dev, W)
     phase_reference()
+    phase_threefry_path()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model_kernels = phase_model_kernels(dev)

@@ -9,10 +9,13 @@ numpy arrays, and ``PDGraph.to_json``/``from_json`` round-trip a graph, so a
 knowledge base can cross between the two packages without either importing
 the other.
 
-Not ported in this slice: the threefry walker behind
-``PDGraph.mc_service_samples`` and ``mc_service_samples_batch`` (the
-looped/composed refresh modes) — ROADMAP.md, modules to port, item 9.
-The refresh pipeline's counter-RNG walk lives in
+The host-sample walker is the reference's threefry walk in plain PyTorch
+on the tables' device: ``PDGraph.mc_service_samples`` walks one graph (the
+``looped`` refresh mode), ``mc_service_samples_batch`` a whole queue over
+the packed tables (``composed``, and ``walker="threefry"`` in the fused
+pipelines).  Keyed by the same ``fold_in`` chain over
+:mod:`repro_torch.core.threefry`, it gives the reference's samples bit for
+bit.  The refresh pipeline's counter-RNG walk lives in
 ``repro_torch.kernels.pdgraph_walk``.
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.device import DeviceLike, resolve_device
 
 MAX_SAMPLES = 1000  # FIFO cap per the paper
@@ -160,6 +164,41 @@ class PDGraph:
         self._compiled = ((t_in, t_out), packed)
         return packed
 
+    def mc_service_samples(self, key: torch.Tensor, t_in: float,
+                           t_out: float, start_unit: Optional[str] = None,
+                           executed_in_unit: float = 0.0,
+                           unit_sample_override: Optional[
+                               Dict[str, np.ndarray]] = None,
+                           n_walkers: int = 512, max_steps: int = 64,
+                           device: DeviceLike = None) -> np.ndarray:
+        """Remaining-service-time samples ``(n_walkers,)`` from
+        ``start_unit`` (default: entry), walked on ``device`` (default
+        ``cuda``) from the threefry ``key`` (two words, see
+        :mod:`repro_torch.core.threefry`).
+
+        ``unit_sample_override`` replaces a unit's demand samples (the
+        online conditional refinement hook).  ``executed_in_unit``
+        subtracts attained service inside the current unit (floored at 0
+        per walker)."""
+        dev = resolve_device(device)
+        packed = self.compile_arrays(t_in, t_out)
+        samples, counts = packed["samples"], packed["counts"]
+        if unit_sample_override:
+            samples = np.array(samples)
+            counts = np.array(counts)
+            for name, arr in unit_sample_override.items():
+                i = packed["index"][name]
+                arr = np.asarray(arr, np.float32)[:samples.shape[1]]
+                if len(arr) == 0:
+                    continue
+                samples[i, :len(arr)] = arr
+                counts[i] = len(arr)
+        start = packed["index"][start_unit] if start_unit else packed["entry"]
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        out = _mc_walk(t(samples), t(counts), t(packed["cum_trans"]), start,
+                       executed_in_unit, key.to(dev), n_walkers, max_steps)
+        return out.cpu().numpy()
+
     def to_json(self) -> str:
         d = {
             "app_name": self.app_name, "entry": self.entry,
@@ -272,3 +311,189 @@ def pack_graphs(graphs: Dict[str, PDGraph], t_in: float, t_out: float,
 def _pow2_ceil(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
+
+# Elements of one uniform-stream chunk (``walk_uniforms`` holds ~10 int64
+# temporaries of this size): bounds the hash's memory on a long queue.
+_STREAM_CHUNK = 1 << 22
+
+
+def _walk_core(samples, counts, cum_trans, graph_idx, start, executed, keys,
+               ov_samples, ov_counts, n_walkers: int, max_steps: int,
+               track_arrivals: bool = False, po_cum=None, po_scale=None):
+    """Random walks of A applications over the packed ``(G, U, S)`` unit
+    tables, the reference's ``_walk_core`` with its vmap written out as the
+    leading axis: ``graph_idx``, ``start``, ``executed`` ``(A,)``, ``keys``
+    ``(A, 2)`` threefry keys.  Absorbing state is U.
+
+    ``ov_samples (A, U, So)`` / ``ov_counts (A, U)`` (or ``None``) carry
+    online-refinement overrides: a unit with a positive count draws from
+    its override row.  ``po_cum (A, U, U+1)`` / ``po_scale (A, U)`` switch
+    on posterior sampling: transitions draw against the blended CDF and
+    every service draw is scaled by the unit's ratio.  With
+    ``track_arrivals`` the walk also records each walker's cumulative
+    service at its first entry into each unit (``ARRIVAL_NEVER`` where
+    never entered) and returns ``(total (A, W), arrivals (A, W, U))``; the
+    totals are the same either way.
+
+    Each step draws ``(2, W)`` uniforms from the step's split key: demand
+    index ``floor(r * n)``, transition ``sum(r2 > cdf)``, in the
+    reference's float order (eager PyTorch contracts no multiply-add).
+    Walkers that absorbed add nothing and never move, so the loop stops
+    once every walker has absorbed, with the same result."""
+    A = int(graph_idx.shape[0])
+    G, U, S = samples.shape
+    W = n_walkers
+    dev = samples.device
+    gi = graph_idx.to(dev, torch.int64)
+    apps = torch.arange(A, device=dev) * U
+    samp = samples.reshape(G * U, S)
+    cnt = counts.reshape(G * U)
+    base = (gi * U)[:, None]
+    if po_cum is None:
+        cdf_rows, cdf_base = cum_trans.reshape(G * U, U + 1), base
+    else:
+        cdf_rows, cdf_base = po_cum.reshape(A * U, U + 1), apps[:, None]
+    with_ov = ov_counts is not None
+    if with_ov:
+        So = ov_samples.shape[2]
+        ovs = ov_samples.reshape(A * U, So)
+        ovc = ov_counts.reshape(A * U)
+    u = torch.empty((A, max_steps, 2, W), dtype=torch.float32, device=dev)
+    step = max(1, _STREAM_CHUNK // max(1, max_steps * 2 * W))
+    for a0 in range(0, A, step):
+        u[a0:a0 + step] = threefry.walk_uniforms(keys[a0:a0 + step],
+                                                 max_steps, W)
+    cur = start.to(dev, torch.int64)[:, None].expand(A, W).contiguous()
+    ex = executed.to(dev, torch.float32)[:, None]
+    total = torch.zeros((A, W), dtype=torch.float32, device=dev)
+    done = torch.zeros((A, W), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    arr = (torch.full((A, W, U), ARRIVAL_NEVER, dtype=torch.float32,
+                      device=dev) if track_arrivals else None)
+    unit_ids = torch.arange(U, device=dev)
+    for t in range(max_steps):
+        r, r2 = u[:, t, 0], u[:, t, 1]
+        row = base + cur
+        n_eff = cnt[row]
+        if with_ov:
+            orow = apps[:, None] + cur
+            oc = ovc[orow]
+            has = oc > 0
+            n_eff = torch.where(has, oc, n_eff)
+        sidx = torch.floor(r * n_eff.to(torch.float32)).to(torch.int64)
+        svc = samp[row, torch.clamp(sidx, 0, S - 1)]
+        if with_ov:
+            svc = torch.where(has, ovs[orow, torch.clamp(sidx, 0, So - 1)],
+                              svc)
+        if po_scale is not None:
+            svc = svc * po_scale.reshape(A * U)[apps[:, None] + cur]
+        if t == 0:
+            svc = torch.clamp_min(svc - ex, 0.0)
+        total = total + torch.where(done, zero, svc)
+        nxt = (r2[..., None] > cdf_rows[cdf_base + cur]).sum(-1)
+        nxt = torch.clamp_max(nxt, U)
+        new_done = done | (nxt >= U)
+        if track_arrivals:
+            enter = (~done) & (nxt < U)
+            onehot = enter[..., None] & (nxt[..., None] == unit_ids)
+            arr = torch.where(onehot, torch.minimum(arr, total[..., None]),
+                              arr)
+        cur = torch.where(new_done, cur, nxt)
+        done = new_done
+        if t % 8 == 7 and bool(done.all()):
+            break
+    return (total, arr) if track_arrivals else total
+
+
+def _mc_walk(samples: torch.Tensor, counts: torch.Tensor,
+             cum_trans: torch.Tensor, start: int, executed: float,
+             key: torch.Tensor, n_walkers: int, max_steps: int
+             ) -> torch.Tensor:
+    """One application's walk: ``(U, S)`` demand samples, ``(U, U+1)``
+    cumulative transitions, absorbing state U.  Returns ``(n_walkers,)``
+    remaining service times."""
+    dev = samples.device
+    return _walk_core(samples[None], counts[None], cum_trans[None],
+                      torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.tensor([int(start)], device=dev),
+                      torch.tensor([executed], dtype=torch.float32,
+                                   device=dev),
+                      key.reshape(1, 2), None, None, n_walkers,
+                      max_steps)[0]
+
+
+def _mc_walk_batch(samples, counts, cum_trans, graph_idx, start, executed,
+                   base_key, key_ids, refresh_ids, ov_samples, ov_counts,
+                   n_walkers: int, max_steps: int,
+                   track_arrivals: bool = False, po_cum=None, po_scale=None):
+    """The whole queue's walks, keyed per app by ``fold_in(fold_in(base_key,
+    key_id), refresh_id)`` — the chain the looped path derives, so both
+    give the same bits.  With ``track_arrivals`` returns ``(totals (A, W),
+    arrivals (A, W, U))``; ``po_cum``/``po_scale`` switch on posterior
+    sampling (see :func:`_walk_core`)."""
+    dev = samples.device
+    base_key = base_key.to(dev)
+    keys = threefry.fold_in(threefry.fold_in(base_key, key_ids.to(dev)),
+                            refresh_ids.to(dev))
+    return _walk_core(samples, counts, cum_trans, graph_idx, start, executed,
+                      keys, ov_samples, ov_counts, n_walkers, max_steps,
+                      track_arrivals=track_arrivals, po_cum=po_cum,
+                      po_scale=po_scale)
+
+
+def mc_service_samples_batch(
+        packed: PackedKB, base_key: torch.Tensor, *,
+        graph_idx: np.ndarray, start: np.ndarray, executed: np.ndarray,
+        key_ids: np.ndarray, refresh_ids: np.ndarray,
+        overrides: Optional[Sequence[Optional[Dict[str, np.ndarray]]]] = None,
+        n_walkers: int = 512, max_steps: int = 64) -> np.ndarray:
+    """Remaining-service samples ``(A, n_walkers)`` for A applications in
+    one batched walk on the packed tables' device.
+
+    ``overrides[a]`` maps unit name -> conditional sample array (the online
+    refinement hook).  As in the reference, override rows are cut to the
+    power of two at or above the longest override (at most S) and the batch
+    is padded to a power of two."""
+    A = len(graph_idx)
+    if A == 0:
+        return np.zeros((0, n_walkers), np.float32)
+    U, S = packed.n_units, packed.n_samples
+    So = 1
+    if overrides:
+        for ov in overrides:
+            for arr in (ov or {}).values():
+                So = max(So, min(len(arr), S))
+        So = min(_pow2_ceil(So), S) if So > 1 else 1
+    Ap = _pow2_ceil(A)
+    gi = np.zeros((Ap,), np.int64)
+    st = np.zeros((Ap,), np.int64)
+    ex = np.zeros((Ap,), np.float32)
+    kid = np.zeros((Ap,), np.int64)
+    rid = np.zeros((Ap,), np.int64)
+    gi[:A] = np.asarray(graph_idx, np.int64)
+    st[:A] = np.asarray(start, np.int64)
+    st[A:] = packed.entry[0]
+    ex[:A] = np.asarray(executed, np.float32)
+    kid[:A] = np.asarray(key_ids, np.int64)
+    rid[:A] = np.asarray(refresh_ids, np.int64)
+    ovs = np.zeros((Ap, U, So), np.float32)
+    ovc = np.zeros((Ap, U), np.int32)
+    if overrides:
+        for a, ov in enumerate(overrides):
+            if not ov:
+                continue
+            uidx = packed.unit_index[int(gi[a])]
+            for name, arr in ov.items():
+                if name not in uidx:
+                    continue
+                arr = np.asarray(arr, np.float32)[:So]
+                if len(arr) == 0:
+                    continue
+                i = uidx[name]
+                ovs[a, i, :len(arr)] = arr
+                ovc[a, i] = len(arr)
+    t = lambda a: torch.as_tensor(a, device=packed.device)  # noqa: E731
+    out = _mc_walk_batch(packed.samples, packed.counts, packed.cum_trans,
+                         t(gi), t(st), t(ex), base_key, t(kid), t(rid),
+                         t(ovs), t(ovc), n_walkers, max_steps)
+    return out[:A].cpu().numpy()

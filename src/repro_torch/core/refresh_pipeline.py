@@ -1,14 +1,20 @@
 """Device-resident fused refresh pipeline (§3.3 hot path, Fig. 15).
 
-PyTorch counterpart of ``repro.core.refresh_pipeline`` for the counter-RNG
-walker (``walker="pallas"``), in its two compositions:
+PyTorch counterpart of ``repro.core.refresh_pipeline``, with its two
+walkers:
 
-* ``rank_in_kernel=True`` (the default): one fused walk kernel (walk →
-  histogram rows → rank → arrival rows) per dispatch;
-* ``rank_in_kernel=False``: the per-phase walk kernel with compaction
+* ``walker="pallas"``, the counter-RNG walk kernels: with
+  ``rank_in_kernel=True`` (the default) one fused walk kernel (walk →
+  histogram rows → rank → arrival rows) per dispatch; with
+  ``rank_in_kernel=False`` the per-phase walk kernel with compaction
   between phases (``pdgraph_walk``), then histogram rows, ranks and
   arrival rows in PyTorch.  Both give the same bits unless a compaction
   stage spills.
+* ``walker="threefry"``, the composed path's host-sample walker
+  (:func:`repro_torch.core.pdgraph._mc_walk_batch`) keyed by the
+  ``fold_in`` chain from ``base_key``, then the same reductions: the
+  reference's threefry samples bit for bit, so the fused ranks match the
+  composed and looped modes.
 
 Either way the rows are scattered into the slot arena, every slot is
 re-ranked in place and the prewarm triggers are derived on the device; only
@@ -23,8 +29,7 @@ small per-app results cross to the host.
   the prior into its walk tables (:mod:`repro_torch.core.posterior`).
 
 On a CPU arena every kernel call takes its plain version.  Not ported in
-this slice: the threefry walker (ROADMAP.md, modules to port, item 9) and
-the mesh (item 8).
+this slice: the mesh (ROADMAP.md, modules to port, item 8).
 """
 from __future__ import annotations
 
@@ -38,21 +43,13 @@ from repro_torch.core.arena import QueueState
 from repro_torch.core.gittins import (N_BUCKETS, f32, fma32,
                                       gittins_rank_core, row_sum,
                                       to_histogram_rows)
-from repro_torch.core.pdgraph import ARRIVAL_NEVER, PackedKB
+from repro_torch.core.pdgraph import ARRIVAL_NEVER, PackedKB, _mc_walk_batch
 from repro_torch.core.policies import HOPELESS_Q, SUP_Q
 from repro_torch.core.posterior import posterior_tables, prior_mean
 from repro_torch.kernels.pdgraph_walk.ops import (arrival_hists,
                                                   pdgraph_walk,
                                                   pdgraph_walk_ranked)
 from repro_torch.kernels.pdgraph_walk.ref import walker_streams
-
-
-def check_slice(walker: str) -> None:
-    """Raise for the refresh options this slice of the port leaves out."""
-    if walker != "pallas":
-        raise NotImplementedError(
-            f"walker={walker!r}: the threefry walker is not ported yet "
-            "(ROADMAP.md, modules to port, item 9)")
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -168,16 +165,17 @@ class _Rows:
     start: torch.Tensor
     executed: torch.Tensor
     attained: torch.Tensor
-    streams: torch.Tensor
+    kid: np.ndarray
+    rid: np.ndarray
     stretch: torch.Tensor
     ovs: Optional[torch.Tensor]
     ovc: Optional[torch.Tensor]
     valid: torch.Tensor
 
 
-def _dispatch_rows(qs: QueueState, slots: np.ndarray, seed) -> _Rows:
-    """Padded row gather (power of two), override-width trim and walker
-    streams, moved to the arena's device in one place."""
+def _dispatch_rows(qs: QueueState, slots: np.ndarray) -> _Rows:
+    """Padded row gather (power of two) and override-width trim, moved to
+    the arena's device in one place."""
     gi, start, executed, attained, kid, rid, stretch, ovs, ovc = \
         qs.gather(slots)
     dev = qs.device
@@ -185,8 +183,7 @@ def _dispatch_rows(qs: QueueState, slots: np.ndarray, seed) -> _Rows:
     with_ov = qs.override_apps > 0
     return _Rows(
         gi=t(gi), start=t(start), executed=t(executed), attained=t(attained),
-        streams=walker_streams(seed, kid, rid, device=dev),
-        stretch=t(stretch), ovs=t(ovs) if with_ov else None,
+        kid=kid, rid=rid, stretch=t(stretch), ovs=t(ovs) if with_ov else None,
         ovc=t(ovc) if with_ov else None,
         valid=t(np.arange(len(gi)) < len(slots)))
 
@@ -197,31 +194,45 @@ def _prewarm_args(packed: PackedKB, prewarm_table):
             torch.as_tensor(prewarm_table.warmup, device=dev))
 
 
-def _walk(packed: PackedKB, rows: _Rows, *, rank_in_kernel, n_walkers,
-          max_steps, n_buckets, with_prewarm, with_triage, with_rank=True,
-          po_cum=None, po_scale=None):
+def _walk(packed: PackedKB, rows: _Rows, *, walker, base_key, seed,
+          rank_in_kernel, n_walkers, max_steps, n_buckets, with_prewarm,
+          with_triage, with_rank=True, po_cum=None, po_scale=None):
     """The walk section of every dispatch: queue rows -> the
     ``pdgraph_walk_ranked`` dict (``probs``, ``edges``, ``ranks``,
     ``total`` with triage, ``spill`` and the arrival rows with prewarming),
-    from the fused walk or, with ``rank_in_kernel=False``, composed from
-    ``pdgraph_walk`` (the reference's ``_walk_total``) and the PyTorch
-    reductions — the same bits unless a compaction stage spills.  The
-    composition ranks only ``with_rank`` (the delta tick re-ranks every
-    slot in place anyway)."""
-    if rank_in_kernel:
+    from the fused walk or, with ``rank_in_kernel=False``, composed from a
+    walk (``pdgraph_walk``, or the threefry walker from ``base_key``; the
+    reference's ``_walk_total``) and the PyTorch reductions — the same bits
+    unless a compaction stage spills.  The composition ranks only
+    ``with_rank`` (the delta tick re-ranks every slot in place anyway)."""
+    dev = packed.device
+    if walker == "threefry":
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        out = _mc_walk_batch(
+            packed.samples, packed.counts, packed.cum_trans, rows.gi,
+            rows.start, rows.executed, base_key, t(rows.kid), t(rows.rid),
+            rows.ovs, rows.ovc, n_walkers, max_steps,
+            track_arrivals=with_prewarm, po_cum=po_cum, po_scale=po_scale)
+        rem, arr = out if with_prewarm else (out, None)
+        spill = 0
+    elif rank_in_kernel:
         return pdgraph_walk_ranked(
             packed.samples, packed.counts, packed.cum_trans, rows.gi,
-            rows.start, rows.executed, rows.streams, rows.attained, rows.ovs,
-            rows.ovc, valid=rows.valid, n_walkers=n_walkers,
-            max_steps=max_steps, n_buckets=n_buckets,
+            rows.start, rows.executed,
+            walker_streams(seed, rows.kid, rows.rid, device=dev),
+            rows.attained, rows.ovs, rows.ovc, valid=rows.valid,
+            n_walkers=n_walkers, max_steps=max_steps, n_buckets=n_buckets,
             track_arrivals=with_prewarm, with_rank=True,
             with_total=with_triage, po_cum=po_cum, po_scale=po_scale)
-    out = pdgraph_walk(
-        packed.samples, packed.counts, packed.cum_trans, rows.gi, rows.start,
-        rows.executed, rows.streams, rows.ovs, rows.ovc, valid=rows.valid,
-        n_walkers=n_walkers, max_steps=max_steps,
-        track_arrivals=with_prewarm, po_cum=po_cum, po_scale=po_scale)
-    rem, arr, spill = out if with_prewarm else (out[0], None, out[1])
+    else:
+        out = pdgraph_walk(
+            packed.samples, packed.counts, packed.cum_trans, rows.gi,
+            rows.start, rows.executed,
+            walker_streams(seed, rows.kid, rows.rid, device=dev), rows.ovs,
+            rows.ovc, valid=rows.valid, n_walkers=n_walkers,
+            max_steps=max_steps, track_arrivals=with_prewarm, po_cum=po_cum,
+            po_scale=po_scale)
+        rem, arr, spill = out if with_prewarm else (out[0], None, out[1])
     total = rows.attained[:, None] + torch.maximum(rem, f32(0.0, rem))
     probs, edges = to_histogram_rows(total, n_buckets)
     res = {"probs": probs, "edges": edges,
@@ -254,7 +265,19 @@ def _host(t: Optional[torch.Tensor], n: Optional[int] = None):
     return a if n is None else a[:n]
 
 
+def _check_walker(walker: str, base_key, rank_in_kernel) -> None:
+    if walker != "threefry":
+        return
+    if base_key is None:
+        raise ValueError("walker='threefry' walks from base_key (the "
+                         "scheduler's threefry.PRNGKey(seed)); got None")
+    if rank_in_kernel:
+        raise ValueError("rank_in_kernel=True requires walker='pallas' (the "
+                         "'threefry' walker has no fused one-pass program)")
+
+
 def refresh_ranks_fused(packed: PackedKB, qs: QueueState, seed, *,
+                        base_key: Optional[torch.Tensor] = None,
                         slots: Optional[np.ndarray] = None,
                         n_walkers: int = 512, max_steps: int = 64,
                         n_buckets: int = N_BUCKETS, walker: str = "pallas",
@@ -268,8 +291,9 @@ def refresh_ranks_fused(packed: PackedKB, qs: QueueState, seed, *,
     rows also land in the store's host mirrors.  Does NOT bump refresh
     ids; callers bump after consuming.  ``rank_in_kernel`` (default on)
     selects the fused walk; ``False`` composes the per-phase walk with the
-    reductions."""
-    check_slice(walker)
+    reductions; ``walker="threefry"`` composes the threefry walk from
+    ``base_key`` with them."""
+    _check_walker(walker, base_key, rank_in_kernel)
     if slots is None:
         slots = qs.occupied()
     A = len(slots)
@@ -280,9 +304,10 @@ def refresh_ranks_fused(packed: PackedKB, qs: QueueState, seed, *,
               if prewarm_table is not None else None)
         tri = zs if with_triage else None
         return FusedRefresh(zs, z, z, 0, zt, zt, tri, tri, tri)
-    rows = _dispatch_rows(qs, slots, seed)
+    rows = _dispatch_rows(qs, slots)
     with_pw = prewarm_table is not None
-    res = _walk(packed, rows, rank_in_kernel=rank_in_kernel is not False,
+    res = _walk(packed, rows, walker=walker, base_key=base_key, seed=seed,
+                rank_in_kernel=rank_in_kernel is not False,
                 n_walkers=n_walkers, max_steps=max_steps,
                 n_buckets=n_buckets, with_prewarm=with_pw,
                 with_triage=with_triage)
@@ -345,6 +370,7 @@ def _posterior_rows(packed: PackedKB, qs: QueueState, walked: np.ndarray,
 
 def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
                         walked: np.ndarray,
+                        base_key: Optional[torch.Tensor] = None,
                         n_walkers: int = 512, max_steps: int = 64,
                         n_buckets: int = N_BUCKETS, walker: str = "pallas",
                         prewarm_table=None, prewarm_k: float = 0.5,
@@ -360,9 +386,10 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
     since its walk; ``retrigger=False`` (event-path subset calls) computes
     walk-time triggers for the walked rows only.  ``posterior`` (a
     :class:`~repro_torch.core.posterior.PosteriorConfig`) blends each walked
-    slot's device posterior row with the prior into its walk tables.  Does
-    NOT bump refresh ids; callers bump ``walked`` after consuming."""
-    check_slice(walker)
+    slot's device posterior row with the prior into its walk tables.
+    ``walker="threefry"`` walks from ``base_key``.  Does NOT bump refresh
+    ids; callers bump ``walked`` after consuming."""
+    _check_walker(walker, base_key, rank_in_kernel)
     with_pw = prewarm_table is not None
     qs.ensure_result_rows(n_buckets,
                           prewarm_table.n_classes if with_pw else None,
@@ -376,12 +403,13 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
     trigger = reach = None
     spill = 0
     if D:
-        rows = _dispatch_rows(qs, walked, seed)
+        rows = _dispatch_rows(qs, walked)
         po_cum = po_scale = None
         if posterior is not None:
             po_cum, po_scale = _posterior_rows(packed, qs, walked, rows,
                                                posterior)
-        res = _walk(packed, rows, rank_in_kernel=rank_in_kernel is not False,
+        res = _walk(packed, rows, walker=walker, base_key=base_key,
+                    seed=seed, rank_in_kernel=rank_in_kernel is not False,
                     n_walkers=n_walkers, max_steps=max_steps,
                     n_buckets=n_buckets, with_prewarm=with_pw,
                     with_triage=with_triage, with_rank=False, po_cum=po_cum,

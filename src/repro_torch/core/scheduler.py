@@ -1,27 +1,35 @@
 """HermesScheduler: the global queue manager (Fig. 4).
 
-PyTorch counterpart of ``repro.core.scheduler`` for the fused refresh modes
-(``fused`` and the default ``fused_delta``).  Holds the PDGraph knowledge
-base, tracks per-application runtime state, refreshes priorities at
-bucket-period granularity through the device slot arena, performs online
-demand refinement on unit completion, and emits prewarm plans.  Hosts drive
-it through the same ``on_*`` callbacks as the reference.
+PyTorch counterpart of ``repro.core.scheduler``.  Holds the PDGraph
+knowledge base, tracks per-application runtime state, refreshes priorities
+at bucket-period granularity, performs online demand refinement on unit
+completion, and emits prewarm signals or plans.  Hosts drive it through the
+same ``on_*`` callbacks as the reference.
 
-The arena and the walk kernels live on ``device`` (default ``cuda``; the
-caller asks for the CPU explicitly, and construction raises when ``cuda``
-is asked for without a card).  The counter-RNG walker needs only the
-integer ``seed``.  ``RefreshConfig(rank_in_kernel=False)`` composes the
+Refresh modes, as in the reference: ``looped`` walks one application at a
+time and ``composed`` the whole stale set at once, both with the threefry
+walker (:mod:`repro_torch.core.threefry`) keyed by
+``fold_in(fold_in(PRNGKey(seed), key_id), refreshes)``, so they draw the
+reference's samples bit for bit; the views carry the samples and the policy
+ranks them on the host.  A bare ``HermesScheduler(kb)`` runs ``composed``
+(``looped`` with ``batched=False``), as the reference does.  ``fused`` and
+``fused_delta`` (``SimConfig``'s default) refresh through the device slot
+arena: the counter-RNG walk kernels, or ``walker="threefry"``.  Policies
+that need raw demand samples (``srpt_mean``, ``oracle``) take the host-
+sample walk in every mode (one batched walk unless ``batched=False``).
+
+The arena and the walks live on ``device`` (default ``cuda``; the caller
+asks for the CPU explicitly, and construction raises when ``cuda`` is asked
+for without a card).  ``RefreshConfig(rank_in_kernel=False)`` composes the
 per-phase walk with the reductions; ``posterior`` (a ``PosteriorConfig``,
 ``fused_delta`` only) learns branch mixes and unit demands online.
 
-Not ported in this slice (construction raises ``NotImplementedError``):
-modes ``looped``/``composed`` and ``walker="threefry"`` (ROADMAP.md,
-modules to port, item 9) and ``mesh_shards`` (item 8).  Policies that need
-raw host-side demand samples (``srpt_mean``, ``oracle``) go through the
-composed walk and raise when they first refresh.
+Not ported in this slice: ``mesh_shards`` (construction raises
+``NotImplementedError``; ROADMAP.md, modules to port, item 8).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -29,8 +37,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import correlation as C
+from repro_torch.core import threefry
 from repro_torch.core.arena import build_queue_state
-from repro_torch.core.pdgraph import PDGraph, pack_graphs
+from repro_torch.core.pdgraph import (PDGraph, mc_service_samples_batch,
+                                      pack_graphs)
 from repro_torch.core.policies import (AppView, GittinsPolicy, Policy,
                                        VTCPolicy, make_policy)
 from repro_torch.core.posterior import (END, Observation, PosteriorConfig,
@@ -38,8 +48,7 @@ from repro_torch.core.posterior import (END, Observation, PosteriorConfig,
 from repro_torch.core.prewarm import (PrewarmPlan, PrewarmSignal,
                                       build_prewarm_table)
 from repro_torch.core.refresh_config import RefreshConfig
-from repro_torch.core.refresh_pipeline import (check_slice,
-                                               refresh_ranks_delta,
+from repro_torch.core.refresh_pipeline import (refresh_ranks_delta,
                                                refresh_ranks_fused)
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -71,6 +80,7 @@ class HermesScheduler:
                  K: float = 0.5, n_buckets: int = 10,
                  refine: bool = True, prewarm: bool = True,
                  mc_walkers: int = 512, seed: int = 0,
+                 batched: bool = True,
                  refresh: Optional[RefreshConfig] = None,
                  warmup_table: Optional[Dict[str, float]] = None,
                  posterior: Optional[PosteriorConfig] = None,
@@ -86,30 +96,32 @@ class HermesScheduler:
         self.prewarm_enabled = prewarm
         self.mc_walkers = mc_walkers
         self._mc_walkers_base = mc_walkers
-        # ``refresh=None`` is ``RefreshConfig()`` (fused_delta); the
-        # reference's bare-construction default, composed, is not ported
-        rc = refresh if refresh is not None else RefreshConfig()
-        if rc.mode in ("looped", "composed"):
-            raise NotImplementedError(
-                f"refresh mode {rc.mode!r} is not ported yet (ROADMAP.md, "
-                "modules to port, item 9); pass "
-                "refresh=RefreshConfig(mode='fused_delta')")
+        if refresh is None:
+            # bare construction keeps the reference's default: ``batched``
+            # picks composed vs looped (SimConfig defaults to fused_delta)
+            rc = dataclasses.replace(
+                RefreshConfig(), mode="composed" if batched else "looped")
+        else:
+            rc = refresh
         if rc.mesh_shards is not None:
             raise NotImplementedError(
                 "mesh_shards: the sharded arena is not ported yet "
                 "(ROADMAP.md, modules to port, item 8)")
-        check_slice(rc.walker)
         self.refresh_config = rc
         self.mode = rc.mode
+        self.batched = self.mode != "looped"
         self.delta_full_threshold = rc.delta_full_threshold
         self.queue_delay_correction = rc.queue_delay_correction
         self._stretch_alpha = 0.3       # queue-wait EWMA smoothing
         self.walker = rc.walker
         self.rank_in_kernel = rc.rank_in_kernel
+        if hasattr(self.policy, "vectorized"):
+            self.policy.vectorized = self.batched
         self.apps: Dict[str, AppRuntime] = {}
         # live subset of `apps`: the refresh tick iterates only this
         self._live: Dict[str, AppRuntime] = {}
         self._seed = seed
+        self._base_key = threefry.PRNGKey(seed, device=self.device)
         self._app_seq = itertools.count()
         self._packed = None               # (kb versions, PackedKB) cache
         self._qstate = None               # device slot arena (lazy)
@@ -135,6 +147,12 @@ class HermesScheduler:
             C.apply_masks(g)
 
     # ------------------------------------------------------------ internals
+    def _app_key(self, app: AppRuntime):
+        """Deterministic per-(app, refresh) key — mode-independent, so the
+        looped and batched paths draw bit-identical samples."""
+        k = threefry.fold_in(self._base_key, app.key_id)
+        return threefry.fold_in(k, app.refreshes)
+
     def _packed_kb(self):
         versions = tuple(sorted((n, g.version) for n, g in self.kb.items()))
         if self._packed is None or self._packed[0] != versions:
@@ -145,8 +163,10 @@ class HermesScheduler:
     def _fused_active(self) -> bool:
         """The fused pipeline computes Gittins ranks AND the composite
         policies' triage quantiles on device, so it engages for every
-        fused-capable policy."""
-        return bool(getattr(self.policy, "fused_capable", False))
+        fused-capable policy in a fused mode; anything else needs raw
+        host-side demand samples and takes the composed path."""
+        return self.mode in ("fused", "fused_delta") and \
+            bool(getattr(self.policy, "fused_capable", False))
 
     def _delta_active(self) -> bool:
         return self.mode == "fused_delta" and self._fused_active()
@@ -193,14 +213,59 @@ class HermesScheduler:
             return None
         return packed
 
+    def _total_samples(self, app: AppRuntime) -> np.ndarray:
+        """TOTAL demand distribution = attained + MC(remaining)."""
+        g = self.kb[app.app_name]
+        rem = g.mc_service_samples(
+            self._app_key(app), self.t_in, self.t_out,
+            start_unit=app.current_unit,
+            executed_in_unit=app.attained_in_unit,
+            unit_sample_override=app.overrides or None,
+            n_walkers=self.mc_walkers, device=self.device)
+        app.refreshes += 1
+        return app.attained + np.maximum(rem, 0.0)
+
+    def _make_view(self, app: AppRuntime, samples: np.ndarray) -> None:
+        app.view = AppView(app_id=app.app_id, tenant=app.tenant,
+                           arrival=app.arrival, attained=app.attained,
+                           total_samples=samples, deadline=app.deadline,
+                           oracle_remaining=app.oracle_remaining)
+
+    def _refresh_view(self, app: AppRuntime) -> None:
+        self._make_view(app, self._total_samples(app))
+
     def _refresh_views(self, apps: List[AppRuntime]) -> None:
-        """Host-sample views (policies that are neither fused-capable nor
-        view-free) come from the threefry walker."""
-        if apps:
-            raise NotImplementedError(
-                f"policy {self.policy.name!r} needs host demand samples from "
-                "the threefry walker, not ported yet (ROADMAP.md, modules to "
-                "port, item 9)")
+        """Refresh many views at once: one batched walk for the whole set
+        instead of one per application (``looped`` walks them one by
+        one)."""
+        if not apps:
+            return
+        if not self.batched or len(apps) == 1:
+            for a in apps:
+                self._refresh_view(a)
+            return
+        packed = self._packed_kb()
+        gi = np.asarray([packed.graph_index[a.app_name] for a in apps],
+                        np.int32)
+        start = np.asarray(
+            [packed.unit_index[g][a.current_unit] if a.current_unit
+             else packed.entry[g] for g, a in zip(gi, apps)], np.int32)
+        rem = mc_service_samples_batch(
+            packed, self._base_key,
+            graph_idx=gi, start=start,
+            executed=np.asarray([a.attained_in_unit for a in apps]),
+            key_ids=np.asarray([a.key_id for a in apps], np.int32),
+            refresh_ids=np.asarray([a.refreshes for a in apps], np.int32),
+            overrides=[a.overrides or None for a in apps],
+            n_walkers=self.mc_walkers)
+        total = np.maximum(rem, 0.0)
+        # float32 addend: bit-identical to the looped path's
+        # `attained + np.maximum(rem, 0.0)` float32 scalar promotion
+        total += np.asarray([a.attained for a in apps],
+                            np.float32)[:, None]
+        for a, row in zip(apps, total):
+            a.refreshes += 1
+            self._make_view(a, row)
 
     def _refresh_views_fused(self, apps: List[AppRuntime],
                              now: float) -> None:
@@ -213,7 +278,7 @@ class HermesScheduler:
         slots = np.asarray([qs.slot[a.app_id] for a in apps], np.int64)
         tab = self._prewarm_table() if self.prewarm_batched else None
         out = refresh_ranks_fused(
-            self._packed[1], qs, self._seed,
+            self._packed[1], qs, self._seed, base_key=self._base_key,
             slots=slots, n_walkers=self.mc_walkers,
             n_buckets=self.n_buckets, walker=self.walker,
             prewarm_table=tab, prewarm_k=self.K,
@@ -267,7 +332,7 @@ class HermesScheduler:
             self._posterior_flush(qs, walked)
         tab = self._prewarm_table() if self.prewarm_batched else None
         tick = refresh_ranks_delta(
-            self._packed[1], qs, self._seed,
+            self._packed[1], qs, self._seed, base_key=self._base_key,
             walked=walked, n_walkers=self.mc_walkers,
             n_buckets=self.n_buckets, walker=self.walker,
             prewarm_table=tab, prewarm_k=self.K, retrigger=full,

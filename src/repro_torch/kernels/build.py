@@ -2,8 +2,9 @@
 
 Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/<stem>-<hash>.so`` at the root of the
-checkout, the hash covering the source, the headers beside it and the
-flags, so an edited source or header never loads a stale library.
+checkout, the hash covering the source, the headers beside it, the shared
+headers of ``kernels/csrc`` and the flags, so an edited source or header
+never loads a stale library.
 :func:`build_all` starts one ``nvcc`` per source at once.  Flags: ``-fmad=false`` (no contraction of
 multiply-add pairs — the kernel spells its one deliberate fused
 multiply-add explicitly), no fast math, and ``-Xptxas -v`` for ptxas's
@@ -20,6 +21,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# headers every source may include (csrc/hopper.cuh: wgmma, mbarrier, TMA)
+SHARED_HEADERS = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -43,7 +46,8 @@ def _nvcc() -> str:
 def library_path(source: Path) -> Path:
     source = Path(source)
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
+    for header in sorted(source.parent.glob("*.cuh")) + \
+            sorted(SHARED_HEADERS.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:12]}.so"

@@ -56,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "../../csrc/hopper.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -301,57 +303,12 @@ struct TcArgs {
   float sl2;                     // the softmax scale times log2(e)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // The byte offset of a 16-byte unit under the SW-byte swizzle (the
 // pattern TMA writes and wgmma reads): bits [7, 7 + log2(SW/16)) of the
 // offset are XORed into bits [4, ...), from a 1024-byte-aligned base.
 template <int SW>
 __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
   return off ^ ((off >> 3) & ((SW / 16 - 1) << 4));
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Spin until the phase of parity `parity` has completed.  A wait that
-// outlasts 2^24 polls (seconds; a tile takes microseconds) traps, so a
-// broken pipeline faults the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (++polls == (1u << 24)) asm volatile("trap;\n");
-  } while (!done);
 }
 
 // A (CHUNK x BKV x 1 x 1) box of a 4-d tensor map at (c0, c1, c2, c3) into
@@ -365,16 +322,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16, shared) * B (16 x 64, shared),
@@ -648,33 +595,6 @@ flash_attention_tc(const __grid_constant__ CUtensorMap kmap,
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * quad) =
           pack_bf16(oacc[4 * j + 2 * i] * inv, oacc[4 * j + 2 * i + 1] * inv);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (the
-// build links no libcuda); null if the driver does not offer it
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The tensor map of a K or V operand (B, S, K, hd) as 4-d (hd, S, K, B)

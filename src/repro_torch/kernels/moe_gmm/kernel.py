@@ -2,9 +2,11 @@
 which replaces the TPU kernel ``moe_gmm_kernel`` of
 ``repro.kernels.moe_gmm.kernel``.
 
-The wrapper checks its operands, allocates the output, launches the kernel
-on the current stream and raises if the launch is refused.  CUDA tensors
-only: the plain version is ``ref.moe_gmm_ref``.
+bfloat16 runs on the tensor cores (``wgmma``, the weights read once for
+every token row of a block's panel of up to 256), float32 on the scalar
+kernel.  The wrapper checks its operands, allocates the output, launches
+the kernel on the current stream and raises if the launch is refused.
+CUDA tensors only: the plain version is ``ref.moe_gmm_ref``.
 """
 from __future__ import annotations
 

@@ -11,7 +11,10 @@ architecture, with real tensors.
 The port of the JAX package's ``launch/serve.py``, step for step.  The
 scheduler and the engine run on ``device`` (``cuda`` unless the caller asks
 for the CPU); the model is ``cfg`` (the tiny Llama-3 of the reference when
-``None``) with random weights drawn on the device from seed 0.  ``run``
+``None``) with random weights drawn on the device from seed 0.  The
+scheduler is built bare, as the reference's is, so it runs the ``composed``
+refresh: threefry host samples ranked on the host, the reference's ranks
+bit for bit.  ``run``
 returns the engine, the model and the scheduler for callers that measure
 them; ``main`` is the command line.
 """

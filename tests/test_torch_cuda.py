@@ -408,6 +408,29 @@ def test_moe_gmm_kernel_matches_plain(dev, E, C, D, N, dtype):
     _gmm_close(out, moe_gmm_ref(x, w), dtype)
 
 
+@pytest.mark.parametrize("C", [1, 3, 8, 13, 160, 300])
+@pytest.mark.parametrize("E,D,N", [
+    (64, 2048, 1408),            # Qwen1.5-MoE: wi / wg, then wo
+    (64, 1408, 2048),
+    (16, 64, 96),                # the JAX package's sweep widths
+    (16, 96, 64),
+])
+def test_moe_gmm_tensor_core_panels(dev, E, C, D, N):
+    """The bf16 tensor-core path at every panel width class the MoE layer
+    gives it (C = 1 decode, 8 a short prefill, 160 a 2,048-token prompt,
+    300 two panels), on a contiguous buffer, a ``buf[:, :C]`` view of an
+    (E, C + 1, D) buffer and one token buffer repeated across the experts
+    (expert stride 0)."""
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(E + C + D + N)
+    w = (_normal(rng, (E, D, N), torch.float32, dev) * D ** -0.5).to(dtype)
+    buf = _normal(rng, (E, C + 1, D), dtype, dev)
+    rep = buf[0, :C].unsqueeze(0).expand(E, C, D)
+    assert rep.stride(0) == 0
+    for x in (buf[:, :C].contiguous(), buf[:, :C], rep):
+        _gmm_close(gmm_ops.moe_gmm(x, w), moe_gmm_ref(x, w), dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_moe_gmm_kernel_takes_strided_token_buffers(dev, dtype):
     """The MoE layer's operands: a buffer cut from (E, C + 1, D) and one

@@ -4,6 +4,8 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --sim-apps 2100  # the full 2,100-app trace
     python3 chip_smoke.py --sim-apps 300   # shorter main-path traces
+    python3 chip_smoke.py --parent DIR     # K1's and K3's sweeps beside the
+                                           # kernels of the checkout in DIR
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -17,7 +19,8 @@ Phases (any failure raises and the script exits non-zero):
    launch counter set to 0 just before and read just after.  The trace is
    the first 1,400 applications of a 2,100-app trace by default, so that
    this phase and the next, which runs the same trace, fit the script's
-   time; ``--sim-apps 2100`` runs all of it;
+   time; ``--sim-apps 2100`` runs all of it.  It prints K1's rows per
+   launch (mean, median, max), read from each call's arguments;
 3. the composed path: the same trace with ``RefreshConfig(rank_in_kernel=
    False)`` (the per-phase walk kernel, K2, with compaction between
    phases), counters reset and read around it; its completion order and
@@ -28,10 +31,14 @@ Phases (any failure raises and the script exits non-zero):
    ACTs within 1e-6 relative;
 5. hold each kernel against its plain PyTorch version on the card
    (bitwise) at 4,096 apps: K1 at the main path's walker count and
-   override width as phase 2 left them and at W=512 with override width
-   64; K1 with posterior tables; K2 launch by launch through a compacted
-   walk and once single-phase with posterior tables; time each with CUDA
-   events;
+   override width as phase 2 left them (also at the median and largest
+   row count of its launches there) and at W=512 with override width 64,
+   with each walker's steps printed; K1 with posterior tables; K2 launch
+   by launch through a compacted walk and once single-phase with
+   posterior tables; time each with CUDA events; then K1's sweep over
+   max_steps 1, 8, 64 with arrival rows off and on (what its time is made
+   of), with ``--parent`` beside the parent's kernel (parent, this tree,
+   this tree, parent, each in a process of its own);
 6. delta refresh ticks on a 16,384-slot arena with 8 % dirty slots and
    prewarming on at the main path's walker count, with the rank in the
    kernel and composed from K2, from the same arena state: bitwise equal,
@@ -47,7 +54,9 @@ Phases (any failure raises and the script exits non-zero):
    path's shapes and at full-width Llama-3-8B shapes (K4 also at
    qwen2-7b's G = 7 and Whisper's 1,500 frames; K5 over one to 16
    sequence splits, two launches bitwise equal), each timed beside its
-   bound, its plain version and one PyTorch library call;
+   bound, its plain version and one PyTorch library call; K3 also at
+   every launch plan (D from 64 to 16,384, an input off 16-byte
+   alignment) and its sweep, with ``--parent`` beside the parent's kernel;
 9. Llama-3-8B at full width cut to 2 layers: a 24-token prompt and 8
    teacher-forced decode steps on ``cuda`` (through K3-K5) and on the CPU
    (the plain versions) from the same weights: logits within 5e-2;
@@ -280,7 +289,7 @@ def _posterior_tables(packed, graph_idx, seed=5):
 
 def _kernel_inputs(device, A, So, seed=11):
     """Queue rows: random graphs and positions, overrides of up to ``So``
-    samples on a quarter of the rows, a few padding rows."""
+    samples on a quarter of the rows, padding rows (from 64 rows up)."""
     import numpy as np
     import torch
     from repro_torch.apps.suite import T_IN, T_OUT, build_knowledge_base
@@ -296,7 +305,8 @@ def _kernel_inputs(device, A, So, seed=11):
     ex = rng.uniform(0.0, 2.0, A).astype(np.float32)
     att = rng.uniform(0.0, 30.0, A).astype(np.float32)
     valid = np.ones(A, bool)
-    valid[-A // 64:] = False
+    if A >= 64:                   # a sixty-fourth of the rows are padding
+        valid[-(A // 64):] = False
     ovs = np.zeros((A, U, So), np.float32)
     ovc = np.zeros((A, U), np.int32)
     for a in range(0, A, 4):
@@ -315,10 +325,9 @@ def _kernel_inputs(device, A, So, seed=11):
 def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
     """The fused walk against its plain version (single-phase, as the
     kernel walks) at one shape, with posterior tables or without: bitwise
-    on every output, both timed, and the bound from this run's inputs.
-    The kernel's time is that of its wrapper on operands converted
-    beforehand; ``ops_ms`` adds the conversions ``pdgraph_walk_ranked``
-    makes per call."""
+    on every output, both timed, each walker's steps printed, and the
+    bound from this run's inputs.  The kernel's time is its device time
+    per launch of the wrapper on operands converted beforehand."""
     import torch
     from repro_torch.kernels.pdgraph_walk import kernel, ops
     packed, rows = _kernel_inputs(device, A, So)
@@ -368,11 +377,12 @@ def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
     if not torch.equal(launch()["ranks"], kern["ranks"]):
         raise AssertionError(f"{name}: the wrapper on converted operands "
                              "disagrees with pdgraph_walk_ranked")
-    ms = cuda_time_ms(launch, iters=50)
+    # the kernel's device time (no host gaps: the wrapper's host work takes
+    # longer than the kernel on one or two apps); free-running events
+    # around the wrapper, and around pdgraph_walk_ranked, printed beside
+    ms = held_ms(launch)
+    ev_ms = cuda_time_ms(launch, iters=50)
     ops_ms = cuda_time_ms(lambda: call(ops.pdgraph_walk_ranked), iters=50)
-    # the kernel's own device time (no host gaps), to tell whether the
-    # event timings above are set by the host
-    dev_ms = held_ms(launch)
     plain_ms = cuda_time_ms(plain_call, iters=3, warmup=1)
     # the least the card could take: every input read once, every output
     # written once (of the override table, only the samples the counts
@@ -384,6 +394,19 @@ def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
         in_bytes += 4 * (A * U * (U + 1) + A * U)
     out_bytes = 4 * (2 * A * NB + A + A * U * (NB + 3))
     steps = plain["walker_steps"]
+    lane = _walker_steps(packed, r, W, STEPS,
+                         (po["po_cum"].reshape(A * U, U + 1),
+                          po["po_scale"].reshape(A * U)) if posterior
+                         else (None, None))
+    if int(lane.sum()) != steps:
+        raise AssertionError(f"{tag}: per-walker steps sum to "
+                             f"{int(lane.sum())}, the plain walk took {steps}")
+    longest = lane.max(dim=1).values.float()
+    log(f"{tag} walker steps: mean {steps / (A * W):.3f} per walker, max "
+        f"{int(longest.max())}; an app's longest walker mean "
+        f"{float(longest.mean()):.2f}, median {float(longest.median()):.0f}; "
+        f"apps with a walker at max_steps "
+        f"{int((longest >= STEPS).sum())} of {A}")
     f_ops = (steps * (9 + (U + 1) + (2 if posterior else 0)) + A * W * 4
              + A * 3 * NB * NB)
     i_ops = steps * 16 + A * W * 4
@@ -391,9 +414,9 @@ def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
     log(f"{tag} max_steps={STEPS} walker_steps={steps} (mean "
         f"{steps / (A * W):.2f}) bytes={in_bytes + out_bytes} "
         f"f32_ops={f_ops} i32_ops={i_ops}")
-    log(f"{tag} kernel {ms:.4f} ms  ops {ops_ms:.4f} ms  plain "
-        f"{plain_ms:.3f} ms  bound {bound_ms:.6f} ms ({bound_by})  "
-        f"held-stream device ms/launch {dev_ms}")
+    log(f"{tag} kernel {ms:.6f} ms (device; events {ev_ms:.4f}, "
+        f"pdgraph_walk_ranked {ops_ms:.4f})  plain {plain_ms:.3f} ms  bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/pdgraph_walk/csrc/"
                       "walk_fused.cu",
@@ -545,16 +568,148 @@ def _check_phase_kernel(device, A, W, So, STEPS=64, split=16, shrink=4):
     return entries
 
 
-def phase_kernels(device, main_W, main_So):
+def phase_kernels(device, main_W, main_So, main_rows, parent=None):
     """Each kernel against its plain version: K1 at the main path's walker
-    count and override width (the shape its launches there had) and at
-    the W=512 cell, K1 with posterior tables and K2 at the main path's
-    shape.  Returns the kernels-line entries."""
+    count and override width (the shape its launches there had), at the
+    median and largest row count of its launches there and at the W=512
+    cell, K1 with posterior tables and K2 at the main path's shape; then
+    K1's sweep (:func:`walk_sweep`), beside the parent's kernel when
+    ``parent`` names its checkout.  Returns the kernels-line entries."""
     entry = _check_kernel(device, 4096, main_W, main_So)
+    rows = sorted(set((int(statistics.median(main_rows)), max(main_rows))))
+    for A in rows:
+        _check_kernel(device, A, main_W, main_So)
     _check_kernel(device, 4096, 512, 64)
     post = _check_kernel(device, 4096, main_W, main_So, posterior=True)
     phase = _check_phase_kernel(device, 4096, main_W, main_So)
+    _versus_parent("walk", dict(W=main_W, So=main_So, rows=rows), parent)
     return [entry, post] + phase
+
+
+def _walker_steps(packed, r, W, steps, po=(None, None)):
+    """Each walker's steps before absorption (A, W): the plain walk
+    (``walk_phase_ref``), single-phase, on the rows of ``_kernel_inputs``."""
+    import torch
+    from repro_torch.kernels.pdgraph_walk.ref import walk_phase_ref
+    G, U, S = packed.samples.shape
+    A = r["graph_idx"].shape[0]
+    dev = packed.samples.device
+    rep = lambda t: torch.repeat_interleave(t, W)  # noqa: E731
+    stats = {"walker_steps": 0,
+             "lane_steps": torch.zeros(A * W, dtype=torch.int32, device=dev)}
+    walk_phase_ref(
+        packed.samples.reshape(G * U, S), packed.counts.reshape(G * U).float(),
+        packed.cum_trans.reshape(G * U, U + 1),
+        r["ov_samples"].reshape(A * U, -1), r["ov_counts"].reshape(A * U)
+        .float(), rep(r["start"]).long(), torch.zeros(A * W, device=dev),
+        rep(~r["valid"]), rep(r["graph_idx"]).long(),
+        torch.arange(A, device=dev).repeat_interleave(W),
+        rep(r["streams"]).long(), torch.arange(W, device=dev).repeat(A),
+        rep(r["executed"]), step0=0, n_steps=steps, lanes_per_app=W,
+        stats=stats, fpo_cum=po[0], fpo_scale=po[1])
+    return stats["lane_steps"].reshape(A, W)
+
+
+# K1's sweep: (max_steps, with_arrivals) at A = 4,096 and the main path's W
+WALK_SWEEP = tuple((steps, arr) for steps in (1, 8, 64)
+                   for arr in (False, True))
+
+
+def walk_sweep(device, W, So, rows):
+    """Device ms per launch of the fused walk (held stream) over
+    ``WALK_SWEEP`` at A = 4,096, at the main path's row counts ``rows``
+    (one step and 64, arrival rows off and on: 64 steps with arrival rows
+    is how the main path runs it), at W = 512 and with posterior
+    tables.  The bound and the walk's work are the same for the
+    parent's kernel and this one, so the sweep names only its keys and
+    times; it uses only the wrapper's arguments, which the parent's kernel
+    shares."""
+    from repro_torch.kernels.pdgraph_walk import kernel, ops
+    cells = [(4096, W, So, steps, arr, False) for steps, arr in WALK_SWEEP]
+    cells += [(A, W, So, steps, arr, False) for A in rows
+              for steps, arr in ((1, False), (1, True), (64, False),
+                                 (64, True))]
+    cells += [(4096, 512, 64, 64, True, False), (4096, W, So, 64, True, True)]
+    out = {}
+    for A, w, so, steps, arr, post in cells:
+        packed, r = _kernel_inputs(device, A, so)
+        po = (dict(zip(("po_cum", "po_scale"),
+                       _posterior_tables(packed, r["graph_idx"])))
+              if post else {})
+        operands = ops.kernel_operands(
+            packed.samples, packed.counts, packed.cum_trans, r["graph_idx"],
+            r["start"], r["executed"], r["streams"], r["attained"],
+            r["ov_samples"], r["ov_counts"], r["valid"], **po)
+        key = (f"A={A} W={w} So={so} max_steps={steps} arrivals={arr}"
+               + (" posterior" if post else ""))
+        out[key] = held_ms(lambda: kernel.pdgraph_walk_fused_kernel(
+            *operands, n_walkers=w, max_steps=steps, n_buckets=10,
+            with_arrivals=arr, with_total=False), iters=20)
+    return out
+
+
+# K3's sweep: the shapes PERF.md's table holds it at (rows, D, dtype)
+RMS_SWEEP = ((1, 4096, "bfloat16"), (4096, 4096, "bfloat16"),
+             (4097, 4096, "bfloat16"), (4096, 4096, "float32"),
+             (4096 * 32, 128, "bfloat16"), (24 * 32, 128, "bfloat16"))
+
+
+def rmsnorm_sweep(device):
+    """Device ms per launch of the RMSNorm kernel (held stream) at each
+    shape of ``RMS_SWEEP``, and of a device copy of the same bytes
+    (``x.clone()``, no kernel of the port: the floor a pass that reads and
+    writes each element once can reach)."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel
+    out = {}
+    for rows, D, dt in RMS_SWEEP:
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = _randn((rows, D), getattr(torch, dt), gen, device)
+        s = _randn((D,), torch.float32, gen, device)
+        out[f"rows={rows} D={D} {dt}"] = held_ms(
+            lambda: kernel.rmsnorm_kernel(x, s, eps=1e-5), iters=20)
+        out[f"rows={rows} D={D} {dt} copy"] = held_ms(x.clone, iters=20)
+    return out
+
+
+SWEEPS = {"walk": walk_sweep, "rmsnorm": rmsnorm_sweep}
+
+
+def _sweep_in(src, kind, spec):
+    """One sweep in a new process whose ``repro_torch`` is the package under
+    ``src`` (this tree's or the parent's): its kernels built from its
+    sources."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--sweep", kind,
+           "--src", str(src), "--spec", json.dumps(spec)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"the {kind} sweep under {src} failed "
+                           f"({out.returncode}):\n{out.stdout[-3000:]}\n"
+                           f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _versus_parent(kind, spec, parent):
+    """The ``kind`` sweep: with ``parent`` (a checkout of the parent
+    commit), in the order parent, this tree, this tree, parent, each in a
+    new process of its own (so neither side runs in a process that earlier
+    phases have used), printed in ms per launch with the ratio of the
+    means; without it, once, in this process."""
+    import torch
+    if parent is None:
+        runs = [("change", SWEEPS[kind](torch.device("cuda"), **spec))]
+        log(f"[{kind}_sweep] parent: not measured (no --parent checkout)")
+    else:
+        src = {"parent": Path(parent) / "src", "change": SRC}
+        runs = [(who, _sweep_in(src[who], kind, spec))
+                for who in ("parent", "change", "change", "parent")]
+    for key in runs[-1][1]:
+        seq = " -> ".join(f"{who} {t[key]:.6f}" for who, t in runs)
+        par = [t[key] for who, t in runs if who == "parent"]
+        new = [t[key] for who, t in runs if who == "change"]
+        ratio = (f"  parent/change {statistics.mean(par) / statistics.mean(new):.3f}"
+                 if par else "")
+        log(f"[{kind}_sweep] {key}: {seq} ms{ratio}")
 
 
 def _profile_tick(tag, tick):
@@ -743,8 +898,8 @@ def _main_config(**kw):
 def phase_main_path(device, n_apps):
     """run_sim at SimConfig() defaults (fused_delta, pallas walker, rank in
     kernel, hermes prewarm) over 128 LLM slots on the card.  Returns the
-    result, the launch counts, the walker count and the arena's override
-    width."""
+    result, the launch counts, the walker count, the arena's override
+    width and K1's rows per launch."""
     from repro_torch.apps.suite import build_knowledge_base
     from repro_torch.kernels.pdgraph_walk import kernel
     kb = build_knowledge_base(n_trials=100, seed=3)
@@ -753,7 +908,23 @@ def phase_main_path(device, n_apps):
         log(f"[main_path] trace cut to its first {len(insts)} of 2,100 apps "
             "(--sim-apps)")
     cfg = _main_config()
-    res, launches, sim = _run_path("main_path", kb, insts, cfg)
+    # K1's rows per launch, read from each launch's arguments (host shapes,
+    # no device read)
+    rows = []
+    inner = kernel.pdgraph_walk_fused_kernel
+
+    def recording(*a, **kw):
+        rows.append(int(a[7].shape[0]))
+        return inner(*a, **kw)
+
+    kernel.pdgraph_walk_fused_kernel = recording
+    try:
+        res, launches, sim = _run_path("main_path", kb, insts, cfg)
+    finally:
+        kernel.pdgraph_walk_fused_kernel = inner
+    log(f"[main_path] K1 rows per launch: {len(rows)} launches, mean "
+        f"{statistics.mean(rows):.2f}, median {statistics.median(rows)}, max "
+        f"{max(rows)}, min {min(rows)}; walker-rows {sum(rows)}")
     qs = sim.sched._qstate
     on_card = all(t is not None and t.is_cuda for t in
                   (sim.sched._packed[1].samples, qs.d_probs, qs.d_edges,
@@ -764,7 +935,10 @@ def phase_main_path(device, n_apps):
     _check_completed("main path", res, insts, launches, [kernel.NAME])
     if not on_card:
         raise AssertionError("main path: arena tensors are not on cuda")
-    return res, launches, cfg.mc_walkers, ov_width
+    if len(rows) != launches[kernel.NAME]:
+        raise AssertionError(f"main path: {len(rows)} K1 calls recorded, "
+                             f"{launches[kernel.NAME]} launches counted")
+    return res, launches, cfg.mc_walkers, ov_width, rows
 
 
 def phase_composed_path(device, n_apps, main_res):
@@ -943,16 +1117,22 @@ def _randn(shape, dtype, gen, device):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-def _check_rmsnorm(device, rows, D, dtype_name, seed=0):
+def _check_rmsnorm(device, rows, D, dtype_name, seed=0, offset=0):
+    """K3 against its plain version; ``offset`` elements into its buffer,
+    the input starts off 16-byte alignment and takes the one-element
+    path."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel, ref
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(seed)
-    x = _randn((rows, D), dt, gen, device)
+    x = _randn((rows * D + offset,), dt, gen, device)[offset:].view(rows, D)
     s = _randn((D,), torch.float32, gen, device)
     s_lib = s.to(dt)
-    tag = f"[kernel:rmsnorm rows={rows} D={D} {dtype_name}]"
+    plan = kernel.launch_plan(D, x.element_size(), x.data_ptr() % 16 == 0,
+                              rows)
+    tag = (f"[kernel:rmsnorm rows={rows} D={D} {dtype_name}"
+           f"{' offset=%d' % offset if offset else ''} {tuple(plan)}]")
     err = _hold(tag, kernel.rmsnorm_kernel(x, s, eps=1e-5),
                 ref.rmsnorm_ref(x, s, 1e-5), dtype_name)
     t = _timed(tag, lambda: kernel.rmsnorm_kernel(x, s, eps=1e-5),
@@ -1075,10 +1255,14 @@ def _kernel_entry(name, r):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
-def phase_model_kernels(device):
+def phase_model_kernels(device, parent=None):
     """K3-K5 against their plain versions: the serve path's own shapes
-    (the kernels-line entries) and the full-width Llama-3-8B shapes."""
+    (the kernels-line entries) and the full-width Llama-3-8B shapes; K3 at
+    every D of the card tests, rows not a multiple of a block's and an
+    input one element off 16-byte alignment; K3's sweep beside the
+    parent's kernel when ``parent`` names its checkout."""
     import numpy as np
+    import torch
     main = {
         # one decode-step row of d_model 4,096, bf16
         "rmsnorm": _check_rmsnorm(device, 1, 4096, "bfloat16"),
@@ -1094,6 +1278,13 @@ def phase_model_kernels(device):
         _check_rmsnorm(device, 4097, 4096, dt)
     _check_rmsnorm(device, 4096 * 32, 128, "bfloat16")
     _check_rmsnorm(device, 24 * 32, 128, "bfloat16")
+    for dt in ("bfloat16", "float32"):
+        for D in (64, 100, 2048, 4095, 16384):
+            _check_rmsnorm(device, 37, D, dt)
+        _check_rmsnorm(device, 33, 4096, dt, offset=1)
+        _check_rmsnorm(device, 4096, 4096, dt, offset=1)
+    _versus_parent("rmsnorm", {}, parent)
+    torch.cuda.synchronize()
     for dt in ("float32", "bfloat16"):
         for causal in (True, False):
             for shape in ((1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64),
@@ -1645,9 +1836,19 @@ def main() -> int:
     ap.add_argument("--sim-apps", type=int, default=1400,
                     help="applications in the main and composed paths' "
                          "trace (at most 2100)")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: K1's and K3's "
+                         "sweeps then also time its kernels, in the order "
+                         "parent, this tree, this tree, parent")
+    ap.add_argument("--sweep", choices=sorted(SWEEPS), default=None,
+                    help="only print one sweep's times as a JSON line (the "
+                         "package under --src)")
+    ap.add_argument("--src", default=str(SRC), help=argparse.SUPPRESS)
+    ap.add_argument("--spec", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if not (SRC / "repro_torch" / "__init__.py").exists():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found — run this from "
+    src = Path(args.src)
+    if not (src / "repro_torch" / "__init__.py").exists():
+        print(f"chip_smoke: {src / 'repro_torch'} not found — run this from "
               "a checkout of the repository", file=sys.stderr)
         return 2
     import torch
@@ -1655,16 +1856,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     dev = torch.device("cuda")
+    if args.sweep is not None:
+        print(json.dumps(SWEEPS[args.sweep](dev, **json.loads(args.spec))))
+        return 0
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     phase_build()
-    main_res, launches, W, ov_width = phase_main_path(dev, args.sim_apps)
+    main_res, launches, W, ov_width, rows = phase_main_path(dev,
+                                                            args.sim_apps)
     launches_composed = phase_composed_path(dev, args.sim_apps, main_res)
     launches_posterior = phase_posterior_path(dev)
-    kernels = phase_kernels(dev, W, ov_width)
+    kernels = phase_kernels(dev, W, ov_width, rows, args.parent)
     # each kernel's launches on its own path
     from repro_torch.kernels.pdgraph_walk import kernel
     path = {kernel.NAME: launches, kernel.PHASE_NAME: launches_composed,
@@ -1676,7 +1881,7 @@ def main() -> int:
     phase_threefry_path()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model_kernels = phase_model_kernels(dev)
+    model_kernels = phase_model_kernels(dev, args.parent)
     phase_full_width(dev)
     launches_serve = phase_serve(dev, "llama3-8b")
     for k in model_kernels:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -53,6 +54,18 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 def check_hd(hd: int, supported: Sequence[int], name: str) -> None:
     if hd not in supported:
         raise ValueError(f"{name}: head_dim {hd} not in {tuple(supported)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Multiprocessors of the card ``device`` names (a launch plan sizes a
+    grid of one wave by it)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream_of(device: torch.device) -> int:

@@ -17,12 +17,13 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.binding import on_device, sm_count, stream_of
 
 NAME = "pdgraph_walk_fused"
 # the fused kernel's launches with posterior operands count apart, so a run
@@ -35,17 +36,43 @@ SOURCES = (SOURCE, PHASE_SOURCE)
 NB_MAX = 32
 SMEM_MAX = 232448               # bytes of shared memory one block may use
 PHASE_THREADS = 256
+# the fused kernel's CDF scan is unrolled over one of these unit counts
+UNITS_MAX = (4, 8, 16, 32)
 for _name in (NAME, POSTERIOR_NAME, PHASE_NAME):
     LAUNCHES.setdefault(_name, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+class WalkPlan(NamedTuple):
+    threads: int         # a block's threads: a multiple of 32, at most 256
+    units_max: int       # the CDF scan's unrolled length, >= U
+
+
+def walk_plan(W: int, U: int, A: int = 1, sms: int = 132) -> WalkPlan:
+    """The fused kernel's launch plan for ``A`` apps of ``W`` walkers on a
+    card of ``sms`` multiprocessors.  Each thread walks one walker at a
+    time and takes the next from the block's counter.  A launch of up to
+    two blocks per multiprocessor (the main path's: one or two apps a
+    tick) is set by one block's latency: a walker a thread, up to 256.  A
+    larger one is throughput: about two walkers a thread over 32 to 128
+    threads, so more apps share a multiprocessor.  The CDF scan is
+    unrolled over the smallest of ``UNITS_MAX`` that holds ``U``."""
+    if U > UNITS_MAX[-1]:
+        raise ValueError(f"pdgraph_walk_fused takes at most {UNITS_MAX[-1]} "
+                         f"units, got {U}")
+    if A <= 2 * sms:
+        threads = min(-(-W // 32) * 32, 256)
+    else:
+        threads = min(max(1 << max(-(-W // 2) - 1, 0).bit_length(), 32), 128)
+    return WalkPlan(threads, next(m for m in UNITS_MAX if U <= m))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     fn = lib.pdgraph_walk_fused
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 18 + [_I] * 8 + [_F, _F, _P]
+        fn.argtypes = [_P] * 18 + [_I] * 9 + [_F, _F, _P]
         fn.restype = ctypes.c_int
         lib.pdgraph_walk_fused_smem.argtypes = [_I] * 7
         lib.pdgraph_walk_fused_smem.restype = ctypes.c_size_t
@@ -143,22 +170,22 @@ def pdgraph_walk_fused_kernel(samples: torch.Tensor,     # (G, U, S) f32
         out["rem"] = torch.empty((A, W), dtype=f32, device=dev)
     if A == 0:
         return out
+    plan = walk_plan(W, U, A, sm_count(dev))
     lib = _lib()
-    smem = lib.pdgraph_walk_fused_smem(W, U, So, nb, int(with_ov),
-                                       int(with_arrivals), int(with_po))
+    smem = lib.pdgraph_walk_fused_smem(W, U, S, So, plan.threads,
+                                       int(with_ov), int(with_arrivals))
     if smem > SMEM_MAX:
         raise ValueError(f"pdgraph_walk_fused needs {smem} B of shared "
-                         f"memory per block (W={W}, U={U}, So={So}); the "
-                         f"card offers {SMEM_MAX}")
-    threads = min(-(-W // 32) * 32, 512)
+                         f"memory per block (W={W}, U={U}, S={S}, So={So}); "
+                         f"the card offers {SMEM_MAX}")
     ptrs += [out["probs"].data_ptr(), out["edges"].data_ptr(),
              out["ranks"].data_ptr(),
              out["arrstats"].data_ptr() if with_arrivals else None,
              out["rem"].data_ptr() if with_total else None]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = stream_of(dev)
         rc = lib.pdgraph_walk_fused(
-            *ptrs, A, W, U, S, So, int(max_steps), nb, threads,
+            *ptrs, A, W, U, S, So, int(max_steps), nb, *plan,
             float(np.float32(1.0 / W)), float(np.float32(1.0 / nb)), stream)
     if rc != 0:
         msg = lib.pdgraph_walk_error_string(rc).decode()
@@ -233,8 +260,8 @@ def pdgraph_walk_kernel(samples: torch.Tensor,     # (G, U, S) f32
     ptrs += [cur_o.data_ptr(), total_o.data_ptr(), done_o.data_ptr(),
              None if arr_o is None else arr_o.data_ptr()]
     lib = _phase_lib()
-    with torch.cuda.device(dev):
-        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        cuda_stream = stream_of(dev)
         rc = lib.pdgraph_walk_phase(
             *ptrs, N, U, S, So, int(lanes_per_app), int(step0), int(n_steps),
             PHASE_THREADS, cuda_stream)

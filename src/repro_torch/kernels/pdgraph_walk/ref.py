@@ -86,7 +86,8 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
     exactly ``0.0`` and draws nothing that is kept, so stopping early is
     exact — it takes the place of the reference's phase compaction.  With
     ``stats`` (a dict), ``stats["walker_steps"]`` grows by the steps the
-    live walkers took.
+    live walkers took, and ``stats["lane_steps"]``, where the caller put an
+    (N,) integer tensor, by each walker's own.
 
     ``fpo_cum`` / ``fpo_scale`` (per-APP posterior walk tables, flattened
     as ``app * U + unit``; :mod:`repro_torch.core.posterior`) switch on
@@ -109,6 +110,8 @@ def walk_phase_ref(fsamples: torch.Tensor,     # (G*U, S) float32
             break
         if stats is not None:
             stats["walker_steps"] = stats.get("walker_steps", 0) + alive
+            if "lane_steps" in stats:           # (N,) steps per walker
+                stats["lane_steps"] += (~done).to(stats["lane_steps"].dtype)
         ctr = (lane + s * lanes_per_app) & MASK32
         r, r2 = counter_uniforms(stream, ctr)
         row = gi * U + cur

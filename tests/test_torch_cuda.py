@@ -51,7 +51,7 @@ def _rows(packed, A, seed):
                 streams=walker_streams(5, np.arange(A), np.zeros(A), d),
                 attained=t(rng.uniform(0, 9, A).astype(np.float32)),
                 ov_samples=t(ovs), ov_counts=t(ovc),
-                valid=t(np.arange(A) < A - 3))
+                valid=t(np.arange(A) < max(A - 3, 1)))
 
 
 def _posterior(packed, gi, seed):
@@ -72,12 +72,13 @@ def _posterior(packed, gi, seed):
                             branch_strength=8.0, demand_strength=8.0)
 
 
+@pytest.mark.parametrize("A", [64, 200])      # one block per SM, or more
 @pytest.mark.parametrize("posterior", [False, True], ids=["prior", "post"])
-@pytest.mark.parametrize("W", [32, 256, 512, 1024])
-def test_kernel_matches_plain_bitwise(dev, W, posterior):
+@pytest.mark.parametrize("W", [1, 32, 33, 100, 256, 257, 512, 1024])
+def test_kernel_matches_plain_bitwise(dev, W, posterior, A):
     packed = pack_graphs(build_knowledge_base(n_trials=60, seed=3), T_IN,
                          T_OUT, device=dev)
-    r = _rows(packed, 64, W)
+    r = _rows(packed, A, W)
     po = dict(zip(("po_cum", "po_scale"), _posterior(packed, r["graph_idx"],
                                                       W))) if posterior else {}
 
@@ -97,6 +98,60 @@ def test_kernel_matches_plain_bitwise(dev, W, posterior):
     torch.cuda.synchronize()
     for key in KEYS:
         assert torch.equal(k[key], p[key]), key
+
+
+@pytest.fixture(scope="module")
+def kb_packed(dev):
+    return pack_graphs(build_knowledge_base(n_trials=60, seed=3), T_IN,
+                       T_OUT, device=dev)
+
+
+@pytest.mark.parametrize("posterior", [False, True], ids=["prior", "post"])
+@pytest.mark.parametrize("overrides", [False, True], ids=["no_ov", "ov"])
+@pytest.mark.parametrize("arrivals", [False, True], ids=["no_arr", "arr"])
+@pytest.mark.parametrize("max_steps", [0, 1, 64])
+@pytest.mark.parametrize("A", [1, 7, 4096])
+def test_kernel_rows_and_steps_bitwise(dev, kb_packed, A, max_steps, arrivals,
+                                       overrides, posterior):
+    """The fused walk at one app, a few and 4,096, walks cut at 0, 1 and
+    64 steps, with and without arrival rows, override rows and posterior
+    tables: every output bitwise equal to the single-phase plain walk."""
+    packed = kb_packed
+    r = _rows(packed, A, A + max_steps)
+    po = dict(zip(("po_cum", "po_scale"), _posterior(packed, r["graph_idx"],
+                                                      A))) if posterior else {}
+    ov = ((r["ov_samples"], r["ov_counts"]) if overrides else (None, None))
+
+    def call(fn, **kw):
+        return fn(packed.samples, packed.counts, packed.cum_trans,
+                  r["graph_idx"], r["start"], r["executed"], r["streams"],
+                  r["attained"], *ov, valid=r["valid"], n_walkers=256,
+                  max_steps=max_steps, track_arrivals=arrivals,
+                  with_total=True, **po, **kw)
+
+    k = call(ops.pdgraph_walk_ranked)
+    p = call(ops.pdgraph_walk_ranked_plain, compact_schedule=())
+    torch.cuda.synchronize()
+    for key in KEYS if arrivals else KEYS[:4]:
+        assert torch.equal(k[key], p[key]), key
+
+
+@pytest.mark.parametrize("W", [1, 33, 100, 256, 257, 512, 1024])
+def test_kernel_shared_memory_size(dev, W):
+    """The shared memory the source sizes a block with: the staged tables
+    and samples (rows rounded to 16 bytes), the totals and first-arrival
+    times, and a few words per warp."""
+    U, S, So = 4, 547, 128
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    lib = kernel._lib()
+    for A in (1, 4096):
+        threads = kernel.walk_plan(W, U, A).threads
+        fixed = r4(U * (U + 1) + 5 * U) + r4(U * S) + 34 * threads // 32 + 129
+        for with_ov, with_arr in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            want = 4 * (fixed + W + (r4(U * So) if with_ov else 0)
+                        + (U * W if with_arr else 0))
+            assert lib.pdgraph_walk_fused_smem(W, U, S, So, threads, with_ov,
+                                               with_arr) == want
 
 
 @pytest.mark.parametrize("posterior", [False, True], ids=["prior", "post"])
@@ -223,6 +278,34 @@ def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
     assert LAUNCHES[rms_kernel.NAME] == before + 1
     assert out.dtype == dtype and out.shape == x.shape
     _close(out, rmsnorm_ref(x, s, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("D", [64, 100, 128, 2048, 4095, 4096, 16384])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_every_plan(dev, D, offset, dtype):
+    """Every launch plan: the 16-byte path where rows are aligned and hold
+    whole vectors, the one-element path for an input one element off its
+    buffer's start or a ragged D; a row count that fills no whole block."""
+    rng = np.random.default_rng(D + offset)
+    es = torch.empty((), dtype=dtype).element_size()
+    plan = rms_kernel.launch_plan(D, es, offset == 0)
+    rows = 3 * plan.rows_per_block + 1
+    x = _normal(rng, (rows * D + offset,), dtype, dev)[offset:].view(rows, D)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    s = _normal(rng, (D,), torch.float32, dev)
+    before = LAUNCHES[rms_kernel.NAME]
+    out = rms_ops.rmsnorm(x, s, eps=1e-5)
+    assert LAUNCHES[rms_kernel.NAME] == before + 1
+    _close(out, rmsnorm_ref(x, s, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_misaligned_scale(dev, dtype):
+    rng = np.random.default_rng(7)
+    x = _normal(rng, (9, 4096), dtype, dev)
+    s = _normal(rng, (4097,), torch.float32, dev)[1:]
+    _close(rms_ops.rmsnorm(x, s, eps=1e-5), rmsnorm_ref(x, s, 1e-5), dtype)
 
 
 def _attention_plain(q, k, v, causal):

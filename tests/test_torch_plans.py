@@ -1,0 +1,92 @@
+"""The launch plans the kernel wrappers compute in Python, on the CPU: what
+the CUDA sources take as given (a plan that covers the row, threads a
+power of two, the block inside 1,024 threads)."""
+import pytest
+import torch
+
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+
+RMS_D = [1, 7, 8, 33, 64, 100, 128, 129, 512, 1000, 2048, 4095, 4096, 5000,
+         8192, 16384]
+
+
+@pytest.mark.parametrize("D", RMS_D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_plan_covers_the_row(D, dtype):
+    es = torch.empty((), dtype=dtype).element_size()
+    for aligned in (True, False):
+        vec, nv, tpr, rpb, _ = rms_kernel.launch_plan(D, es, aligned)
+        whole = aligned and D % (16 // es) == 0
+        assert vec == (16 // es if whole else 1)
+        assert D % vec == 0
+        assert tpr & (tpr - 1) == 0 and 1 <= tpr <= rms_kernel.MAX_THREADS
+        assert vec * nv * tpr >= D                       # covers the row
+        if tpr > 1:                                      # and no wider
+            assert vec * nv * (tpr // 2) < D
+        assert rpb == max(1, rms_kernel.BLOCK_THREADS // tpr)
+        assert tpr * rpb <= rms_kernel.MAX_THREADS
+        # what the source instantiates
+        assert nv in ((1, 2, 4) if vec > 1 else (1, 2, 4, 8, 16))
+
+
+@pytest.mark.parametrize("rows", [1, 24, 132, 133, 264, 265, 4096, 131072])
+def test_rmsnorm_plan_prefetches_scale_in_one_wave(rows):
+    """``scale`` is read beside x when the grid has at most one block per
+    multiprocessor (the kernel's time is then its latency)."""
+    for D, aligned in ((128, True), (1024, True), (4096, True),
+                       (16384, False)):
+        plan = rms_kernel.launch_plan(D, 2, aligned, rows, sms=132)
+        blocks = -(-rows // plan.rows_per_block)
+        assert plan.prefetch == (blocks <= 132
+                                 and plan.nv * plan.vec <= 16)
+
+
+@pytest.mark.parametrize("D,dtype,tpr", [(4096, torch.bfloat16, 256),
+                                         (2048, torch.bfloat16, 128),
+                                         (1024, torch.bfloat16, 32),
+                                         (128, torch.bfloat16, 16),
+                                         (4096, torch.float32, 512)])
+def test_rmsnorm_plan_sizes_threads_to_the_row(D, dtype, tpr):
+    """Rows past a warp's 128 vectors: two 16-byte vectors a thread; up to
+    128, one warp; D = 128 bf16: 16 lanes a row, so one warp holds two
+    rows."""
+    es = torch.empty((), dtype=dtype).element_size()
+    plan = rms_kernel.launch_plan(D, es, True)
+    assert plan.tpr == tpr and plan.vec * es == 16
+    assert plan.nv * plan.vec <= 32
+
+
+from repro_torch.kernels.pdgraph_walk import kernel as walk_kernel  # noqa: E402
+
+WALK_W = [1, 31, 32, 33, 100, 128, 129, 256, 257, 512, 1024, 4096]
+
+
+@pytest.mark.parametrize("W", WALK_W)
+def test_walk_plan_sizes_the_block_to_the_walkers(W):
+    """Past two blocks per multiprocessor, about two walkers a thread over
+    32 to 128 threads; up to it, a walker a thread up to 256; the CDF scan
+    unrolled over the smallest of UNITS_MAX that holds U."""
+    for U in (1, 4, 5, 8, 9, 16, 17, 32):
+        threads, umax = walk_kernel.walk_plan(W, U, 4096, sms=132)
+        assert threads % 32 == 0 and 32 <= threads <= 128
+        if 32 < threads < 128:
+            assert 2 * threads >= W > threads
+        assert umax in walk_kernel.UNITS_MAX and U <= umax
+        assert umax == walk_kernel.UNITS_MAX[0] or umax // 2 < U
+        for A in (1, 264):
+            few = walk_kernel.walk_plan(W, U, A, sms=132)
+            assert few.units_max == umax
+            assert few.threads == min(-(-W // 32) * 32, 256)
+
+
+@pytest.mark.parametrize("A,threads", [(1, 256), (2, 256), (264, 256),
+                                       (265, 128), (4096, 128)])
+def test_walk_plan_main_shapes(A, threads):
+    """The main path's launches (one or two apps) take a block of 256
+    threads; the 4,096-app cell one of 128."""
+    assert walk_kernel.walk_plan(256, 4, A, sms=132) == (threads, 4)
+
+
+def test_walk_plan_refuses_more_units_than_it_unrolls():
+    with pytest.raises(ValueError, match="at most 32 units"):
+        walk_kernel.walk_plan(256, 33)

@@ -4,16 +4,17 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --sim-apps 2100  # the full 2,100-app trace
     python3 chip_smoke.py --sim-apps 300   # shorter main-path traces
-    python3 chip_smoke.py --parent DIR     # K1's and K3's sweeps beside the
-                                           # kernels of the checkout in DIR
+    python3 chip_smoke.py --parent DIR     # the K1, K2, K3 and K7 sweeps
+                                           # beside the kernels of the
+                                           # checkout in DIR
 
 Phases (any failure raises and the script exits non-zero):
 
 1. build every CUDA source of the port, one ``nvcc`` each, all at once,
    and print ptxas's register / shared-memory / spill report, with a
-   summary for the attention and grouped-matmul kernels and the HGMMA
-   (tensor-core) instruction count of the prefill-attention and
-   grouped-matmul libraries (none fails);
+   summary for the attention, grouped-matmul and SSD kernels and the
+   tensor-core instruction count of the prefill-attention and
+   grouped-matmul (HGMMA) and SSD (HMMA) libraries (none fails);
 2. the main path: ``run_sim`` on an open-arrival trace at ``SimConfig()``
    defaults on ``cuda`` (the fused walk kernel, K1), with every kernel
    launch counter set to 0 just before and read just after.  The trace is
@@ -24,7 +25,9 @@ Phases (any failure raises and the script exits non-zero):
 3. the composed path: the same trace with ``RefreshConfig(rank_in_kernel=
    False)`` (the per-phase walk kernel, K2, with compaction between
    phases), counters reset and read around it; its completion order and
-   ACTs must equal phase 2's;
+   ACTs must equal phase 2's.  It prints K2's launches per refresh call and
+   lanes per launch (mean, median, max) and the commonest launch shapes,
+   read from each call's arguments;
 4. the posterior path: the drift benchmark's full scenario with online
    posterior learning (K1 with posterior operands) on ``cuda``, counters
    reset and read around it, and on the CPU: identical completion order,
@@ -34,11 +37,14 @@ Phases (any failure raises and the script exits non-zero):
    override width as phase 2 left them (also at the median and largest
    row count of its launches there) and at W=512 with override width 64,
    with each walker's steps printed; K1 with posterior tables; K2 launch
-   by launch through a compacted walk and once single-phase with
-   posterior tables; time each with CUDA events; then K1's sweep over
-   max_steps 1, 8, 64 with arrival rows off and on (what its time is made
-   of), with ``--parent`` beside the parent's kernel (parent, this tree,
-   this tree, parent, each in a process of its own);
+   by launch at the composed path's median and largest launch, through
+   the compacted walk of 4,096 apps and once single-phase with posterior
+   tables; time each with CUDA events beside its bound (of the tables,
+   only the rows the launch's lanes name); then K1's sweep over max_steps
+   1, 8, 64 with arrival rows off and on (what its time is made of) and
+   K2's over the same launches with arrivals off and on, with
+   ``--parent`` beside the parent's kernels (parent, this tree, this
+   tree, parent, each in a process of its own);
 6. delta refresh ticks on a 16,384-slot arena with 8 % dirty slots and
    prewarming on at the main path's walker count, with the rank in the
    kernel and composed from K2, from the same arena state: bitwise equal,
@@ -88,7 +94,9 @@ Phases (any failure raises and the script exits non-zero):
    y and the final state: the reference's test sweep, the SSM serve path's
    prompts (S = 8, 24), mamba2-1.3b's widths at S = 2,048 and a ragged
    S = 300, in both dtypes, each timed beside its bound and its plain
-   version (no single PyTorch call computes the scan);
+   version (no single PyTorch call computes the scan); then its sweep over
+   the same shapes, with ``--parent`` beside the parent's kernel and the
+   parent's time split by stage (its source cut after each stage);
 17. mamba2-1.3b at full width cut to 2 of its 48 layers, in float32: a
    300-token prompt (two full chunks and a 44-token tail, through K7) and
    8 teacher-forced decode steps on ``cuda`` and on the CPU from the same
@@ -108,8 +116,10 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -210,23 +220,29 @@ def _sources():
                                   ssd_kernel.SOURCE)
 
 
-def _hgmma_count(lib):
-    """HGMMA (wgmma) instructions in a built library's SASS, or None where
-    the toolkit has no cuobjdump."""
+def _sass_count(lib, op):
+    """Instructions ``op`` (HGMMA: wgmma; HMMA: mma.sync) in a built
+    library's SASS, or None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return sum(1 for line in sass.splitlines() if "HGMMA" in line)
+    return sum(1 for line in sass.splitlines()
+               if re.search(rf"\b{op}\b", line))
+
+
+# the tensor-core instruction each tensor-core library must hold
+TENSOR_CORE_OPS = {"flash_attention": "HGMMA", "moe_gmm": "HGMMA",
+                   "ssd_scan": "HMMA"}
 
 
 def phase_build():
-    """Build every source; log nvcc's output, and for the attention and
-    grouped-matmul kernels (K4-K6) the register and spill lines of each
-    entry and the HGMMA count of the K4 and K6 libraries (which must hold
-    tensor-core instructions)."""
+    """Build every source; log nvcc's output, and for the attention,
+    grouped-matmul and SSD kernels (K4-K7) the register and spill lines of
+    each entry and the tensor-core instruction count of the K4, K6 (HGMMA)
+    and K7 (HMMA) libraries, which must hold some."""
     from repro_torch.kernels import build
     sources = _sources()
     t0 = time.perf_counter()
@@ -237,7 +253,7 @@ def phase_build():
         for line in (text or "(library already built)").strip().splitlines():
             log(f"[build:{src.stem}] {line}")
         if src.stem not in ("flash_attention", "decode_attention",
-                            "moe_gmm"):
+                            "moe_gmm", "ssd_scan"):
             continue
         lines = (text or "").splitlines()
         spills = [ln.strip() for ln in lines if "spill" in ln
@@ -247,13 +263,14 @@ def phase_build():
         log(f"[build:{src.stem}] {len(regs)} entries, registers "
             f"{min(regs, default=None)}-{max(regs, default=None)}, spills: "
             f"{spills or 'none'}")
-        if src.stem in ("flash_attention", "moe_gmm"):
-            n = _hgmma_count(lib)
-            log(f"[build:{src.stem}] HGMMA instructions in the SASS: "
+        op = TENSOR_CORE_OPS.get(src.stem)
+        if op is not None:
+            n = _sass_count(lib, op)
+            log(f"[build:{src.stem}] {op} instructions in the SASS: "
                 f"{'not measured (no cuobjdump)' if n is None else n}")
             if n == 0:
-                raise AssertionError(f"the {src.stem} library holds no "
-                                     "HGMMA (wgmma) instruction")
+                raise AssertionError(f"the {src.stem} library holds no {op} "
+                                     "(tensor-core) instruction")
 
 
 def _bound(n_bytes, f_ops, i_ops):
@@ -426,17 +443,20 @@ def _check_kernel(device, A, W, So, STEPS=64, NB=10, posterior=False):
             "bound_by": bound_by, "library_ms": None}
 
 
-def _check_phase_kernel(device, A, W, So, STEPS=64, split=16, shrink=4):
-    """The per-phase walk against its plain version (``walk_phase_ref``)
-    launch by launch on the same state: steps 0..split, compaction of the
-    survivors into N / shrink lanes, steps split..STEPS; then once
-    single-phase with posterior tables.  Bitwise on cur, total, done and
-    the first-arrival times; each launch timed on a held stream (CUDA
-    events on its free-running wrapper printed beside); the bound from this
-    run's inputs and walker-steps."""
+def _phase_runs(device, A, W, So, *, arrivals=True, posterior=False,
+                STEPS=64):
+    """The launches of one per-phase walk of ``A`` apps of ``W`` walkers on
+    the rows of ``_kernel_inputs``, phase by phase as ``ops.pdgraph_walk``
+    runs them on the card: compacted between phases by its stage rule (one
+    phase below 512 lanes) or, with posterior tables, single-phase.  Each
+    entry holds the phase's step range, its lanes, the graphs and apps its
+    lanes name, the override samples those apps' counts name, and two
+    closures on the phase's input state: ``launch()`` (the kernel's
+    wrapper) and ``plain(stats)`` (``walk_phase_ref``).  The state of a
+    phase is the kernel's output of the one before, compacted."""
     import torch
     from repro_torch.core.pdgraph import ARRIVAL_NEVER
-    from repro_torch.kernels.pdgraph_walk import kernel
+    from repro_torch.kernels.pdgraph_walk import kernel, ops
     from repro_torch.kernels.pdgraph_walk.ref import walk_phase_ref
     packed, r = _kernel_inputs(device, A, So)
     G, U, S = packed.samples.shape
@@ -449,141 +469,175 @@ def _check_phase_kernel(device, A, W, So, STEPS=64, split=16, shrink=4):
             packed.cum_trans.reshape(G * U, U + 1))
     ov = (r["ov_samples"].reshape(A * U, So),
           r["ov_counts"].reshape(A * U).float())
-    po_cum, po_scale = _posterior_tables(packed, r["graph_idx"])
-    po = (po_cum.reshape(A * U, U + 1), po_scale.reshape(A * U))
-    n_ov = int(r["ov_counts"].sum())    # override samples the counts name
-    stream = rep(r["streams"]).to(torch.int64)
-    state0 = dict(cur=rep(r["start"]).to(i32),
-                  total=torch.zeros(N, device=device), done=rep(~r["valid"]),
-                  gi=rep(r["graph_idx"]).to(i32),
-                  app=torch.arange(A, device=device,
-                                   dtype=i32).repeat_interleave(W),
-                  stream=stream, lane=torch.arange(W, device=device,
-                                                   dtype=i32).repeat(A),
-                  ex=rep(r["executed"]),
-                  arr=torch.full((U, N), ARRIVAL_NEVER, device=device))
-    runs = {"compacted": ((0, split, N // shrink), (split, STEPS - split,
-                                                     None)),
-            "posterior": ((0, STEPS, None),)}
-    err, ms, plain_ms, steps, n_bytes = 0.0, {}, {}, {}, {}
-    for run, phases in runs.items():
-        st = dict(state0)
-        with_po = run == "posterior"
-        pot = po if with_po else (None, None)
-        ms[run], plain_ms[run], steps[run], n_bytes[run] = 0.0, 0.0, 0, 0
-        for step0, n_steps, keep in phases:
-            n = st["cur"].shape[0]
-            s32 = torch.where(st["stream"] >= 2 ** 31,
-                              st["stream"] - 2 ** 32, st["stream"]).to(i32)
+    pot = (None, None)
+    if posterior:
+        po_cum, po_scale = _posterior_tables(packed, r["graph_idx"])
+        pot = (po_cum.reshape(A * U, U + 1), po_scale.reshape(A * U))
+    ovc_app = r["ov_counts"].sum(dim=1)
+    st = dict(cur=rep(r["start"]).to(i32),
+              total=torch.zeros(N, device=device), done=rep(~r["valid"]),
+              gi=rep(r["graph_idx"]).to(i32),
+              app=torch.arange(A, device=device,
+                               dtype=i32).repeat_interleave(W),
+              stream=rep(r["streams"]).to(torch.int64),
+              lane=torch.arange(W, device=device, dtype=i32).repeat(A),
+              ex=rep(r["executed"]),
+              arr=(torch.full((U, N), ARRIVAL_NEVER, device=device)
+                   if arrivals else None))
+    stages = ([] if posterior
+              else ops._stages(((16, 4),), STEPS, N))
+    bounds = [(0, None)] + [(s, N // k) for s, k in stages]
+    runs = []
+    for j, (step0, _) in enumerate(bounds):
+        end = bounds[j + 1][0] if j + 1 < len(bounds) else STEPS
+        keep = bounds[j + 1][1] if j + 1 < len(bounds) else None
+        n_steps = end - step0
+        s = dict(st)
+        s32 = torch.where(s["stream"] >= 2 ** 31, s["stream"] - 2 ** 32,
+                          s["stream"]).to(i32)
 
-            def launch():
-                return kernel.pdgraph_walk_kernel(
-                    *tables, *ov, *pot, st["cur"], st["total"], st["done"],
-                    st["gi"], st["app"], s32, st["lane"], st["ex"],
-                    st["arr"], step0=step0, n_steps=n_steps,
-                    lanes_per_app=W, n_apps=A)
+        def launch(s=s, s32=s32, step0=step0, n_steps=n_steps):
+            return kernel.pdgraph_walk_kernel(
+                *tables, *ov, *pot, s["cur"], s["total"], s["done"],
+                s["gi"], s["app"], s32, s["lane"], s["ex"], s["arr"],
+                step0=step0, n_steps=n_steps, lanes_per_app=W, n_apps=A)
 
-            def plain(stats=None):
-                return walk_phase_ref(
-                    *flat, *ov, st["cur"].long(), st["total"], st["done"],
-                    st["gi"].long(), st["app"].long(), st["stream"],
-                    st["lane"].long(), st["ex"], step0=step0,
-                    n_steps=n_steps, lanes_per_app=W,
-                    arrivals=st["arr"].t().clone(), stats=stats,
-                    fpo_cum=pot[0], fpo_scale=pot[1])
+        def plain(stats=None, s=s, step0=step0, n_steps=n_steps):
+            return walk_phase_ref(
+                *flat, *ov, s["cur"].long(), s["total"], s["done"],
+                s["gi"].long(), s["app"].long(), s["stream"],
+                s["lane"].long(), s["ex"], step0=step0, n_steps=n_steps,
+                lanes_per_app=W,
+                arrivals=None if s["arr"] is None else s["arr"].t().clone(),
+                stats=stats, fpo_cum=pot[0], fpo_scale=pot[1])
 
-            k = launch()
-            stats = {"walker_steps": 0}
-            p = plain(stats)
-            torch.cuda.synchronize()
-            tag = (f"[kernel:pdgraph_walk_phase A={A} W={W} So={So} {run} "
-                   f"steps {step0}..{step0 + n_steps} lanes={n}]")
-            for name, a, b in (("cur", k[0].long(), p[0]),
-                               ("total", k[1], p[1]), ("done", k[2], p[2]),
-                               ("arrivals", k[3], p[3].t())):
-                same = torch.equal(a, b)
-                d = float((a.float() - b.float()).abs().max())
-                err = max(err, d)
-                log(f"{tag} {name:8s} bitwise={same} max_abs_err={d}")
-                if not same:
-                    raise AssertionError(
-                        f"pdgraph_walk_phase ({run}, steps {step0}.."
-                        f"{step0 + n_steps}): {name} differs from "
-                        f"walk_phase_ref (max abs err {d})")
-            # the launches are short enough for the wrapper's host work to
-            # set the event timing on a slow host: the kernel's time is
-            # taken on a held stream, the event time is printed beside
-            t_launch = cuda_time_ms(launch, iters=50)
-            t_dev = held_ms(launch)
-            t_plain = cuda_time_ms(plain, iters=3, warmup=1)
-            ms[run] += t_dev
-            plain_ms[run] += t_plain
-            steps[run] += stats["walker_steps"]
-            # state read and written once, tables read once (of the
-            # override table, the counts and only the samples they name)
-            lane_bytes = n * (4 * 6 + 1 + (4 if step0 == 0 else 0)
-                              + 4 * 2 + 1 + 2 * 4 * U)
-            table_bytes = 4 * (G * U * S + G * U + G * U * (U + 1)
-                               + A * U + n_ov)
-            if with_po:
-                table_bytes += 4 * A * U * (U + 2)
-            n_bytes[run] += lane_bytes + table_bytes
-            log(f"{tag} kernel {t_dev:.4f} ms (device)  {t_launch:.4f} ms "
-                f"(events)  plain {t_plain:.3f} ms  "
-                f"walker_steps={stats['walker_steps']}")
-            if keep is None:
-                break
-            alive = int((~k[2]).sum())
-            if alive > keep:
-                raise AssertionError(f"compaction to {keep} lanes spills "
-                                     f"({alive} alive)")
-            order = torch.argsort(k[2].to(i32), stable=True)[:keep]
-            st = {key: v[order] for key, v in st.items()
-                  if key not in ("arr", "ex")}
-            st.update(cur=k[0][order], total=k[1][order], done=k[2][order],
-                      arr=k[3][:, order], ex=None)
-    entries = []
-    for run, name in (("compacted", "pdgraph_walk_phase"),):
-        f_ops = steps[run] * (9 + (U + 1))
-        i_ops = steps[run] * 16
-        bound_ms, bound_by = _bound(n_bytes[run], f_ops, i_ops)
-        log(f"[kernel:pdgraph_walk_phase A={A} W={W}] {run}: kernel "
-            f"{ms[run]:.4f} ms  plain {plain_ms[run]:.3f} ms  bound "
-            f"{bound_ms:.6f} ms ({bound_by})  walker_steps={steps[run]} "
-            f"bytes={n_bytes[run]}")
-        entries.append({
-            "name": name, "route": "cuda",
+        apps = torch.unique(s["app"]).long()
+        runs.append(dict(step0=step0, n_steps=n_steps, lanes=s["cur"].shape[0],
+                         graphs=int(torch.unique(s["gi"]).numel()),
+                         apps=int(apps.numel()),
+                         n_ov=int(ovc_app[apps].sum()), U=U, S=S,
+                         first=step0 == 0, launch=launch, plain=plain))
+        if keep is None:
+            break
+        k = launch()
+        alive = int((~k[2]).sum())
+        if alive > keep:
+            raise AssertionError(f"compaction to {keep} lanes spills "
+                                 f"({alive} alive)")
+        order = torch.argsort(k[2].to(i32), stable=True)[:keep]
+        st = {key: v[order] for key, v in s.items()
+              if key not in ("arr", "ex")}
+        st.update(cur=k[0][order], total=k[1][order], done=k[2][order],
+                  arr=k[3][:, order] if arrivals else None, ex=None)
+    return runs
+
+
+def _phase_bound(run, posterior, arrivals, walker_steps):
+    """The least time one per-phase launch could take: its lane state read
+    and written once, and of the tables only the rows of the graphs and
+    apps its lanes name (of the override table, the counts and the samples
+    they name); operations per walker-step its data needs."""
+    n, U, S = run["lanes"], run["U"], run["S"]
+    lane_bytes = n * (4 * 6 + 1 + (4 if run["first"] else 0) + 4 * 2 + 1
+                      + (2 * 4 * U if arrivals else 0))
+    table_bytes = 4 * (run["graphs"] * U * (S + 1 + U + 1)
+                       + run["apps"] * U + run["n_ov"])
+    if posterior:
+        table_bytes += 4 * run["apps"] * U * (U + 2)
+    f_ops = walker_steps * (9 + U + 1 + (2 if posterior else 0))
+    return _bound(lane_bytes + table_bytes, f_ops, walker_steps * 16), \
+        lane_bytes + table_bytes
+
+
+def _check_phase_kernel(device, A, W, So, *, arrivals=True, posterior=False):
+    """The per-phase walk against its plain version (``walk_phase_ref``)
+    launch by launch on the same state (``_phase_runs``): bitwise on cur,
+    total, done and the first-arrival times; each launch timed on a held
+    stream (CUDA events on its free-running wrapper printed beside); the
+    bound from this run's inputs and walker-steps.  Returns the
+    kernels-line entry, times and bounds summed over the launches."""
+    import torch
+    runs = _phase_runs(device, A, W, So, arrivals=arrivals,
+                       posterior=posterior)
+    label = ("posterior single-phase" if posterior
+             else "compacted" if len(runs) > 1 else "single-phase")
+    err, ms, plain_ms, bound_ms, steps = 0.0, 0.0, 0.0, 0.0, 0
+    for run in runs:
+        k = run["launch"]()
+        stats = {"walker_steps": 0}
+        p = run["plain"](stats)
+        torch.cuda.synchronize()
+        tag = (f"[kernel:pdgraph_walk_phase A={A} W={W} So={So} {label} "
+               f"steps {run['step0']}..{run['step0'] + run['n_steps']} "
+               f"lanes={run['lanes']} arrivals={arrivals}]")
+        pairs = [("cur", k[0].long(), p[0]), ("total", k[1], p[1]),
+                 ("done", k[2], p[2])]
+        if arrivals:
+            pairs.append(("arrivals", k[3], p[3].t()))
+        for name, a, b in pairs:
+            same = torch.equal(a, b)
+            d = float((a.float() - b.float()).abs().max())
+            err = max(err, d)
+            log(f"{tag} {name:8s} bitwise={same} max_abs_err={d}")
+            if not same:
+                raise AssertionError(
+                    f"pdgraph_walk_phase ({label}, A={A}, steps "
+                    f"{run['step0']}..{run['step0'] + run['n_steps']}): "
+                    f"{name} differs from walk_phase_ref (max abs err {d})")
+        # the launches are short enough for the wrapper's host work to set
+        # the event timing on a slow host: the kernel's time is taken on a
+        # held stream, the event time is printed beside
+        t_launch = cuda_time_ms(run["launch"], iters=50)
+        t_dev = held_ms(run["launch"])
+        t_plain = cuda_time_ms(run["plain"], iters=3, warmup=1)
+        (b_ms, b_by), n_bytes = _phase_bound(run, posterior, arrivals,
+                                             stats["walker_steps"])
+        ms += t_dev
+        plain_ms += t_plain
+        bound_ms += b_ms
+        steps += stats["walker_steps"]
+        log(f"{tag} kernel {t_dev:.6f} ms (device)  {t_launch:.4f} ms "
+            f"(events)  plain {t_plain:.3f} ms  bound {b_ms:.6f} ms ({b_by}; "
+            f"bytes={n_bytes}, graphs={run['graphs']}, apps={run['apps']})  "
+            f"walker_steps={stats['walker_steps']}")
+    log(f"[kernel:pdgraph_walk_phase A={A} W={W}] {label}: kernel "
+        f"{ms:.6f} ms  plain {plain_ms:.3f} ms  bound {bound_ms:.6f} ms  "
+        f"walker_steps={steps} launches={len(runs)}")
+    return {"name": "pdgraph_walk_phase", "route": "cuda",
             "source": "src/repro_torch/kernels/pdgraph_walk/csrc/"
                       "walk_phase.cu",
             "replaces": "src/repro/kernels/pdgraph_walk/kernel.py:221",
-            "launches": 0, "max_abs_err": err, "ms": ms[run],
-            "plain_ms": plain_ms[run], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
-    run = "posterior"
-    bound_ms, _ = _bound(n_bytes[run], steps[run] * (11 + U + 1),
-                         steps[run] * 16)
-    log(f"[kernel:pdgraph_walk_phase A={A} W={W}] posterior single-phase: "
-        f"kernel {ms[run]:.4f} ms  plain {plain_ms[run]:.3f} ms  bound "
-        f"{bound_ms:.6f} ms  walker_steps={steps[run]}")
-    return entries
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
-def phase_kernels(device, main_W, main_So, main_rows, parent=None):
+def phase_kernels(device, main_W, main_So, main_rows, phase_apps,
+                  parent=None):
     """Each kernel against its plain version: K1 at the main path's walker
     count and override width (the shape its launches there had), at the
     median and largest row count of its launches there and at the W=512
-    cell, K1 with posterior tables and K2 at the main path's shape; then
-    K1's sweep (:func:`walk_sweep`), beside the parent's kernel when
-    ``parent`` names its checkout.  Returns the kernels-line entries."""
+    cell, K1 with posterior tables; K2 at the composed path's median and
+    largest launch (``phase_apps``: apps per launch), at A = 4,096
+    compacted and single-phase with posterior tables; then K1's and K2's
+    sweeps (:func:`walk_sweep`, :func:`phase_sweep`), beside the parent's
+    kernels when ``parent`` names its checkout.  Returns the kernels-line
+    entries: K2's is the composed path's median launch."""
     entry = _check_kernel(device, 4096, main_W, main_So)
     rows = sorted(set((int(statistics.median(main_rows)), max(main_rows))))
     for A in rows:
         _check_kernel(device, A, main_W, main_So)
     _check_kernel(device, 4096, 512, 64)
     post = _check_kernel(device, 4096, main_W, main_So, posterior=True)
-    phase = _check_phase_kernel(device, 4096, main_W, main_So)
+    phase = _check_phase_kernel(device, phase_apps[0], main_W, main_So)
+    for A in phase_apps[1:]:
+        _check_phase_kernel(device, A, main_W, main_So)
+    _check_phase_kernel(device, 4096, main_W, main_So)
+    _check_phase_kernel(device, 4096, main_W, main_So, posterior=True)
     _versus_parent("walk", dict(W=main_W, So=main_So, rows=rows), parent)
-    return [entry, post] + phase
+    _versus_parent("phase", dict(W=main_W, So=main_So, apps=phase_apps),
+                   parent)
+    return [entry, post, phase]
 
 
 def _walker_steps(packed, r, W, steps, po=(None, None)):
@@ -672,7 +726,121 @@ def rmsnorm_sweep(device):
     return out
 
 
-SWEEPS = {"walk": walk_sweep, "rmsnorm": rmsnorm_sweep}
+def phase_sweep(device, W, So, apps):
+    """Device ms per launch of the per-phase walk (held stream), launch by
+    launch through the walks of :func:`_phase_runs`: the composed path's
+    median and largest launches (``apps``: apps per launch) with arrivals
+    on and off, N = 512 (two apps: steps 0..16, then 48 steps at 128
+    lanes), the A = 4,096 compacted walk and the posterior single-phase
+    walk.  The parent's wrapper takes the same arguments."""
+    cells = [(A, arr, False) for A in apps for arr in (True, False)]
+    cells += [(2, True, False), (4096, True, False), (4096, True, True)]
+    out = {}
+    for A, arr, post in dict.fromkeys(cells):
+        for run in _phase_runs(device, A, W, So, arrivals=arr,
+                               posterior=post):
+            key = (f"A={A} W={W} lanes={run['lanes']} steps "
+                   f"{run['step0']}..{run['step0'] + run['n_steps']} "
+                   f"arrivals={arr}" + (" posterior" if post else ""))
+            out[key] = held_ms(run["launch"], iters=20)
+    return out
+
+
+def ssd_sweep(device):
+    """Device ms per launch of the SSD chunk scan (held stream) at every
+    shape of ``SSD_SHAPES`` in bfloat16 and float32."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        for B, S, H, P, N, chunk in SSD_SHAPES:
+            gen = torch.Generator(device=device).manual_seed(0)
+            args = _ssd_inputs(device, B, S, H, P, N, getattr(torch, dt),
+                               gen)
+            out[f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} {dt}"] = \
+                held_ms(lambda: kernel.ssd_scan_kernel(*args, chunk=chunk),
+                        iters=10)
+    return out
+
+
+# where ssd_split cuts each form of ssd_scan.cu: its stage markers, and the
+# code each cut inserts there.  The chunk-sequential form (one block per
+# (batch, head) over the chunks in order, bf16 and f32 alike): a
+# `continue` to the next chunk (the rest of the chunk's stages skipped),
+# after stage 2 with a store of its products that is never taken (dt > 0)
+# but that the compiler cannot drop (it reads this chunk's shared memory),
+# so they stay live.  The chunk-parallel form: a `return` (no block then
+# waits on a hand-off that never comes), after stage 2 with the same kind
+# of store of the chunk's own state.
+SSD_SPLIT_CUTS = {
+    "sequential": (
+        ("stage 1", "// ---- 2.", "continue;\n    "),
+        ("stages 1-2", "// ---- 3.",
+         "if (dts[0] < 0.0f) {\n      float sink = 0.0f;\n"
+         "      for (int j = 0; j < kMaxYTiles; ++j)\n"
+         "        for (int i = 0; i < 4; ++i)\n"
+         "          for (int q = 0; q < 4; ++q) sink += acc[j][i][q];\n"
+         "      y[0] = from_f32<T>(sink);\n    }\n    continue;\n    "),
+        ("stages 1-3", "// ---- 4.", "continue;\n    "),
+        ("stages 1-4", None, "")),
+    "parallel": (
+        ("stage 1", "// ---- 2. the chunk's own end state", "return;\n  "),
+        ("stages 1-2", "// ---- 3. the hand-off",
+         "if (wv[0] < -1.0f) {\n    float sink = 0.0f;\n"
+         "    for (int i = 0; i < kStrips; ++i)\n"
+         "      for (int j = 0; j < kCols / 8; ++j)\n"
+         "        for (int q = 0; q < 4; ++q) sink += st[i][j][q];\n"
+         "    p.final_state[0] = sink;\n  }\n  return;\n  "),
+        ("stages 1-3", "// ---- 4. y = exp(cum)", "return;\n  "),
+        ("stages 1-4", None, "")),
+}
+
+
+def ssd_split(device):
+    """Where the SSD kernel's bfloat16 time goes: the package's
+    ``ssd_scan.cu`` copied under ``build/ssd_split`` with the kernel cut
+    after each stage (``SSD_SPLIT_CUTS``: the chunk-sequential form or
+    the chunk-parallel form), each copy built and timed (held
+    stream) through the package's own wrapper at mamba2-1.3b's widths,
+    S = 24 and 2,048.  Raises on a source without the markers."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import kernel
+    text = Path(kernel.SOURCE).read_text()
+    form = "parallel" if "mma.sync" in text else "sequential"
+    out_dir = build.BUILD_DIR.parent / "ssd_split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    srcs = []
+    for name, mark, cut in SSD_SPLIT_CUTS[form]:
+        if mark is not None and mark not in text:
+            raise ValueError(f"{kernel.SOURCE} has no stage marker {mark!r}")
+        body = text if mark is None else text.replace(mark, cut + mark, 1)
+        src = out_dir / f"ssd_scan_{form}_{name.replace(' ', '_')}.cu"
+        src.write_text(body)
+        srcs.append(src)
+    libs = [lib for lib, _ in build.build_all(srcs)]
+    load = build.load
+    out = {}
+    try:
+        for S in (24, 2048):
+            gen = torch.Generator(device=device).manual_seed(0)
+            args = _ssd_inputs(device, 1, S, 64, 64, 128, torch.bfloat16,
+                               gen)
+            for (name, _, _), lib in zip(SSD_SPLIT_CUTS[form], libs):
+                # the wrapper loads the cut library in place of its own
+                build.load = lambda source, lib=lib: ctypes.CDLL(str(lib))
+                kernel._lib.cache_clear()
+                out[f"S={S} bfloat16 {name}"] = held_ms(
+                    lambda: kernel.ssd_scan_kernel(*args, chunk=128),
+                    iters=10)
+    finally:
+        build.load = load
+        kernel._lib.cache_clear()
+    return out
+
+
+SWEEPS = {"walk": walk_sweep, "rmsnorm": rmsnorm_sweep,
+          "phase": phase_sweep, "ssd": ssd_sweep, "ssd_split": ssd_split}
 
 
 def _sweep_in(src, kind, spec):
@@ -944,19 +1112,59 @@ def phase_main_path(device, n_apps):
 def phase_composed_path(device, n_apps, main_res):
     """The main path's trace with ``RefreshConfig(rank_in_kernel=False)``:
     every walk goes through the per-phase kernel; the reference's contract
-    is the same schedule as the in-kernel rank."""
+    is the same schedule as the in-kernel rank.  Records each K2 launch's
+    lanes, step range, apps and operands from its arguments (host shapes,
+    no device read).  Returns the launch counts and the apps per launch of
+    the median and the largest launch."""
     from repro_torch.apps.suite import build_knowledge_base
     from repro_torch.core.refresh_config import RefreshConfig
     from repro_torch.kernels.pdgraph_walk import kernel
     kb = build_knowledge_base(n_trials=100, seed=3)
     insts = _trace(n_apps)
-    res, launches, _ = _run_path(
-        "composed_path", kb, insts,
-        _main_config(refresh=RefreshConfig(rank_in_kernel=False)))
+    calls = []
+    inner = kernel.pdgraph_walk_kernel
+
+    def recording(*a, **kw):
+        arrivals = a[15] if len(a) > 15 else kw.get("arrivals")
+        calls.append((int(a[7].shape[0]), kw["step0"], kw["n_steps"],
+                      kw["n_apps"], kw["lanes_per_app"], arrivals is not None,
+                      a[5] is not None))
+        return inner(*a, **kw)
+
+    kernel.pdgraph_walk_kernel = recording
+    try:
+        res, launches, _ = _run_path(
+            "composed_path", kb, insts,
+            _main_config(refresh=RefreshConfig(rank_in_kernel=False)))
+    finally:
+        kernel.pdgraph_walk_kernel = inner
     _check_completed("composed path", res, insts, launches,
                      [kernel.PHASE_NAME])
     _same_schedule("composed_path vs main_path", main_res, res, 0.0)
-    return launches
+    if len(calls) != launches[kernel.PHASE_NAME]:
+        raise AssertionError(f"composed path: {len(calls)} K2 calls "
+                             f"recorded, {launches[kernel.PHASE_NAME]} "
+                             "launches counted")
+    lanes = [c[0] for c in calls]
+    by_shape = {}
+    for c in calls:
+        by_shape[c[:5]] = by_shape.get(c[:5], 0) + 1
+    common = sorted(by_shape.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[composed_path] K2 launches: {len(calls)} in {res.policy_calls} "
+        f"refresh calls ({len(calls) / max(res.policy_calls, 1):.3f} a "
+        f"call); lanes mean {statistics.mean(lanes):.2f}, median "
+        f"{statistics.median(lanes)}, max {max(lanes)}, min {min(lanes)}; "
+        f"with arrivals {sum(c[5] for c in calls)}, with posterior tables "
+        f"{sum(c[6] for c in calls)}; first phases (step0 = 0) "
+        f"{sum(c[1] == 0 for c in calls)}")
+    log(f"[composed_path] K2 launch shapes (lanes, step0, n_steps, apps, "
+        f"lanes_per_app): count: {common}")
+    order = sorted(calls)
+    median, largest = order[(len(order) - 1) // 2], order[-1]
+    apps = list(dict.fromkeys((median[3], largest[3])))
+    log(f"[composed_path] median launch {median[:5]}, largest {largest[:5]}"
+        f": apps per launch {apps}")
+    return launches, apps
 
 
 # the drift benchmark's full scenario (benchmarks/drift.py, FULL)
@@ -1776,14 +1984,21 @@ SSD_SHAPES = ((1, 24, 64, 64, 128, 128), (1, 8, 64, 64, 128, 128),
               (1, 64, 8, 16, 8, 64), (1, 300, 8, 128, 128, 128))
 
 
-def phase_ssd_kernels(device):
+def phase_ssd_kernels(device, parent=None):
     """K7 against its plain version at every shape of ``SSD_SHAPES`` in
-    bfloat16 and float32; the kernels-line entry is the serve path's
-    24-token prefix prefill in bfloat16."""
+    bfloat16 and float32, then its sweep (:func:`ssd_sweep`), beside the
+    parent's kernel when ``parent`` names its checkout; the kernels-line
+    entry is the serve path's 24-token prefix prefill in bfloat16."""
     main = _check_ssd(device, *SSD_SHAPES[0], "bfloat16")
     for dt in ("bfloat16", "float32"):
         for shape in SSD_SHAPES[int(dt == "bfloat16"):]:
             _check_ssd(device, *shape, dt)
+    _versus_parent("ssd", {}, parent)
+    if parent is not None:
+        # where the parent's chunk-sequential kernel spends its time
+        for key, ms in _sweep_in(Path(parent) / "src", "ssd_split",
+                                 {}).items():
+            log(f"[ssd_split] parent {key}: {ms:.6f} ms")
     return _kernel_entry("ssd_scan", main)
 
 
@@ -1837,9 +2052,10 @@ def main() -> int:
                     help="applications in the main and composed paths' "
                          "trace (at most 2100)")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: K1's and K3's "
-                         "sweeps then also time its kernels, in the order "
-                         "parent, this tree, this tree, parent")
+                    help="a checkout of the parent commit: the K1, K2, K3 "
+                         "and K7 sweeps then also time its kernels, in the "
+                         "order parent, this tree, this tree, parent, and "
+                         "K7's stage split cuts its SSD source")
     ap.add_argument("--sweep", choices=sorted(SWEEPS), default=None,
                     help="only print one sweep's times as a JSON line (the "
                          "package under --src)")
@@ -1867,9 +2083,10 @@ def main() -> int:
     phase_build()
     main_res, launches, W, ov_width, rows = phase_main_path(dev,
                                                             args.sim_apps)
-    launches_composed = phase_composed_path(dev, args.sim_apps, main_res)
+    launches_composed, phase_apps = phase_composed_path(dev, args.sim_apps,
+                                                        main_res)
     launches_posterior = phase_posterior_path(dev)
-    kernels = phase_kernels(dev, W, ov_width, rows, args.parent)
+    kernels = phase_kernels(dev, W, ov_width, rows, phase_apps, args.parent)
     # each kernel's launches on its own path
     from repro_torch.kernels.pdgraph_walk import kernel
     path = {kernel.NAME: launches, kernel.PHASE_NAME: launches_composed,
@@ -1893,7 +2110,7 @@ def main() -> int:
     moe_kernel["launches"] = phase_serve(dev, "qwen2-moe-a2.7b")["moe_gmm"]
     kernels.append(moe_kernel)
     phase_engine_reference(dev, "qwen2-moe-a2.7b")
-    ssd_kernel = phase_ssd_kernels(dev)
+    ssd_kernel = phase_ssd_kernels(dev, args.parent)
     phase_ssm_full_width(dev)
     ssd_kernel["launches"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
     kernels.append(ssd_kernel)

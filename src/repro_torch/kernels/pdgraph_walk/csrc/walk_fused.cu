@@ -147,17 +147,6 @@ __device__ __forceinline__ int lane_bucket_count(int idx, bool ok, int lane) {
   return __popc(m);
 }
 
-// The float value of an integer below 2^23, and the floor of a float in
-// [0, 2^23) as an integer, by full-rate float adds on 2^23 instead of
-// conversion instructions (exact: the same values __uint2float_rn and
-// __float2int_rz(floorf(.)) give there).
-__device__ __forceinline__ float small_uint_to_float(uint32_t v) {
-  return __fsub_rn(__uint_as_float(0x4B000000u | v), 0x1p23f);
-}
-__device__ __forceinline__ int floor_small(float v) {
-  return __float_as_int(__fadd_rz(v, 0x1p23f)) - 0x4B000000;
-}
-
 // A copy from global to shared memory that does not wait for its data
 // (cp.async, 16 or 4 bytes): staging issues all of a block's copies, then
 // waits once.
@@ -188,16 +177,6 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
     for (int i = 4 * tid; i < head; i += 4 * T) copy_async16(dst + i, src + i);
   }
   for (int i = head + tid; i < n; i += T) copy_async(dst + i, src + i);
-}
-
-// The next unit: how many of the U + 1 CDF entries r2 exceeds.
-template <int UMAX>
-__device__ __forceinline__ int cdf_next(const float* cdf, int U, float r2) {
-  int nxt = 0;
-#pragma unroll
-  for (int k = 0; k <= UMAX; ++k)
-    if (k <= U) nxt += r2 > cdf[k] ? 1 : 0;
-  return nxt;
 }
 
 template <int UMAX>

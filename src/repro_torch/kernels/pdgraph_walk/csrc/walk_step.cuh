@@ -1,9 +1,8 @@
-// One step of the counter-RNG PDGraph walker, shared by the fused walk
-// kernel (walk_fused.cu, K1) and the per-phase walk kernel (walk_phase.cu,
-// K2).  It is the step body of the reference's walker
-// (src/repro/kernels/pdgraph_walk/kernel.py, _kernel step_fn; its jnp twin
-// ref.py walk_phase_ref) with the one-hot matrix products replaced by
-// direct reads.
+// What the fused walk kernel (walk_fused.cu, K1) and the per-phase walk
+// kernel (walk_phase.cu, K2) share: the counter RNG of the reference's
+// walker (src/repro/kernels/pdgraph_walk/kernel.py, _kernel step_fn; its
+// jnp twin ref.py walk_phase_ref), the exact small-integer conversions a
+// step uses and the CDF scan unrolled over UMAX >= U units.
 //
 // Bits: every float op carries an explicit rounding intrinsic and the
 // sources are built with -fmad=false, so nothing is contracted into a fused
@@ -40,34 +39,24 @@ __device__ __forceinline__ uint32_t step_counter(int step, int lanes_per_app,
          + lane;
 }
 
-// Advances one live walker by one step: samples the current unit's service
-// (override row where the app has one), scales it by the posterior demand
-// ratio behind the reference's max(., 0) guard, consumes `executed` on
-// global step 0, adds it to `total`, and draws the next unit.  Returns the
-// next unit; a value >= U means the walker is absorbed.
-//
-// `Rows` reads the tables for the current unit of this walker:
-//   float n_eff(int cur)          sample count (override count if any)
-//   float sample(int cur, int si) the si-th service sample
-//   bool  posterior               whether scale() applies
-//   float scale(int cur)          posterior demand ratio
-//   const float* cdf(int cur)     the U+1 transition CDF entries
-template <class Rows>
-__device__ __forceinline__ int walk_step(const Rows& rows, int U,
-                                         uint32_t stream, uint32_t ctr,
-                                         bool first_step, float executed,
-                                         int cur, float& total) {
-  const uint32_t bits = fmix32(stream + ctr * kGolden);
-  const float r = __fmul_rn(__uint2float_rn(bits >> 16), kU16);
-  const float r2 = __fmul_rn(__uint2float_rn(bits & 0xFFFFu), kU16);
-  const int si = __float2int_rz(floorf(__fmul_rn(r, rows.n_eff(cur))));
-  float svc = rows.sample(cur, si);
-  if (rows.posterior) svc = fmaxf(__fmul_rn(svc, rows.scale(cur)), 0.0f);
-  if (first_step) svc = fmaxf(__fsub_rn(svc, executed), 0.0f);
-  total = __fadd_rn(total, svc);
-  const float* cdf = rows.cdf(cur);
+// The float value of an integer below 2^23, and the floor of a float in
+// [0, 2^23) as an integer, by full-rate float adds on 2^23 instead of
+// conversion instructions (exact: the same values __uint2float_rn and
+// __float2int_rz(floorf(.)) give there).
+__device__ __forceinline__ float small_uint_to_float(uint32_t v) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | v), 0x1p23f);
+}
+__device__ __forceinline__ int floor_small(float v) {
+  return __float_as_int(__fadd_rz(v, 0x1p23f)) - 0x4B000000;
+}
+
+// The next unit: how many of the U + 1 CDF entries r2 exceeds.
+template <int UMAX>
+__device__ __forceinline__ int cdf_next(const float* cdf, int U, float r2) {
   int nxt = 0;
-  for (int k = 0; k <= U; ++k) nxt += r2 > cdf[k] ? 1 : 0;
+#pragma unroll
+  for (int k = 0; k <= UMAX; ++k)
+    if (k <= U) nxt += r2 > cdf[k] ? 1 : 0;
   return nxt;
 }
 

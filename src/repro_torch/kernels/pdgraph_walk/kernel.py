@@ -35,9 +35,9 @@ PHASE_SOURCE = Path(__file__).parent / "csrc" / "walk_phase.cu"
 SOURCES = (SOURCE, PHASE_SOURCE)
 NB_MAX = 32
 SMEM_MAX = 232448               # bytes of shared memory one block may use
-PHASE_THREADS = 256
-# the fused kernel's CDF scan is unrolled over one of these unit counts
+# the walk kernels' CDF scans are unrolled over one of these unit counts
 UNITS_MAX = (4, 8, 16, 32)
+PHASE_THREADS = 256             # the per-phase kernel's threads a block, at most
 for _name in (NAME, POSTERIOR_NAME, PHASE_NAME):
     LAUNCHES.setdefault(_name, 0)
 
@@ -68,6 +68,22 @@ def walk_plan(W: int, U: int, A: int = 1, sms: int = 132) -> WalkPlan:
     return WalkPlan(threads, next(m for m in UNITS_MAX if U <= m))
 
 
+class PhasePlan(NamedTuple):
+    threads: int          # a block's threads (a lane each): at most 256
+    units_max: int        # the CDF scan's unrolled length, >= U
+
+
+def phase_plan(N: int, U: int) -> PhasePlan:
+    """The per-phase kernel's launch plan for ``N`` lanes: a lane a thread,
+    blocks of up to 256, the CDF scan unrolled over the smallest of
+    ``UNITS_MAX`` that holds ``U``."""
+    if U > UNITS_MAX[-1]:
+        raise ValueError(f"pdgraph_walk_phase takes at most {UNITS_MAX[-1]} "
+                         f"units, got {U}")
+    return PhasePlan(min(max(-(-N // 32) * 32, 32), PHASE_THREADS),
+                     next(m for m in UNITS_MAX if U <= m))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     fn = lib.pdgraph_walk_fused
@@ -85,7 +101,7 @@ def _phase_lib() -> ctypes.CDLL:
     lib = build.load(PHASE_SOURCE)
     fn = lib.pdgraph_walk_phase
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 20 + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 20 + [_I] * 9 + [_P]
         fn.restype = ctypes.c_int
         lib.pdgraph_walk_phase_error_string.argtypes = [_I]
         lib.pdgraph_walk_phase_error_string.restype = ctypes.c_char_p
@@ -213,10 +229,11 @@ def pdgraph_walk_kernel(samples: torch.Tensor,     # (G, U, S) f32
                         *, step0: int, n_steps: int, lanes_per_app: int,
                         n_apps: int):
     """Launch one walk phase: global steps ``step0 .. step0 + n_steps``
-    over flat walker state.  ``executed`` is consumed at global step 0;
-    override and posterior rows are indexed by ``app`` (``n_apps`` rows of
-    ``U``).  Returns new ``(cur, total, done)`` tensors, plus the updated
-    ``(U, N)`` first-arrival times when ``arrivals`` is given."""
+    over flat walker state, on the plan of :func:`phase_plan`.
+    ``executed`` is consumed at global step 0; override and posterior rows
+    are indexed by ``app`` (``n_apps`` rows of ``U``).  Returns new ``(cur,
+    total, done)`` tensors, plus the updated ``(U, N)`` first-arrival times
+    when ``arrivals`` is given."""
     dev = samples.device
     G, U, S = samples.shape
     N = cur.shape[0]
@@ -259,12 +276,13 @@ def pdgraph_walk_kernel(samples: torch.Tensor,     # (G, U, S) f32
         return (cur_o, total_o, done_o) + (() if arr_o is None else (arr_o,))
     ptrs += [cur_o.data_ptr(), total_o.data_ptr(), done_o.data_ptr(),
              None if arr_o is None else arr_o.data_ptr()]
+    plan = phase_plan(N, U)
     lib = _phase_lib()
     with on_device(dev):
         cuda_stream = stream_of(dev)
         rc = lib.pdgraph_walk_phase(
             *ptrs, N, U, S, So, int(lanes_per_app), int(step0), int(n_steps),
-            PHASE_THREADS, cuda_stream)
+            *plan, cuda_stream)
     if rc != 0:
         msg = lib.pdgraph_walk_phase_error_string(rc).decode()
         raise RuntimeError(f"pdgraph_walk_phase launch failed: {msg} ({rc})")

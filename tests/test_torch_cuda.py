@@ -234,6 +234,119 @@ def test_phase_kernel_matches_plain_bitwise(dev, W, arrivals, posterior):
         assert torch.equal(a.cpu(), b)
 
 
+def _synthetic_walk(rng, A, W, U, S, So, dev, *, live=0.7, earlier=False,
+                    posterior=False):
+    """Random walk tables of ``U`` units (G = 3 graphs) and the flat state of
+    ``A`` apps of ``W`` lanes, app-major: a ``live`` share of the lanes
+    live, each app on one graph; with ``earlier``, first-arrival times and
+    totals that earlier phases left (some units reached, some not)."""
+    G = 3
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,  # noqa: E731
+                                                    device=dev)
+    p = rng.random((G, U, U + 1)) + 0.05
+    p[..., U:] += 0.2                              # absorption
+    cum = np.cumsum(p / p.sum(-1, keepdims=True), -1)
+    cum[..., -1] = 1.0
+    app_cum = np.cumsum(rng.random((A * U, U + 1)) + 0.05, -1)
+    N = A * W
+    gi_app = rng.integers(0, G, A)
+    ovc = np.where(rng.random((A, U)) < 0.3, rng.integers(1, So + 1, (A, U)),
+                   0)
+    st = dict(
+        cur=t(rng.integers(0, U, N), torch.int32),
+        total=t(rng.uniform(0.0, 40.0, N) if earlier else np.zeros(N)),
+        done=t(rng.random(N) >= live, torch.bool),
+        gi=t(np.repeat(gi_app, W), torch.int32),
+        app=t(np.repeat(np.arange(A), W), torch.int32),
+        stream=t(rng.integers(0, 2 ** 32, N), torch.int64),
+        lane=t(np.tile(np.arange(W), A), torch.int32),
+        ex=t(rng.uniform(0.0, 2.0, N)),
+        arr=t(np.where(rng.random((U, N)) < 0.4, rng.uniform(0.0, 40.0,
+                                                             (U, N)), 1e30)
+              if earlier else np.full((U, N), 1e30)))
+    tables = dict(
+        samples=t(rng.uniform(0.05, 20.0, (G, U, S))),
+        counts=t(rng.integers(1, S + 1, (G, U))),
+        cum=t(cum),
+        ovs=t(rng.uniform(0.05, 20.0, (A * U, So))),
+        ovc=t(ovc.reshape(A * U)),
+        po_cum=t(app_cum / app_cum[:, -1:]) if posterior else None,
+        po_scale=t(rng.uniform(0.5, 2.0, A * U)) if posterior else None)
+    return tables, st
+
+
+def _phase_vs_plain(tables, st, *, W, A, step0, n_steps, arrivals=True):
+    """One launch of the per-phase kernel against ``walk_phase_ref`` on the
+    same state: cur, total, done and first arrivals bitwise."""
+    G, U, S = tables["samples"].shape
+    s32 = torch.where(st["stream"] >= 2 ** 31, st["stream"] - 2 ** 32,
+                      st["stream"]).to(torch.int32)
+    arr = st["arr"] if arrivals else None
+    ex = st["ex"] if step0 == 0 else None
+    before = LAUNCHES[kernel.PHASE_NAME]
+    k = kernel.pdgraph_walk_kernel(
+        tables["samples"], tables["counts"], tables["cum"], tables["ovs"],
+        tables["ovc"], tables["po_cum"], tables["po_scale"], st["cur"],
+        st["total"], st["done"], st["gi"], st["app"], s32, st["lane"], ex,
+        arr, step0=step0, n_steps=n_steps, lanes_per_app=W, n_apps=A)
+    assert LAUNCHES[kernel.PHASE_NAME] == before + 1
+    p = walk_phase_ref(
+        tables["samples"].reshape(G * U, S), tables["counts"].reshape(G * U),
+        tables["cum"].reshape(G * U, U + 1), tables["ovs"], tables["ovc"],
+        st["cur"].long(), st["total"], st["done"], st["gi"].long(),
+        st["app"].long(), st["stream"], st["lane"].long(), ex, step0=step0,
+        n_steps=n_steps, lanes_per_app=W,
+        arrivals=None if arr is None else arr.t().clone(),
+        fpo_cum=tables["po_cum"], fpo_scale=tables["po_scale"])
+    torch.cuda.synchronize()
+    assert torch.equal(k[0].long(), p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(k[2], p[2])
+    if arrivals:
+        assert torch.equal(k[3], p[3].t())
+
+
+# (A, W, U, S, So, step0, n_steps, live, compact, earlier, posterior): the
+# composed path's one-app launch (N = 256) and two apps (N = 512), each
+# single-phase; 76,800 lanes; U at each UNITS_MAX boundary; a compacted
+# state whose live lanes span many apps a block; a later phase whose
+# arrivals and totals hold earlier phases' values
+PHASE_CASES = {
+    "N256": (1, 256, 4, 547, 128, 0, 64, 1.0, False, False, False),
+    "N512": (2, 256, 4, 547, 128, 0, 64, 1.0, False, False, False),
+    "N512_post": (2, 256, 4, 547, 128, 0, 64, 1.0, False, False, True),
+    "throughput": (300, 256, 4, 100, 16, 0, 16, 0.9, False, False, False),
+    "U4": (4, 64, 4, 33, 8, 0, 64, 0.8, False, False, False),
+    "U5": (4, 64, 5, 33, 8, 0, 64, 0.8, False, False, False),
+    "U8": (4, 64, 8, 33, 8, 0, 64, 0.8, False, False, False),
+    "U9": (4, 64, 9, 33, 8, 0, 64, 0.8, False, False, True),
+    "U16": (4, 64, 16, 33, 8, 0, 64, 0.8, False, False, False),
+    "U17": (4, 64, 17, 33, 8, 0, 64, 0.8, False, False, False),
+    "U32": (4, 64, 32, 33, 8, 0, 64, 0.8, False, False, True),
+    "spread": (2048, 4, 4, 547, 128, 16, 48, 0.5, True, True, False),
+    "earlier": (8, 256, 4, 547, 128, 16, 48, 0.5, False, True, False),
+}
+
+
+@pytest.mark.parametrize("arrivals", [True, False], ids=["arr", "no_arr"])
+@pytest.mark.parametrize("case", sorted(PHASE_CASES))
+def test_phase_kernel_launch_shapes_bitwise(dev, case, arrivals):
+    """The per-phase kernel against ``walk_phase_ref``, bitwise, at each
+    launch shape of ``PHASE_CASES``.  ``spread`` packs the live lanes of
+    2,048 apps first, in app order, as compaction does, so a block's live
+    lanes span many apps and graphs."""
+    A, W, U, S, So, step0, n_steps, live, compact, earlier, post = \
+        PHASE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    tables, st = _synthetic_walk(rng, A, W, U, S, So, dev, live=live,
+                                 earlier=earlier, posterior=post)
+    if compact:
+        order = torch.argsort(st["done"].to(torch.int32), stable=True)
+        st = {k: (v[:, order] if k == "arr" else v[order])
+              for k, v in st.items()}
+    _phase_vs_plain(tables, st, W=W, A=A, step0=step0, n_steps=n_steps,
+                    arrivals=arrivals)
+
+
 # ---------------------------------------------------------------------------
 # model kernels: RMSNorm (K3), prefill attention (K4), decode attention (K5),
 # held to their plain versions at the JAX package's kernel tolerances
@@ -570,7 +683,13 @@ def _ssd_inputs(rng, B, S, H, P, N, dtype, dev):
     (2, 37, 8, 16, 16, 8),       # the tiny models: chunk 8, ragged
     (1, 5, 3, 4, 4, 128),        # fewer rows than a 4-row tile
     (1, 200, 2, 128, 128, 64),   # P = 128 (Jamba's head width)
-    (1, 200, 2, 128, 128, 128),  # ... at its config's chunk: K7 takes 64
+    (1, 200, 2, 128, 128, 128),  # ... at its config's chunk (f32 takes 64)
+    (1, 128, 4, 64, 128, 128),   # one chunk
+    (1, 256, 4, 64, 128, 128),   # two chunks, handed over once
+    (1, 2176, 2, 64, 128, 128),  # 17 chunks
+    (1, 2100, 3, 96, 128, 128),  # 17, a ragged tail, 1.5 column blocks
+    (2, 70, 5, 36, 20, 16),      # N and P off the 8-element copies
+    (1, 3, 2, 8, 8, 128),        # S < 4
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_scan_kernel_matches_plain(dev, B, S, H, P, N, chunk, dtype):
@@ -593,18 +712,36 @@ def test_ssd_scan_kernel_matches_plain(dev, B, S, H, P, N, chunk, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_kernel_is_deterministic(dev, dtype):
+    """Two launches on the same inputs give the same bits: the chunk
+    hand-off and every sum run in a fixed order."""
+    rng = np.random.default_rng(5)
+    args = _ssd_inputs(rng, 1, 1000, 8, 64, 128, dtype, dev)
+    y1, f1 = ssd_kernel.ssd_scan_kernel(*args, chunk=128)
+    y2, f2 = ssd_kernel.ssd_scan_kernel(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
 def test_ssd_scan_shared_memory_plan(dev):
-    """The built source's plan: one block at mamba2-1.3b's widths (chunk
-    128, N 128, P 64) fits the 227 KB a block can use; a chunk of 128 at
-    P = 128 (Jamba's head width) does not, and one of 64 does, which the
-    wrapper then takes."""
-    assert ssd_kernel.smem_bytes(128, 128, 64) == 221184
-    assert ssd_kernel.smem_bytes(128, 128, 64) <= ssd_kernel.SMEM_MAX
-    assert ssd_kernel.smem_bytes(128, 128, 128) > ssd_kernel.SMEM_MAX
-    assert ssd_kernel.smem_bytes(64, 128, 128) <= ssd_kernel.SMEM_MAX
-    assert ssd_kernel.smem_bytes(8, 16, 16) == ssd_kernel.smem_bytes(32, 16,
-                                                                     16)
-    assert ssd_kernel.fitting_chunk(128, 2048, 128, 128) == 64
+    """The plans' shared-memory sizes are the built source's, and the new
+    bfloat16 plan holds every chunk up to 128 at P = 128 (Jamba's head
+    width: 64 state columns a block), where the float32 plan halves the
+    chunk to 64."""
+    lib = ssd_kernel._lib()
+    for L in (1, 8, 24, 100, 128):
+        for N in (4, 16, 20, 128):
+            assert lib.ssd_scan_bf16_smem_bytes(L, N) == \
+                ssd_kernel.bf16_smem_bytes(L, N)
+            for P in (4, 64, 128):
+                assert lib.ssd_scan_smem_bytes(L, N, P) == \
+                    ssd_kernel.f32_smem_bytes(L, N, P)
+    plan = ssd_kernel.scan_plan(torch.bfloat16, 1, 2048, 8, 128, 128, 128)
+    assert plan.chunk == 128 and plan.col_blocks == 2
+    assert plan.smem <= ssd_kernel.SMEM_MAX
+    assert ssd_kernel.scan_plan(torch.float32, 1, 2048, 8, 128, 128,
+                                128).chunk == 64
 
 
 def test_ssd_scan_kernel_refuses_what_it_cannot_take(dev):

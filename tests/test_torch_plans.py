@@ -1,6 +1,8 @@
 """The launch plans the kernel wrappers compute in Python, on the CPU: what
 the CUDA sources take as given (a plan that covers the row, threads a
-power of two, the block inside 1,024 threads)."""
+power of two, the block inside 1,024 threads, shared memory inside the
+card's 227 KB a block).  The card tests hold the shared-memory sizes to the
+built sources' (``tests/test_torch_cuda.py``)."""
 import pytest
 import torch
 
@@ -90,3 +92,86 @@ def test_walk_plan_main_shapes(A, threads):
 def test_walk_plan_refuses_more_units_than_it_unrolls():
     with pytest.raises(ValueError, match="at most 32 units"):
         walk_kernel.walk_plan(256, 33)
+
+
+# the per-phase walk (K2): lanes of its launches on the composed path (one
+# app of 256 walkers, two, the largest of 32 apps, its compacted phases) and
+# at 4,096 apps, before and after compaction
+PHASE_N = [1, 31, 128, 256, 512, 2048, 8192, 67585, 262144, 1048576]
+
+
+@pytest.mark.parametrize("N", PHASE_N)
+def test_phase_plan_sizes_the_launch(N):
+    """A lane a thread, blocks of up to 256 threads (a multiple of 32, the
+    kernel's launch bound); the CDF scan unrolled over the smallest of
+    UNITS_MAX that holds U."""
+    for U in (1, 4, 5, 8, 9, 16, 17, 32):
+        threads, umax = walk_kernel.phase_plan(N, U)
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        assert threads == min(max(-(-N // 32) * 32, 32), 256)
+        assert umax in walk_kernel.UNITS_MAX and U <= umax
+        assert umax == walk_kernel.UNITS_MAX[0] or umax // 2 < U
+
+
+@pytest.mark.parametrize("N,threads", [(256, 256), (128, 128), (512, 256),
+                                       (1048576, 256), (5, 32)])
+def test_phase_plan_main_shapes(N, threads):
+    """The composed path's one-app launch is one block of 256 threads; its
+    compacted 128-lane phase one of 128; U = 4 units unroll over 4."""
+    assert walk_kernel.phase_plan(N, 4) == (threads, 4)
+
+
+def test_phase_plan_refuses_more_units_than_it_unrolls():
+    with pytest.raises(ValueError, match="at most 32 units"):
+        walk_kernel.phase_plan(256, 33)
+
+
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+
+# (B, S, H, P, N, chunk): mamba2-1.3b's serve prompts, S = 2,048 and a
+# ragged S = 300; Jamba's P = 128; the reference's test sweep
+SSD_SHAPES = [(1, 24, 64, 64, 128, 128), (1, 8, 64, 64, 128, 128),
+              (1, 2048, 64, 64, 128, 128), (1, 300, 64, 64, 128, 128),
+              (1, 300, 8, 128, 128, 128), (1, 128, 2, 32, 16, 32),
+              (2, 256, 4, 64, 32, 64), (1, 64, 8, 16, 8, 64),
+              (1, 3, 2, 8, 8, 128), (2, 70, 5, 36, 20, 16)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plan_bf16_chunks_in_parallel(B, S, H, P, N, chunk):
+    """bfloat16: every chunk of ``min(chunk, S)`` positions its own block
+    per (batch, head, 64 state columns), inside the card's shared memory
+    and two blocks a multiprocessor at mamba2's widths."""
+    plan = ssd_kernel.scan_plan(torch.bfloat16, B, S, H, P, N, chunk)
+    L = min(chunk, S)
+    assert plan.chunk == L and plan.chunks == -(-S // L)
+    assert plan.col_blocks == -(-P // 64)
+    assert plan.blocks == plan.chunks * B * H * plan.col_blocks
+    assert plan.smem == ssd_kernel.bf16_smem_bytes(L, N)
+    assert plan.smem <= ssd_kernel.SMEM_MAX
+    if N <= 128 and L <= 128:
+        assert 2 * (plan.smem + 1024) <= 233472      # 228 KB an SM
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_plan_f32_walks_the_chunks(B, S, H, P, N, chunk):
+    """float32: a block per (batch, head) over the chunks in order, at the
+    largest chunk whose block fits (P = 128: 64)."""
+    plan = ssd_kernel.scan_plan(torch.float32, B, S, H, P, N, chunk)
+    assert plan.chunk == ssd_kernel.fitting_chunk(chunk, S, N, P)
+    assert plan.chunk == (64 if P == 128 and min(chunk, S) > 64
+                          else min(chunk, S))
+    assert plan.blocks == B * H
+    assert plan.smem == ssd_kernel.f32_smem_bytes(plan.chunk, N, P)
+    assert plan.smem <= ssd_kernel.SMEM_MAX
+
+
+@pytest.mark.parametrize("L,N,bf16,f32", [
+    (128, 128, 108544, 221184),    # mamba2-1.3b (f32 at P = 64)
+    (24, 128, 40960, 81408),       # its serve prompt (f32: 32 rows)
+    (128, 16, 35072, 76032),       # the reference's test widths (P = 64)
+])
+def test_ssd_plan_shared_memory_sizes(L, N, bf16, f32):
+    """The sizes the sources' layouts give at the main shapes."""
+    assert ssd_kernel.bf16_smem_bytes(L, N) == bf16
+    assert ssd_kernel.f32_smem_bytes(L, N, 64) == f32

@@ -105,13 +105,14 @@ def test_final_state_continues_the_scan():
 
 
 def test_shared_memory_plan(monkeypatch):
-    """The chunk the kernel takes: ``min(chunk, S)``, halved while a block
-    would need more shared memory than the card offers (a chunk of 128 at
-    Jamba's P = 128 becomes 64); a shape that does not fit at chunk 1
-    raises.  The built source computes the plan itself
-    (``ssd_scan_smem_bytes``, held on the card in ``test_torch_cuda.py``):
-    here a size linear in the chunk stands in for it."""
-    monkeypatch.setattr(kernel, "smem_bytes",
+    """The chunk the float32 kernel takes: ``min(chunk, S)``, halved while
+    a block would need more shared memory than the card offers (a chunk of
+    128 at Jamba's P = 128 becomes 64); a shape that does not fit at chunk
+    1 raises.  The block's size is the source's layout
+    (``f32_smem_bytes``, held to ``ssd_scan_smem_bytes`` on the card in
+    ``test_torch_cuda.py``): here a size linear in the chunk stands in for
+    it."""
+    monkeypatch.setattr(kernel, "f32_smem_bytes",
                         lambda L, N, P: 4 * (L * (N + P) + N * P))
     assert kernel.fitting_chunk(128, 2048, 128, 64) == 128
     assert kernel.fitting_chunk(128, 24, 128, 64) == 24

@@ -106,7 +106,34 @@ Phases (any failure raises and the script exits non-zero):
    K3 and K7 launched; one decode step timed and profiled;
 19. phase 11 on a tiny float32 mamba2-1.3b and a tiny float32
    jamba-1.5-large-398b (two periods of one attention and seven Mamba
-   layers, MoE in every second: K3-K7 in one model).
+   layers, MoE in every second: K3-K7 in one model);
+20. phase 8's checks at the encoder-decoder's and the VLM's shapes: K4 not
+   causal at Whisper's cross-attention (B = 1 and 4, Sq = 4 and 24, Skv =
+   1,500, H = K = 20, hd 64) and causal at InternVL's prefill (S = 1,048,
+   H = 48, K = 8, hd 128); K5 over 1,500 frames in full rows (B*K = 20 and
+   80, G = 1) and at InternVL's decode; K3 at InternVL's d_model 6,144; in
+   both dtypes, each timed beside its bound, its plain version and a
+   PyTorch library call;
+21. whisper-large-v3 at full width cut to 2 encoder and 2 decoder layers,
+   bfloat16: 1,500 frames, a 24-token prompt and 8 teacher-forced decode
+   steps on ``cuda`` (K4, K5; its norms are LayerNorm) and on the CPU from
+   the same weights: logits within 5e-2;
+22. internvl2-26b at full width cut to 2 of its 48 layers, bfloat16: 1,024
+   patch embeddings, a 24-token prompt and 8 teacher-forced decode steps,
+   ``cuda`` (K3-K5) against the CPU: logits within 5e-2 (the CPU side
+   timed);
+23. the two families' main paths, through the model API (the engine feeds
+   tokens only, as the reference's): whisper-large-v3 at full depth (32 +
+   32 layers, 448 learned positions), 4 utterances of 1,500 frames, a
+   4-token start prompt and 32 greedy decode steps; internvl2-26b at full
+   depth (48 layers, 39.7 GB of bfloat16 weights drawn on the card), 2
+   requests of 1,024 patches and 24 tokens and 16 greedy steps; counters
+   reset and read around each, the launch counts the code implies
+   asserted (Whisper: K4 = enc_layers + 2 num_layers a prefill, K5 = 2
+   num_layers a step, no K3; InternVL: K3 = 2 num_layers + 1 a forward
+   pass, K4 = num_layers a prefill, K5 = num_layers a step); prefill ms,
+   a batch-1 decode step beside its floor (profiled), peak memory beside
+   the weights' bytes.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -1454,9 +1481,11 @@ FAMILY_KERNELS = {
 }
 
 
-def _kernel_entry(name, r):
-    """One kernel's entry of the kernels line (launches filled later)."""
-    return {"name": name, "route": "cuda", "source": MODEL_KERNELS[name][0],
+def _kernel_entry(name, r, path=None):
+    """One kernel's entry of the kernels line (launches filled later),
+    named ``name:path`` for a shape of another path than the first."""
+    return {"name": name if path is None else f"{name}:{path}",
+            "route": "cuda", "source": MODEL_KERNELS[name][0],
             "replaces": MODEL_KERNELS[name][1], "launches": 0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1501,7 +1530,7 @@ def phase_model_kernels(device, parent=None):
     _check_flash(device, 1, 8, 8, 32, 8, 128, "bfloat16", True)
     _check_flash(device, 1, 2048, 2048, 32, 8, 128, "bfloat16", True)
     # qwen2-7b's G = 7 at a ragged S, and Whisper's 1,500-frame encoder
-    # (ROADMAP item 16: G = 1, hd 64, not causal)
+    # (G = 1, hd 64, not causal)
     _check_flash(device, 1, 300, 300, 28, 4, 128, "bfloat16", True)
     _check_flash(device, 1, 1500, 1500, 20, 20, 64, "bfloat16", False)
     rng = np.random.default_rng(13)
@@ -1516,12 +1545,17 @@ def phase_model_kernels(device, parent=None):
     return [_kernel_entry(name, r) for name, r in main.items()]
 
 
-def _teacher_forced(model, prompt, forced):
-    """Prefill ``prompt`` (1, S), then decode each of ``forced`` (1, n):
-    the logits of every step, as float32 on the CPU."""
+def _teacher_forced(model, prompt, forced, **side):
+    """Prefill ``prompt`` (1, S) (with the frames or patch embeddings
+    ``side`` of an encoder-decoder or VLM), then decode each of ``forced``
+    (1, n): the logits of every step, as float32 on the CPU.  The self
+    caches grow to S + n positions (behind the patches of a VLM); the
+    others, the encoder-decoder's cross caches ``xk``/``xv`` among them,
+    are copied whole."""
     import torch
-    S, n = prompt.shape[1], forced.shape[1]
-    caches, logits = model.prefill(prompt)
+    n = forced.shape[1]
+    caches, logits = model.prefill(prompt, **side)
+    S = caches["k"].shape[3] if "k" in caches else prompt.shape[1]
     out = [logits.float().cpu()]
     big = model.new_caches(1, S + n)
     for name, c in caches.items():
@@ -1640,18 +1674,37 @@ def _profile_decode(tag, model, caches, pos, step_ms):
                     f"x{e.count}" for e in host[:8]))
 
 
+# parameters a decode step does not read: the encoder and its final norm,
+# the VLM projector (prefill only) and the cross-attention's key and value
+# projections (their products are the cross caches)
+UNREAD_IN_DECODE = ("encoder.", "enc_final_norm.", "projector")
+UNREAD_SUFFIXES = (".cross_attn.wk", ".cross_attn.wv")
+
+
 def _step_bytes(model, caches):
-    """Bytes one decode step must move: every weight read once (the
+    """Bytes one decode step must move: every weight it reads, once (the
     embedding table too where the unembedding is tied to it, else one row
-    of it), and each Mamba layer's state and conv windows read and written
-    (``caches``: the step's; the attention caches are not counted)."""
-    e = model.embed
-    row = e.shape[1] * e.element_size()
-    table = 0 if model.lm_head is None else e.numel() * e.element_size()
-    state = sum(t.numel() * t.element_size() for n, t in caches.items()
-                if n not in ("k", "v"))
-    return (sum(p.numel() * p.element_size() for p in model.parameters())
-            - table + row + 2 * state)
+    of it; one row of learned positions; not ``UNREAD_IN_DECODE``), each
+    Mamba layer's state and conv windows read and written, and the
+    encoder-decoder's cross caches read (``caches``: the step's; the
+    self-attention caches are not counted)."""
+    n_bytes = 0
+    for name, p in model.named_parameters():
+        if name.startswith(UNREAD_IN_DECODE) or name.endswith(
+                UNREAD_SUFFIXES):
+            continue
+        one_row = name == "pos_emb" or (name == "embed"
+                                        and model.lm_head is not None)
+        if one_row:
+            n_bytes += p.shape[1] * p.element_size()
+        else:
+            n_bytes += p.numel() * p.element_size()
+    for n, t in caches.items():
+        if n in ("xk", "xv"):           # the cross caches, read
+            n_bytes += t.numel() * t.element_size()
+        elif n not in ("k", "v"):       # Mamba state, read and written
+            n_bytes += 2 * t.numel() * t.element_size()
+    return n_bytes
 
 
 def phase_serve(device, arch):
@@ -2046,6 +2099,241 @@ def phase_ssm_full_width(device):
     _free()
 
 
+# --------------------------------------------------------------------------
+# the encoder-decoder (whisper-large-v3) and VLM (internvl2-26b) families:
+# K3-K5 at their shapes, the 2-layer checks card against CPU, and their main
+# paths through the model API
+
+# the decoder's learned positions: max_target_positions of the public
+# openai/whisper-large-v3 config
+WHISPER_MAX_SEQ = 448
+
+
+def phase_encdec_vlm_kernels(device):
+    """K3-K5 at the new families' shapes against their plain versions, in
+    both dtypes: Whisper's cross-attention (K4 not causal, Skv = 1,500) in
+    prefill and decode (K5, every row 1,500 frames long), InternVL's causal
+    prefill of 1,024 patches and 24 tokens, its decode and its d_model
+    6,144.  Returns the kernels-line entries: each path's bf16 shapes."""
+    entries = []
+    for dt in ("bfloat16", "float32"):
+        bf16 = dt == "bfloat16"
+        for B in (1, 4):
+            for Sq in (4, 24):
+                r = _check_flash(device, B, Sq, 1500, 20, 20, 64, dt, False)
+                if bf16 and (B, Sq) == (4, 4):   # the Whisper path's prompt
+                    entries.append(_kernel_entry("flash_attention", r,
+                                                 "whisper"))
+            r = _check_decode(device, B, 20, 20, 64, 1500, [1500] * B, dt)
+            if bf16 and B == 4:
+                entries.append(_kernel_entry("decode_attention", r,
+                                             "whisper"))
+        r = _check_flash(device, 1, 1048, 1048, 48, 8, 128, dt, True)
+        if bf16:
+            entries.append(_kernel_entry("flash_attention", r, "internvl"))
+        r = _check_decode(device, 2, 48, 8, 128, 1064, [1056, 1056], dt)
+        if bf16:
+            entries.append(_kernel_entry("decode_attention", r, "internvl"))
+        r = _check_rmsnorm(device, 2, 6144, dt)
+        if bf16:
+            entries.append(_kernel_entry("rmsnorm", r, "internvl"))
+        _check_rmsnorm(device, 2 * 1048, 6144, dt)
+    return entries
+
+
+def _side_input(cfg, batch, gen):
+    """The frames (encdec) or patch embeddings (vlm) of ``batch`` requests:
+    normal float32 on the CPU, as keyword arguments of ``Model.prefill``."""
+    import torch
+    key, rows = (("frames", cfg.enc_frames) if cfg.family == "encdec"
+                 else ("patch_embeds", cfg.vision_patches))
+    return {key: torch.randn((batch, rows, cfg.d_model), generator=gen)}
+
+
+def _expected_launches(cfg, steps):
+    """The launches a prefill and ``steps`` decode steps imply: per layer
+    the norms (K3, RMSNorm only), the prefill's attention products (K4) and
+    a step's attention products (K5)."""
+    L = cfg.num_layers
+    if cfg.family == "encdec":      # encoder; decoder self and cross
+        return {"rmsnorm": 0, "flash_attention": cfg.enc_layers + 2 * L,
+                "decode_attention": 2 * L * steps}
+    return {"rmsnorm": (2 * L + 1) * (1 + steps), "flash_attention": L,
+            "decode_attention": L * steps}
+
+
+def phase_side_input_full_width(device, arch, layers):
+    """``arch`` (encdec or vlm) at full width cut to ``layers`` layers (and
+    encoder layers), bfloat16: its frames or patches, a 24-token prompt and
+    8 teacher-forced decode steps on the card and on the CPU (timed) from
+    the same weights; logits within 5e-2 and the launches the code
+    implies."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).replace(num_layers=layers)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(enc_layers=layers)
+    tag = f"[{cfg.family}_full_width]"
+    max_seq = WHISPER_MAX_SEQ if cfg.family == "encdec" else 0
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=device, max_seq=max_seq).init(
+        torch.Generator(device=device).manual_seed(1))
+    cpu = build_model(cfg, device="cpu", max_seq=max_seq).load_params(
+        {n: p.cpu() for n, p in card.params().items()})
+    log(f"{tag} {cfg.name} layers={cfg.num_layers} enc_layers="
+        f"{cfg.enc_layers} d_model={cfg.d_model} vocab={cfg.vocab_size} "
+        f"{cfg.dtype}: weights "
+        f"{sum(p.numel() * p.element_size() for p in card.parameters())} "
+        f"bytes, built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(2)
+    side = _side_input(cfg, 1, gen)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 24), generator=gen)
+    forced = torch.randint(1, cfg.vocab_size, (1, 8), generator=gen)
+    reset_launches()
+    a = _teacher_forced(card, prompt, forced, **side)
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    b = _teacher_forced(cpu, prompt, forced, **side)
+    log(f"{tag} cpu run {time.perf_counter() - t0:.1f} s; card launches "
+        f"{launches}")
+    want = _expected_launches(cfg, forced.shape[1])
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, the code implies {want}")
+    err = _hold(f"{tag} logits (prefill + 8 decode steps)", a, b,
+                "bfloat16", tol=MODEL_BF16_TOL)
+    agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+    log(f"{tag} max_abs_err={err} greedy tokens agree at {agree} of "
+        f"{a.shape[1]} steps; logits max |x| "
+        f"{float(b[..., :cfg.vocab_size].abs().max())} (real vocab)")
+    del card, cpu
+    _free()
+
+
+def _greedy(model, prompt, steps, side):
+    """Prefill ``prompt`` (B, S) with ``side``, then ``steps`` greedy decode
+    steps at batch B: (prefill seconds, decode seconds, logits of every
+    step (B, 1 + steps, V) on the card, tokens (B, steps))."""
+    import torch
+    B, S = prompt.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches, logits = model.prefill(prompt, **side)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    S0 = caches["k"].shape[3]
+    big = model.new_caches(B, S0 + steps)
+    for name, c in caches.items():
+        if name in ("k", "v"):
+            big[name][:, :, :, :S0] = c
+        else:
+            big[name].copy_(c)
+    del caches
+    out, toks = [logits], []
+    for t in range(steps):
+        tok = out[-1][:, -1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        big, logits = model.decode(big, tok, S0 + t)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return (t1 - t0, time.perf_counter() - t1, torch.cat(out, dim=1),
+            torch.cat(toks, dim=1))
+
+
+def phase_side_input_path(device, arch, batch, prompt_len, steps, max_seq):
+    """A main path of the encoder-decoder or VLM family: the full-depth,
+    full-width ``arch`` (random bfloat16 weights drawn on the card) through
+    ``Model.prefill`` and ``Model.decode``, ``batch`` requests of a
+    ``prompt_len``-token prompt with their frames or patches, then
+    ``steps`` greedy steps; counters reset and read around it, the launch
+    counts the code implies asserted.  Then a warm prefill timed, one
+    batch-1 decode step timed beside its floor and profiled.  Returns the
+    path's launches."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    tag = f"{cfg.family}_path"
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, max_seq=max_seq).init(
+        torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator().manual_seed(3)
+    side = _side_input(cfg, batch, gen)
+    prompt = torch.randint(1, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen)
+    reset_launches()
+    prefill_s, decode_s, logits, toks = _greedy(model, prompt, steps, side)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = _expected_launches(cfg, steps)
+    got = {k: launches.get(k, 0) for k in want}
+    real = logits[..., :cfg.vocab_size]
+    log(f"[{tag}] {cfg.name} layers={cfg.num_layers} enc_layers="
+        f"{cfg.enc_layers} d_model={cfg.d_model} {cfg.dtype} params="
+        f"{sum(p.numel() for p in model.parameters())}: batch={batch} "
+        f"prompt={prompt_len} side={tuple(next(iter(side.values())).shape)} "
+        f"steps={steps} init={init_s:.3f} s prefill={1e3 * prefill_s:.3f} ms "
+        f"(first call) decode={1e3 * decode_s / steps:.3f} ms a step (batch "
+        f"{batch}) max_memory_allocated={peak} weights={weights} bytes "
+        f"launches={launches} tokens[0]={toks[0].tolist()}")
+    if got != want:
+        raise AssertionError(f"[{tag}] launches {got}, the code implies "
+                             f"{want}")
+    if (tuple(logits.shape) != (batch, 1 + steps, logits.shape[-1])
+            or not bool(torch.isfinite(real).all())):
+        raise AssertionError(f"[{tag}] logits of shape {tuple(logits.shape)}"
+                             " or non-finite")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"[{tag}] tokens outside the vocabulary")
+    del logits, real
+    # a warm prefill at the path's batch, then batch-1 decode steps
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.prefill(prompt, **side)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t1))
+    one = {k: v[:1] for k, v in side.items()}
+    caches, _ = model.prefill(prompt[:1], **one)
+    S0 = caches["k"].shape[3]
+    big = model.new_caches(1, S0 + 32)
+    for name, c in caches.items():
+        if name in ("k", "v"):
+            big[name][:, :, :, :S0] = c
+        else:
+            big[name].copy_(c)
+    del caches
+    tok = torch.tensor([[11]], device=model.device)
+    step_ms = []
+    for i in range(25):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.decode(big, tok, S0 + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    w = _step_bytes(model, big)
+    median = statistics.median(step_ms[5:])
+    log(f"[{tag}:prefill] ms per prefill of batch {batch} (warm) "
+        f"{prefill_ms[0]:.3f}, {prefill_ms[1]:.3f}")
+    log(f"[{tag}:decode] ms per decode step median={median:.3f} "
+        f"min={min(step_ms[5:]):.3f} (batch 1, positions {S0 + 5}.."
+        f"{S0 + 24}; weights and caches moved {w} bytes, floor "
+        f"{1e3 * w / PEAK_BYTES_S:.3f} ms at {PEAK_BYTES_S:.3g} B/s)")
+    _profile_decode(tag, model, big, S0 + 25, median)
+    del model, big
+    _free()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -2116,6 +2404,17 @@ def main() -> int:
     kernels.append(ssd_kernel)
     phase_engine_reference(dev, "mamba2-1.3b")
     phase_engine_reference(dev, "jamba-1.5-large-398b")
+    side_kernels = phase_encdec_vlm_kernels(dev)
+    phase_side_input_full_width(dev, "whisper-large-v3", 2)
+    phase_side_input_full_width(dev, "internvl2-26b", 2)
+    path = {"whisper": phase_side_input_path(
+                dev, "whisper-large-v3", 4, 4, 32, WHISPER_MAX_SEQ),
+            "internvl": phase_side_input_path(
+                dev, "internvl2-26b", 2, 24, 16, 0)}
+    for k in side_kernels:
+        name, which = k["name"].split(":")
+        k["launches"] = path[which][name]
+    kernels += side_kernels
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,10 +2,8 @@
 
 A copy of the JAX package's ``ModelConfig``, ``ShapeConfig`` and registry
 (the port imports nothing of that package).  ``repro_torch.configs``
-registers the dense, MoE, SSM and hybrid configurations the port serves;
-the encoder-decoder and VLM configurations of the JAX package's registry
-raise ``NotImplementedError`` from :func:`get_config`, and so does a model
-built from their families.
+registers every configuration of the JAX package's registry: the dense,
+MoE, SSM, hybrid, encoder-decoder and VLM families.
 """
 from __future__ import annotations
 
@@ -162,19 +160,6 @@ SHAPES: Dict[str, ShapeConfig] = {
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 
-# the ROADMAP item that ports each family the port does not run yet, and
-# the JAX package's configurations of those families
-FAMILY_ITEMS = {"encdec": "item 16", "vlm": "item 16"}
-UNPORTED_CONFIGS = {"whisper-large-v3": "encdec", "internvl2-26b": "vlm"}
-
-
-def unported(family: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"model family {family!r} is not ported yet (ROADMAP.md, modules to "
-        f"port, {FAMILY_ITEMS[family]}); the port serves the dense, moe, "
-        "ssm and hybrid families")
-
-
 def register(name: str):
     def deco(fn: Callable[[], ModelConfig]):
         _REGISTRY[name] = fn
@@ -184,8 +169,6 @@ def register(name: str):
 
 def get_config(name: str, **overrides) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (populates registry)
-    if name in UNPORTED_CONFIGS:
-        raise unported(UNPORTED_CONFIGS[name])
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     cfg = _REGISTRY[name]()

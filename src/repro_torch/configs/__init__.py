@@ -1,8 +1,8 @@
 """The configurations the port serves (one module per arch, as in the JAX
-package's ``configs``): the dense, MoE, SSM and hybrid families.  The
-encoder-decoder and VLM configurations are not registered here: their model
-families are not ported yet (ROADMAP.md)."""
+package's ``configs``): the dense, MoE, SSM, hybrid, encoder-decoder and
+VLM families, every configuration of the JAX package's registry."""
 from repro_torch.configs import (  # noqa: F401
+    internvl2_26b,
     jamba_1_5_large_398b,
     llama3_8b,
     mamba2_1_3b,
@@ -10,6 +10,7 @@ from repro_torch.configs import (  # noqa: F401
     qwen2_7b,
     qwen2_moe_a2_7b,
     qwen3_4b,
+    whisper_large_v3,
     yi_9b,
 )
 
@@ -17,3 +18,5 @@ DENSE_ARCHS = ("qwen2-7b", "qwen3-4b", "llama3-8b", "yi-9b")
 MOE_ARCHS = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")
 SSM_ARCHS = ("mamba2-1.3b",)
 HYBRID_ARCHS = ("jamba-1.5-large-398b",)
+ENCDEC_ARCHS = ("whisper-large-v3",)
+VLM_ARCHS = ("internvl2-26b",)

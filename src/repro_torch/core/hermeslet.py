@@ -56,8 +56,6 @@ def warmup_table_from_model(model: str,
                  scales with total parameter count.
 
     Merge the result into ``SimConfig.warmup_table`` (explicit entries win).
-    The encoder-decoder and VLM configurations raise
-    ``NotImplementedError`` (ROADMAP.md, item 16).
     """
     from repro_torch.config import get_config
     cfg, ref = get_config(model), get_config(reference)

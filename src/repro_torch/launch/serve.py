@@ -34,7 +34,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.scheduler import HermesScheduler
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_model
-from repro_torch.serving.engine import InferenceEngine, Request
+from repro_torch.serving.engine import (InferenceEngine, Request,
+                                        check_token_only)
 from repro_torch.serving.lora import make_random_adapter
 from repro_torch.testing import tiny_config
 
@@ -61,6 +62,8 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None,
     ap.add_argument("--window", type=float, default=5.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    cfg = cfg if cfg is not None else tiny_config("llama3-8b")
+    check_token_only(cfg)       # before anything is built
     dev = resolve_device(device)
 
     kb = build_knowledge_base(n_trials=150, seed=3)
@@ -69,7 +72,6 @@ def run(argv=None, *, cfg: Optional[ModelConfig] = None,
     sched = HermesScheduler(kb, policy=args.policy, t_in=T_IN, t_out=T_OUT,
                             mc_walkers=128, device=dev)
 
-    cfg = cfg if cfg is not None else tiny_config("llama3-8b")
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))

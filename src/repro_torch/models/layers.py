@@ -1,13 +1,16 @@
-"""Core layers of the dense decoder: norms, RoPE, attention (prefill and
-decode), the SwiGLU MLP and their parameters.
+"""Core layers of the decoders and the encoder: norms, RoPE, attention
+(prefill, non-causal and cross, decode), the SwiGLU and GELU MLPs and their
+parameters.
 
 The port of the JAX package's ``models/layers.py``.  The three functions
 that package also wrote as Pallas kernels run through the port's kernels:
-RMSNorm (``kernels.rmsnorm``), causal prefill attention
+RMSNorm (``kernels.rmsnorm``), prefill attention, causal or not
 (``kernels.flash_attention``) and single-token decode attention
-(``kernels.decode_attention``); each takes its plain PyTorch version for
-CPU tensors.  Plain matrix products stay ``torch.matmul`` on weights kept
-in the JAX package's ``(in, out)`` orientation.  Dtype policy as there:
+(``kernels.decode_attention``, also over the encoder-decoder's static
+cross-attention caches); each takes its plain PyTorch version for CPU
+tensors.  LayerNorm has no kernel in the JAX package and stays plain.
+Plain matrix products stay ``torch.matmul`` on weights kept in the JAX
+package's ``(in, out)`` orientation.  Dtype policy as there:
 storage and products in the model dtype, norms, RoPE angles and softmax in
 float32.  The port runs on one device, so there is no ``shard()``.
 """
@@ -159,6 +162,14 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor,
     return flash_attention(q, k, v, causal=True)
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention of every query over every key: q (B, Sq, H, hd),
+    k/v (B, Skv, K, hd), Sq and Skv free (the encoder over its frames; the
+    decoder's cross-attention of a prompt over the encoder output)."""
+    return flash_attention(q, k, v, causal=False)
+
+
 def decode_step_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor,
                           lengths: torch.Tensor) -> torch.Tensor:
@@ -167,6 +178,18 @@ def decode_step_attention(q: torch.Tensor, k_cache: torch.Tensor,
     each (batch, KV head) row (the one just written included)."""
     return decode_attention(q, k_cache.transpose(1, 2),
                             v_cache.transpose(1, 2), lengths=lengths)
+
+
+def cross_decode_attention(q: torch.Tensor, xk_cache: torch.Tensor,
+                           xv_cache: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention over the static cross caches, laid out
+    (B, K, F, hd); ``lengths`` (B*K,) int32 is F for every (batch, KV head)
+    row, so each attends over all F encoder positions.  The JAX package
+    computes this product with its XLA attention at Sq = 1; the decode
+    kernel computes the same function (its probabilities kept in float32,
+    where XLA rounds them to the model dtype)."""
+    return decode_step_attention(q, xk_cache, xv_cache, lengths)
 
 
 def attn_out(p: Attention, attn: torch.Tensor) -> torch.Tensor:

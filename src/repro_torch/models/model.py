@@ -1,20 +1,27 @@
 """Public model API: ``build_model(cfg) -> Model`` with ``init``,
 ``prefill`` and ``decode``, and ``params_from_jax``.
 
-The port of the JAX package's ``models/model.py`` for decoder-only dense,
-MoE, SSM and hybrid models.  ``Model`` owns its weights as an
-``nn.Module`` on one device (``cuda`` unless the caller asks for the CPU).
-``prefill`` and ``decode`` take an optional parameter set — a dict of
-tensors by parameter name, such as a merged LoRA set that replaces a few
-weights and shares the rest — that stands in for the model's own weights
-during the call.
+The port of the JAX package's ``models/model.py`` for the decoder-only
+dense, MoE, SSM, hybrid and VLM models and the encoder-decoder model.
+``Model`` owns its weights as an ``nn.Module`` on one device (``cuda``
+unless the caller asks for the CPU).  ``prefill`` and ``decode`` take an
+optional parameter set — a dict of tensors by parameter name, such as a
+merged LoRA set that replaces a few weights and shares the rest — that
+stands in for the model's own weights during the call.
 
-Batch layouts
-  prefill: tokens (B, S) -> (caches, last-position logits (B, 1, V) f32)
+Batch layouts (the JAX package's batch dict as keyword arguments)
+  prefill (LM):     tokens (B, S)
+  prefill (vlm):    tokens (B, S_text), patch_embeds (B, P, D); the
+                    projected patches go in front of the tokens, so the
+                    caches hold P + S_text positions
+  prefill (encdec): tokens (B, S), frames (B, enc_frames, D)
+                    -> (caches, last-position logits (B, 1, V) f32)
   decode:  (caches, token (B, 1), pos) -> (caches, logits (B, 1, V) f32);
-           the caches are written in place and returned
+           the caches are written in place and returned (a VLM decodes at
+           pos = P + S_text + step)
 Caches are a dict by kind (``transformer.py``): ``k``/``v`` for the
-attention layers, ``ssm`` and ``conv_{x,b,c}`` for the Mamba layers.
+attention layers, ``ssm`` and ``conv_{x,b,c}`` for the Mamba layers, and
+the encoder-decoder's cross caches ``xk``/``xv`` (``encdec.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -34,10 +42,14 @@ Params = Dict[str, torch.Tensor]
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+                 max_seq: int = 0):
+        """``max_seq``: rows of the learned position table of a model
+        without RoPE (``rope_theta <= 0``: the encoder-decoder's decoder);
+        0 means none, as the JAX package's ``init(max_seq=0)``."""
         super().__init__()
-        kinds = T.layer_kinds(cfg)  # raises for the unported families
-                                    # and for a config its family cannot run
+        kinds = T.layer_kinds(cfg)  # raises for a config its family
+                                    # cannot run
         if not cfg.decode_f32_scores:
             raise NotImplementedError(
                 "decode_f32_scores=False: the decode-attention kernel scores "
@@ -51,7 +63,16 @@ class Model(nn.Module):
         self.final_norm = L.Norm(D, dev, with_bias=(cfg.act == "gelu"))
         self.lm_head = (None if cfg.tie_embeddings
                         else L.new_param((D, V), dt, dev))
-        self.layers = T.build_layers(cfg, dt, dev)
+        self.pos_emb = (L.new_param((max_seq, D), dt, dev)
+                        if cfg.rope_theta <= 0 and max_seq > 0 else None)
+        self.projector = (L.new_param((D, D), dt, dev)
+                          if cfg.family == "vlm" else None)
+        if cfg.family == "encdec":
+            self.encoder = E.build_encoder(cfg, dt, dev)
+            self.enc_final_norm = L.Norm(D, dev, with_bias=True)
+            self.layers = E.build_decoder(cfg, dt, dev)
+        else:
+            self.layers = T.build_layers(cfg, dt, dev)
         self.n_attn = sum(m == "attn" for m, _ in kinds)
         self.n_mamba = len(kinds) - self.n_attn
         self._slots = {name: (mod, attr)
@@ -70,10 +91,12 @@ class Model(nn.Module):
         """Draw every weight from ``generator`` (on the model's device) with
         the JAX package's scales: normal in float32 times the scale, cast to
         the model dtype, one tensor at a time (so the largest float32
-        temporary is one weight, the embedding); a module's ``init_fn``
+        temporary is one weight, the embedding; ``pos_emb`` std 0.02, the
+        VLM ``projector`` 1/sqrt(D)); a module's ``init_fn``
         leaves (the Mamba ``dt_bias`` and ``a_log``) as that function
         draws them; norms ones, biases zeros."""
-        stds = {"embed": 0.02}
+        stds = {"embed": 0.02, "pos_emb": 0.02,
+                "projector": 1.0 / np.sqrt(self.cfg.d_model)}
         fns = {}
         if self.lm_head is not None:
             stds["lm_head"] = 1.0 / np.sqrt(self.cfg.d_model)
@@ -142,7 +165,8 @@ class Model(nn.Module):
 
     def new_caches(self, batch: int, seq: int) -> T.Caches:
         """Zeroed caches for ``batch`` rows of ``seq`` positions (the JAX
-        package's ``cache_spec``, stacked by kind)."""
+        package's ``cache_spec``, stacked by kind; the encoder-decoder's
+        cross caches hold ``enc_frames`` positions)."""
         cfg = self.cfg
         z = lambda *s, dtype=self.dtype: torch.zeros(  # noqa: E731
             s, dtype=dtype, device=self.device)
@@ -151,6 +175,10 @@ class Model(nn.Module):
             for n in T.ATTN_CACHES:
                 caches[n] = z(self.n_attn, batch, cfg.num_kv_heads, seq,
                               cfg.resolved_head_dim())
+        if cfg.family == "encdec":
+            for n in E.CROSS_CACHES:
+                caches[n] = z(self.n_attn, batch, cfg.num_kv_heads,
+                              cfg.enc_frames, cfg.resolved_head_dim())
         if self.n_mamba:
             k1 = cfg.ssm_conv - 1
             caches["ssm"] = z(self.n_mamba, batch, cfg.ssm_heads,
@@ -161,21 +189,62 @@ class Model(nn.Module):
             caches["conv_c"] = z(self.n_mamba, batch, k1, cfg.ssm_state)
         return caches
 
+    def _side_input(self, t: Optional[torch.Tensor], name: str, want: str,
+                    batch: int, rows: Optional[int]) -> Optional[torch.Tensor]:
+        """Input ``name`` (frames or patch embeddings) where ``name`` is the
+        one the family wants: checked (batch, ``rows`` if given, d_model)
+        and cast to the model dtype.  ``None`` where the family takes no
+        ``name``; passing one there, or omitting a wanted one, raises."""
+        family = self.cfg.family
+        if want != name:
+            if t is not None:
+                raise ValueError(f"{self.cfg.name}: the {family} family takes "
+                                 f"no {name}")
+            return None
+        if t is None:
+            raise ValueError(f"{self.cfg.name}: the {family} family's prefill "
+                             f"needs {name} (B, {rows or 'P'}, d_model)")
+        D = self.cfg.d_model
+        if (t.ndim != 3 or t.shape[0] != batch or t.shape[2] != D
+                or (rows is not None and t.shape[1] != rows)
+                or t.shape[1] == 0):
+            raise ValueError(f"{self.cfg.name}: {name} of shape "
+                             f"{tuple(t.shape)}, want ({batch}, "
+                             f"{rows or 'P >= 1'}, {D})")
+        return t.to(device=self.device, dtype=self.dtype)
+
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, params: Optional[Params] = None
+    def prefill(self, tokens: torch.Tensor, params: Optional[Params] = None,
+                *, frames: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[T.Caches, torch.Tensor]:
-        """tokens (B, S) -> (caches, last-position logits (B, 1, V)
-        float32)."""
+        """tokens (B, S), with ``frames`` (B, enc_frames, D) for the
+        encoder-decoder and ``patch_embeds`` (B, P, D) for the VLM (a
+        missing one raises ``ValueError``) -> (caches, last-position
+        logits (B, 1, V) float32)."""
+        cfg = self.cfg
         tokens = tokens.to(self.device)
         B, S = tokens.shape
+        want = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+        frames = self._side_input(frames, "frames", want, B, cfg.enc_frames)
+        patches = self._side_input(patch_embeds, "patch_embeds", want, B,
+                                   None)
         with self._using(params):
             x = T.embed_tokens(self.embed, tokens)
-            caches = self.new_caches(B, S)
-            positions = torch.arange(S, device=self.device)
-            x = T.run_stack(self.layers, x, self.cfg, "prefill", positions,
-                            caches)
-            logits = T.unembed(self.final_norm, self._head(), x[:, -1:],
-                               self.cfg)
+            if patches is not None:
+                x = torch.cat([patches @ self.projector, x], dim=1)
+            x = T.add_positions(self.pos_emb, x, 0)
+            caches = self.new_caches(B, x.shape[1])
+            if frames is not None:
+                enc_out = E.run_encoder(self.encoder, self.enc_final_norm,
+                                        frames, cfg)
+                x = E.run_decoder(self.layers, x, enc_out, cfg, "prefill",
+                                  caches)
+            else:
+                positions = torch.arange(x.shape[1], device=self.device)
+                x = T.run_stack(self.layers, x, cfg, "prefill", positions,
+                                caches)
+            logits = T.unembed(self.final_norm, self._head(), x[:, -1:], cfg)
         return caches, logits
 
     @torch.no_grad()
@@ -193,17 +262,24 @@ class Model(nn.Module):
         token = token.to(self.device)
         with self._using(params):
             x = T.embed_tokens(self.embed, token)
-            positions = torch.arange(pos, pos + 1, device=self.device)
-            x = T.run_stack(self.layers, x, self.cfg, "decode", positions,
-                            caches, pos)
+            x = T.add_positions(self.pos_emb, x, pos)
+            if self.cfg.family == "encdec":
+                x = E.run_decoder(self.layers, x, None, self.cfg, "decode",
+                                  caches, pos)
+            else:
+                positions = torch.arange(pos, pos + 1, device=self.device)
+                x = T.run_stack(self.layers, x, self.cfg, "decode",
+                                positions, caches, pos)
             logits = T.unembed(self.final_norm, self._head(), x, self.cfg)
         return caches, logits
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+def build_model(cfg: ModelConfig, device: DeviceLike = None,
+                max_seq: int = 0) -> Model:
     """The model with uninitialised weights: call ``init`` or
-    ``load_params``."""
-    return Model(cfg, device)
+    ``load_params``.  ``max_seq``: the learned position table's rows
+    (``Model``)."""
+    return Model(cfg, device, max_seq)
 
 
 def _np(a) -> np.ndarray:
@@ -214,20 +290,44 @@ def _np(a) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's parameter tree (arrays, e.g. numpy) of a dense,
-    moe, ssm or hybrid model as the port's parameter names: the stacked
+    """The JAX package's parameter tree (arrays, e.g. numpy) as the port's
+    parameter names.  A dense, moe, ssm, hybrid or vlm model: the stacked
     leaves of ``layers/sub<i>/...`` unstacked along their leading period
-    dim, period ``p`` sub-layer ``i`` becoming layer ``p * period + i``;
-    every weight kept in its ``(in, out)`` orientation (expert stacks
-    ``(E, in, out)``, the router ``(D, num_experts)``).  Values come as
-    float32 (bfloat16 widened exactly); ``Model.load_params`` casts them to
-    the model dtype."""
+    dim, period ``p`` sub-layer ``i`` becoming layer ``p * period + i``.
+    The encoder-decoder: ``layers/enc/<group>/...`` (stacked over
+    ``enc_layers``) as ``encoder.<i>.<group>...``, ``layers/dec/...``
+    (over ``num_layers``) as ``layers.<i>...`` and
+    ``layers/enc_final_norm`` as ``enc_final_norm``.  ``pos_emb`` and
+    ``projector/kernel`` as ``pos_emb`` and ``projector``.  Every weight
+    kept in its ``(in, out)`` orientation (expert stacks ``(E, in, out)``,
+    the router ``(D, num_experts)``).  Values come as float32 (bfloat16
+    widened exactly); ``Model.load_params`` casts them to the model
+    dtype."""
     t = lambda a: torch.tensor(_np(a))  # noqa: E731  (a copy)
-    out = {"embed": t(tree["embed"]["table"]),
-           "final_norm.scale": t(tree["final_norm"]["scale"])}
+    out = {"embed": t(tree["embed"]["table"])}
+    for name, arr in tree["final_norm"].items():
+        out[f"final_norm.{name}"] = t(arr)
     if "lm_head" in tree:
         out["lm_head"] = t(tree["lm_head"]["kernel"])
+    if "pos_emb" in tree:
+        out["pos_emb"] = t(tree["pos_emb"])
+    if "projector" in tree:
+        out["projector"] = t(tree["projector"]["kernel"])
     subs = tree["layers"]
+    if "enc" in subs:
+        if set(subs) != {"enc", "dec", "enc_final_norm"}:
+            raise ValueError(f"params_from_jax: encoder-decoder layers "
+                             f"{sorted(subs)} are not enc, dec, "
+                             "enc_final_norm")
+        for name, arr in subs["enc_final_norm"].items():
+            out[f"enc_final_norm.{name}"] = t(arr)
+        for prefix, key in (("encoder", "enc"), ("layers", "dec")):
+            for group, leaves in subs[key].items():
+                for name, arr in leaves.items():
+                    a = _np(arr)
+                    for i in range(a.shape[0]):
+                        out[f"{prefix}.{i}.{group}.{name}"] = t(a[i])
+        return out
     period = len(subs)
     if set(subs) != {f"sub{i}" for i in range(period)}:
         raise ValueError(f"params_from_jax: sub-layers {sorted(subs)} are "

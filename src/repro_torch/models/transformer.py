@@ -1,17 +1,16 @@
-"""The decoder stack of the dense, MoE, SSM and hybrid families, its
-embedding and unembedding.
+"""The decoder stack of the dense, MoE, SSM, hybrid and VLM families, its
+embedding, learned positions and unembedding.
 
 The port of the JAX package's ``models/transformer.py``.  A layer's mixer
 is attention or a Mamba2 block and its FFN none, a dense MLP or an MoE
-layer, after the family's plan (one period: ``dense`` and ``moe`` one
-attention layer, ``ssm`` one Mamba layer, ``hybrid`` ``attn_every`` layers,
-attention first).  Decoder layers are ``nn.Module``s in an
+layer, after the family's plan (one period: ``dense``, ``vlm`` and ``moe``
+one attention layer, ``ssm`` one Mamba layer, ``hybrid`` ``attn_every``
+layers, attention first).  Decoder layers are ``nn.Module``s in an
 ``nn.ModuleList``, period after period: port layer ``j`` is period
 ``j // len(plan)``, sub-layer ``j % len(plan)`` of the JAX tree, whose
 ``lax.scan`` over stacked weights is a loop here.  Modes: ``prefill``
 (writes the caches) and ``decode`` (one token, updates the caches in
-place).  The encoder-decoder and VLM families raise
-``NotImplementedError``.
+place).  The encoder-decoder family's stacks are ``models/encdec.py``.
 
 Caches are a dict by kind, each stacked over the layers of that kind:
 ``k``/``v`` ``(n_attn, B, K, S, hd)`` in the model dtype, laid out per KV
@@ -26,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.config import FAMILY_ITEMS, ModelConfig, unported
+from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
@@ -38,9 +37,12 @@ MAMBA_CACHES = ("ssm", "conv_x", "conv_b", "conv_c")
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, str]]:
-    """(mixer, ffn) pattern for one period."""
-    if cfg.family in FAMILY_ITEMS:
-        raise unported(cfg.family)
+    """(mixer, ffn) pattern for one period (the encoder-decoder family's
+    decoder layers are attention and a dense MLP too, with a
+    cross-attention between them: ``models/encdec.py``)."""
+    if cfg.family == "encdec" and cfg.enc_layers <= 0:
+        raise ValueError(f"{cfg.name}: the encdec family needs "
+                         f"enc_layers > 0, got {cfg.enc_layers}")
     if cfg.family in ("ssm", "hybrid") and cfg.ssm_state <= 0:
         raise ValueError(f"{cfg.name}: the {cfg.family} family needs "
                          f"ssm_state > 0, got {cfg.ssm_state}")
@@ -159,6 +161,20 @@ def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def add_positions(pos_emb: Optional[torch.Tensor], x: torch.Tensor,
+                  offset: int) -> torch.Tensor:
+    """x (B, S, D) plus the learned positions ``offset .. offset + S - 1``
+    (no-op without ``pos_emb``).  The JAX package's ``dynamic_slice``
+    clamps a window that runs past the table; here it raises."""
+    if pos_emb is None:
+        return x
+    S = x.shape[1]
+    if not 0 <= offset <= pos_emb.shape[0] - S:
+        raise ValueError(f"positions {offset}..{offset + S - 1} outside the "
+                         f"{pos_emb.shape[0]} learned positions (max_seq)")
+    return x + pos_emb[offset:offset + S]
 
 
 def unembed(final_norm: L.Norm, head: torch.Tensor, x: torch.Tensor,

@@ -32,6 +32,18 @@ from repro_torch.serving.kvcache import PagedAllocator, PrefixCache
 from repro_torch.serving.lora import LoraPool
 
 
+def check_token_only(cfg) -> None:
+    """The engine feeds tokens only, as the JAX package's: a model whose
+    prefill needs frames or patch embeddings (the encdec and vlm families)
+    raises ``ValueError``."""
+    if cfg.family in ("encdec", "vlm"):
+        raise ValueError(
+            f"{cfg.name}: the inference engine feeds tokens only, and the "
+            f"{cfg.family} family's prefill needs "
+            f"{'frames' if cfg.family == 'encdec' else 'patch embeddings'}; "
+            "drive it through Model.prefill / Model.decode")
+
+
 @dataclass
 class Request:
     req_id: str
@@ -65,6 +77,7 @@ class InferenceEngine:
                  prefix_prompts: Optional[Dict[str, List[int]]] = None,
                  on_finish: Optional[Callable[[Request, float],
                                               None]] = None):
+        check_token_only(model.cfg)
         self.model = model
         self.device = model.device
         # completion observer: called as ``on_finish(request, service_s)``

@@ -17,9 +17,8 @@ is not ported.)
 This is the PyTorch counterpart of ``repro.serving.simulator``, host code
 kept line for line; the scheduler's slot arena and walk kernel run on
 ``SimConfig.device`` (default ``cuda``).  ``warmup_model`` derives the
-LLM-side warm-up costs from ``repro_torch.configs`` as the reference does;
-the encoder-decoder and VLM configurations raise ``NotImplementedError``
-(ROADMAP.md, modules to port, item 16).
+LLM-side warm-up costs from ``repro_torch.configs`` as the reference does,
+for every configuration of its registry.
 """
 from __future__ import annotations
 

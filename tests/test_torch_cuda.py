@@ -765,3 +765,116 @@ def test_ssd_scan_kernel_refuses_what_it_cannot_take(dev):
                                    dev)
     with pytest.raises(ValueError, match="shared memory at chunk 1"):
         ssd_kernel.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=128)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper-large-v3) and VLM (internvl2-26b) shapes of
+# K4 and K5, and the tiny models of both families on the card against the
+# CPU
+
+@pytest.mark.parametrize("B,Sq", [(1, 4), (4, 24), (4, 1)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_cross_shapes(dev, B, Sq, dtype):
+    """Whisper's cross-attention in prefill: a short prompt (Sq) over the
+    encoder's 1,500 frames, not causal, H = K = 20, hd 64."""
+    rng = np.random.default_rng(B * 31 + Sq)
+    q = _normal(rng, (B, Sq, 20, 64), dtype, dev)
+    k = _normal(rng, (B, 1500, 20, 64), dtype, dev)
+    v = _normal(rng, (B, 1500, 20, 64), dtype, dev)
+    before = LAUNCHES[fa_kernel.NAME]
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    assert LAUNCHES[fa_kernel.NAME] == before + 1
+    _close(out.cpu(), _attention_plain(q, k, v, False), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_internvl_prefill(dev, dtype):
+    """InternVL's prefill: 1,024 patches and a 24-token prompt, causal,
+    H = 48, K = 8 (G = 6), hd 128."""
+    rng = np.random.default_rng(1048)
+    q = _normal(rng, (1, 1048, 48, 128), dtype, dev)
+    k = _normal(rng, (1, 1048, 8, 128), dtype, dev)
+    v = _normal(rng, (1, 1048, 8, 128), dtype, dev)
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    _close(out.cpu(), _attention_plain(q, k, v, True), dtype)
+
+
+@pytest.mark.parametrize("B,H,K,Smax,full", [
+    (1, 20, 20, 1500, True),     # Whisper's cross-attention decode, B.K = 20
+    (4, 20, 20, 1500, True),     # four utterances, B.K = 80
+    (4, 20, 20, 448, False),     # Whisper's decoder self-attention
+    (2, 48, 8, 1064, False),     # InternVL's decode (G = 6)
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_encdec_vlm_shapes(dev, B, H, K, Smax, full, dtype):
+    """K5 over caches laid out (B, K, Smax, hd) as the models keep them:
+    every row the whole 1,500 frames (cross-attention), or random lengths
+    (self-attention)."""
+    rng = np.random.default_rng(Smax + B)
+    hd = 64 if H == 20 else 128
+    from repro_torch.models.layers import (cross_decode_attention,
+                                           decode_step_attention)
+    q = _normal(rng, (B, 1, H, hd), dtype, dev)
+    kc = _normal(rng, (B, K, Smax, hd), dtype, dev)
+    vc = _normal(rng, (B, K, Smax, hd), dtype, dev)
+    rows = (np.full(B * K, Smax) if full
+            else rng.integers(1, Smax + 1, B * K))
+    rows = torch.as_tensor(rows, device=dev, dtype=torch.int32)
+    fn = cross_decode_attention if full else decode_step_attention
+    before = LAUNCHES[dec_kernel.NAME]
+    out = fn(q, kc, vc, rows)
+    assert LAUNCHES[dec_kernel.NAME] == before + 1
+    want = fn(q.cpu(), kc.cpu(), vc.cpu(), rows.cpu())
+    _close(out.cpu(), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["whisper-large-v3", "internvl2-26b"])
+def test_tiny_encdec_and_vlm_models_card_vs_cpu(dev, name, dtype):
+    """The tiny models from one set of weights on the card (K3 where the
+    family has RMSNorm, K4, K5) and on the CPU (the plain versions):
+    prefill logits and four decode steps within the model tolerances
+    (1e-4 float32, 5e-2 bfloat16); the launch counts the code implies."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    cfg = tiny_config(name, dtype=dtype)
+    cpu = build_model(cfg, device="cpu", max_seq=32).init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev, max_seq=32).load_params(cpu.params())
+    rng = np.random.default_rng(2)
+    B, S = 2, 5
+    tokens = torch.as_tensor(rng.integers(1, 256, (B, S)))
+    key, rows = (("frames", cfg.enc_frames) if cfg.family == "encdec"
+                 else ("patch_embeds", cfg.vision_patches))
+    side = torch.as_tensor(rng.normal(size=(B, rows, cfg.d_model)),
+                           dtype=torch.float32)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    out = {}
+    for model in (card, cpu):
+        reset_launches()
+        caches, logits = model.prefill(tokens, **{key: side})
+        S0 = caches["k"].shape[3]
+        big = model.new_caches(B, S0 + 4)
+        for n, c in caches.items():
+            if n in ("k", "v"):
+                big[n][:, :, :, :S0] = c
+            else:
+                big[n].copy_(c)
+        steps = [logits]
+        for t in range(4):
+            big, logits = model.decode(big, tokens[:, t:t + 1], S0 + t)
+            steps.append(logits)
+        out[model.device.type] = torch.cat([s.float().cpu() for s in steps],
+                                           dim=1)
+        if model is card:
+            launches = dict(LAUNCHES)
+    L, E = cfg.num_layers, cfg.enc_layers
+    if cfg.family == "encdec":
+        want = {"rmsnorm": 0, "flash_attention": E + 2 * L,
+                "decode_attention": 4 * 2 * L}
+    else:
+        want = {"rmsnorm": 5 * (2 * L + 1), "flash_attention": L,
+                "decode_attention": 4 * L}
+    assert {k: launches.get(k, 0) for k in want} == want
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=tol, atol=tol)

@@ -2,7 +2,7 @@
 JAX package, its entry points run on the card unless asked for the CPU, the
 kernel wrappers take CUDA tensors only, and every configuration outside
 this slice raises NotImplementedError naming the ROADMAP item that ports
-it; none names item 9, which is ported."""
+it; none names item 9 or item 16, which are ported."""
 import ast
 from pathlib import Path
 
@@ -31,6 +31,16 @@ def _imports(path):
 def test_no_port_module_names_item_9_as_unported():
     files = sorted(PORT.rglob("*.py"))
     assert not [f for f in files if "item 9" in f.read_text()]
+
+
+def test_no_port_module_names_item_16_as_unported():
+    """The encoder-decoder and VLM families are ported: no module names
+    item 16 or keeps a list of unported families or configurations."""
+    files = sorted(PORT.rglob("*.py"))
+    assert not [f for f in files if "item 16" in f.read_text()]
+    assert not [f for f in files
+                if "UNPORTED" in f.read_text() or "FAMILY_ITEMS"
+                in f.read_text()]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -69,17 +79,20 @@ def test_bare_scheduler_runs_the_default_refresh(kb):
 
 def test_posterior_and_warmup_model_raise(kb):
     """Posterior learning is ported but rides the delta tick, so another
-    mode raises as in the reference; the warmup model works for a ported
-    configuration and raises, naming item 16, for an unported one."""
+    mode raises as in the reference; the warmup model works for every
+    configuration, Whisper's (item 16) included, and an unknown one raises
+    ``KeyError`` as in the reference."""
     with pytest.raises(ValueError, match="fused_delta"):
         ClusterSim(kb, SimConfig(posterior=PosteriorConfig(),
                                  refresh=RefreshConfig(mode="fused"),
                                  device="cpu"))
     sim = ClusterSim(kb, SimConfig(warmup_model="qwen3-4b", device="cpu"))
     assert set(sim.warmup_table) == {"kv", "lora"}
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ClusterSim(kb, SimConfig(warmup_model="whisper-large-v3",
-                                 device="cpu"))
+    sim = ClusterSim(kb, SimConfig(warmup_model="whisper-large-v3",
+                                   device="cpu"))
+    assert set(sim.warmup_table) == {"kv", "lora"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        ClusterSim(kb, SimConfig(warmup_model="whisper-tiny", device="cpu"))
 
 
 @pytest.mark.parametrize("refresh", [
@@ -136,7 +149,8 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.testing import tiny_config  # noqa: E402
-from repro_torch.configs import HYBRID_ARCHS, MOE_ARCHS, SSM_ARCHS  # noqa: E402,E501
+from repro_torch.configs import (ENCDEC_ARCHS, HYBRID_ARCHS,  # noqa: E402
+                                 MOE_ARCHS, SSM_ARCHS, VLM_ARCHS)
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -173,26 +187,32 @@ def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
     ("moe", "item 14"), ("hybrid", "item 15"), ("ssm", "item 15"),
     ("encdec", "item 16"), ("vlm", "item 16")])
 def test_unported_model_families_raise(family, item):
-    """The families still to port raise, naming their ROADMAP item.  The
-    moe (item 14), ssm and hybrid (item 15) families are ported: a dense
-    config relabelled as one of them lacks its experts, SSM state or
-    attention period and raises ``ValueError``; their archs build."""
+    """Every model family is ported: the moe (item 14), ssm and hybrid
+    (item 15), encdec and vlm (item 16) families.  A dense config
+    relabelled as one of them lacks its experts, SSM state, attention
+    period or encoder and raises ``ValueError``; relabelled as a VLM it
+    builds a projector and its prefill raises ``ValueError`` without patch
+    embeddings; their archs build."""
     cfg = tiny_config("llama3-8b").replace(family=family)
     ported = {"moe": ("num_experts > 0", MOE_ARCHS, "moe"),
               "ssm": ("ssm_state > 0", SSM_ARCHS, "mamba"),
-              "hybrid": ("attn_every > 0", HYBRID_ARCHS, "attn")}
-    if family in ported:
-        match, archs, leaf = ported[family]
-        if family == "hybrid":
-            cfg = cfg.replace(ssm_state=16)
+              "hybrid": ("attn_every > 0", HYBRID_ARCHS, "attn"),
+              "encdec": ("enc_layers > 0", ENCDEC_ARCHS, "cross_attn"),
+              "vlm": (None, VLM_ARCHS, "attn")}
+    match, archs, leaf = ported[family]
+    if family == "hybrid":
+        cfg = cfg.replace(ssm_state=16)
+    if match is None:
+        model = build_model(cfg, device="cpu")
+        assert tuple(model.projector.shape) == (64, 64)
+        with pytest.raises(ValueError, match="needs patch_embeds"):
+            model.prefill(torch.ones(1, 3, dtype=torch.long))
+    else:
         with pytest.raises(ValueError, match=match):
             build_model(cfg, device="cpu")
-        for arch in archs:
-            model = build_model(tiny_config(arch), device="cpu")
-            assert getattr(model.layers[0], leaf)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(cfg, device="cpu")
+    for arch in archs:
+        model = build_model(tiny_config(arch), device="cpu")
+        assert getattr(model.layers[0], leaf) is not None
 
 
 def test_bf16_decode_scores_raise_and_model_defaults_to_cuda():

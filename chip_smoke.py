@@ -133,10 +133,36 @@ Phases (any failure raises and the script exits non-zero):
    num_layers a step, no K3; InternVL: K3 = 2 num_layers + 1 a forward
    pass, K4 = num_layers a prefill, K5 = num_layers a step); prefill ms,
    a batch-1 decode step beside its floor (profiled), peak memory beside
-   the weights' bytes.
+   the weights' bytes;
+24. one float32 training step of each family's tiny config with remat
+   (dense Llama-3, Qwen1.5-MoE, Mamba2, Jamba, Whisper, InternVL), ``cuda``
+   (K3, K4, K6, K7 under autograd: the kernel forward, the plain version's
+   backward) against the CPU from the same weights: loss within 1e-4
+   relative, each gradient within 1e-4 of its tensor's largest magnitude,
+   the weights after one ``adamw_update`` within 1e-4, the MoE tokens
+   whose expert sets differ counted, the launches the code implies (each
+   period's kernels twice: the forward and its recompute under remat; the
+   final norm once; none in the backward);
+25. Llama-3-8B at full width cut to 2 layers, bfloat16, one 64-token
+   sequence: loss (within 5e-2) and every gradient on ``cuda`` against the
+   CPU, each gradient tensor's cosine to the CPU's at least 0.99;
+26. the training path: ``run_training`` on a full-width Llama-3-8B cut to
+   8 of its 32 layers, bfloat16, the registry's ``microbatch=8`` and
+   remat, 8 x 2,048 tokens of the reference's synthetic stream a step, 4
+   steps; counters reset and read around it, K3 and K4's launches
+   asserted, the losses finite; step ms (steps 2-4), tokens/s, model
+   FLOPs as a share of 989 TFLOP/s, peak memory beside the reckoning (16
+   bytes a parameter); then one step profiled: device busy and the plain
+   backward's device time (its ``plain_vjp`` ranges);
+27. restart on the card: the reference's contract (a tiny float32 Llama,
+   35 steps, checkpoints every 10, a failure injected at step 17): the
+   post-restart losses equal the uninterrupted run's bit for bit, and the
+   last checkpoint restored onto the CPU and the card equal bit for bit.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
+Then one JSON line with every kernel's numbers (K3, K4, K6 and K7 also
+with their launches on the train path: phase 26 for K3 and K4, phase 24
+for K6 and K7), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero before
 printing any result.
 """
@@ -146,10 +172,12 @@ import argparse
 import ctypes
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2334,6 +2362,375 @@ def phase_side_input_path(device, arch, batch, prompt_len, steps, max_seq):
     return launches
 
 
+# --------------------------------------------------------------------------
+# training: one step of each family card against CPU, the full-width bf16
+# gradient check, the training path at full width, restart on the card
+
+TRAIN_FAMILIES = ("llama3-8b", "qwen2-moe-a2.7b", "mamba2-1.3b",
+                  "jamba-1.5-large-398b", "whisper-large-v3",
+                  "internvl2-26b")
+TRAIN_KERNELS = ("rmsnorm", "flash_attention", "moe_gmm", "ssd_scan")
+# the reference's float32 model tolerance, for one training step (loss,
+# each gradient of its tensor's largest magnitude, the updated weights)
+TRAIN_F32_TOL = 1e-4
+# the least cosine of a bfloat16 gradient tensor on the card to the CPU's
+GRAD_COSINE_MIN = 0.99
+
+
+def _train_launches(cfg, passes, microbatches=1):
+    """The model kernels' launches of ``microbatches`` training passes of
+    ``cfg``: per pass the layers' kernels ``passes`` times (2 under remat:
+    the backward recomputes each period's forward) and the final norm
+    once; the plain backward launches none."""
+    from repro_torch.models.transformer import layer_kinds
+    if cfg.family == "encdec":          # LayerNorm; the encoder not remat
+        k = {"rmsnorm": 0, "moe_gmm": 0, "ssd_scan": 0,
+             "flash_attention": cfg.enc_layers
+             + passes * 2 * cfg.num_layers}
+    else:
+        k3 = k4 = k6 = k7 = 0
+        for mixer, ffn in layer_kinds(cfg):
+            k3 += 1 + (ffn != "none") + (mixer == "mamba") \
+                + 2 * (mixer == "attn" and cfg.qk_norm)
+            k4 += mixer == "attn"
+            k7 += mixer == "mamba"
+            k6 += 3 * (ffn == "moe")
+        k = {"rmsnorm": passes * k3 + 1, "flash_attention": passes * k4,
+             "moe_gmm": passes * k6, "ssd_scan": passes * k7}
+    return {n: microbatches * v for n, v in k.items()}
+
+
+def _train_batch(cfg, B, S, step=0):
+    """``batch_at``'s tokens (the reference's synthetic stream) with the
+    family's frames or patch embeddings drawn from a seed."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    b = batch_at(DataConfig(vocab_size=min(cfg.vocab_size, 256), seq_len=S,
+                            global_batch=B), step)
+    rng = np.random.default_rng(17 + step)
+    side = {"encdec": ("frames", cfg.enc_frames),
+            "vlm": ("patch_embeds", cfg.vision_patches)}.get(cfg.family)
+    if side:
+        b[side[0]] = rng.normal(size=(B, side[1], cfg.d_model)).astype(
+            np.float32)
+    return b
+
+
+def _loss_and_grads(model, batch):
+    import torch
+    params = model.trainable().params()
+    loss = model.train_loss(batch)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(params.items(), grads)}
+
+
+def phase_train_tiny(device):
+    """One float32 training step of each family's tiny config with remat,
+    ``cuda`` (K3, K4, K6, K7 under autograd) against the CPU from the same
+    weights: loss within 1e-4 relative, each gradient within 1e-4 of its
+    tensor's largest magnitude, the weights after one ``adamw_update`` of
+    the card's gradients on the card and on the CPU within 1e-4 (from each
+    side's own gradients the difference is reported: Adam's first step
+    moves a weight by about lr * g / |g|, so a gradient near zero whose
+    last bits differ moves its weight by up to lr); the MoE tokens whose
+    expert sets differ counted; the launches the code implies (the layers'
+    forward twice, the final norm once, none in the plain backward).
+    Returns the launches by kernel."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import moe as X
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    total = dict.fromkeys(TRAIN_KERNELS, 0)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0)
+    route = X.route
+    for arch in TRAIN_FAMILIES:
+        cfg = tiny_config(arch, dtype="float32", remat=True)
+        max_seq = 32 if cfg.family == "encdec" else 0
+        cpu = build_model(cfg, device="cpu", max_seq=max_seq).init(
+            torch.Generator().manual_seed(0))
+        card = build_model(cfg, device=device, max_seq=max_seq).load_params(
+            cpu.params())
+        batch = _train_batch(cfg, 2, 16)
+        own = build_model(cfg, device="cpu", max_seq=max_seq).load_params(
+            cpu.params())            # the CPU's weights, its own update
+        out, routes = {}, {}
+        for side, model in (("card", card), ("cpu", cpu)):
+            seen = routes[side] = []
+
+            def recording(p, xf, c, _seen=seen):
+                w, i = route(p, xf, c)
+                _seen.append(i.sort(dim=-1).values.cpu())
+                return w, i
+
+            X.route = recording
+            try:
+                reset_launches()
+                loss, grads = _loss_and_grads(model, batch)
+                launches = {n: LAUNCHES.get(n, 0) for n in TRAIN_KERNELS}
+            finally:
+                X.route = route
+            out[side] = (float(loss), grads, launches)
+        (lc, gc, launches), (lp, gp, _) = out["card"], out["cpu"]
+        for model, g in ((card, gc), (cpu, {n: t.cpu() for n, t in
+                                            gc.items()}), (own, gp)):
+            params = model.params()
+            adamw_update(g, init_opt_state(params), params, tcfg)
+        want = _train_launches(cfg, 2)
+        differ = sum(int((a != b).any(-1).sum())
+                     for a, b in zip(routes["card"], routes["cpu"]))
+        worst_g = max(float((gc[n].cpu() - g).abs().max())
+                      / max(float(g.abs().max()), 1e-30)
+                      for n, g in gp.items())
+        worst_p, worst_own = (
+            max(float((p.detach().cpu() - ref.params()[n].detach())
+                      .abs().max()) for n, p in card.params().items())
+            for ref in (cpu, own))
+        log(f"[train_tiny:{arch}] loss card {lc:.7f} cpu {lp:.7f}; worst "
+            f"gradient error {worst_g:.3g} of its tensor's max; worst weight "
+            f"after adamw_update {worst_p:.3g} (from the card's gradients; "
+            f"from each side's own {worst_own:.3g} at lr "
+            f"{tcfg.learning_rate}); launches {launches} (the "
+            f"code implies {want}); route calls {len(routes['card'])}, "
+            f"tokens whose expert sets differ {differ}")
+        if abs(lc - lp) > TRAIN_F32_TOL * abs(lp):
+            raise AssertionError(f"[train_tiny:{arch}] loss {lc} vs {lp}")
+        if worst_g > TRAIN_F32_TOL or worst_p > TRAIN_F32_TOL:
+            raise AssertionError(f"[train_tiny:{arch}] gradients or updated "
+                                 "weights differ from the CPU's")
+        if launches != want or len(routes["card"]) != len(routes["cpu"]):
+            raise AssertionError(f"[train_tiny:{arch}] launches {launches}, "
+                                 f"the code implies {want}")
+        for n in TRAIN_KERNELS:
+            total[n] += launches[n]
+        del card, cpu, own
+    _free()
+    return total
+
+
+def phase_train_full_width_check(device):
+    """Llama-3-8B widths at 2 of its 32 layers in bfloat16 (remat as
+    registered), one 64-token sequence: loss and gradients on ``cuda``
+    against the CPU from the same weights; the loss within the model's
+    bf16 tolerance, each gradient tensor's cosine to the CPU's at least
+    ``GRAD_COSINE_MIN``."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("llama3-8b").replace(num_layers=2)
+    card = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(4))
+    cpu = build_model(cfg, device="cpu").load_params(
+        {n: p.cpu() for n, p in card.params().items()})
+    batch = _train_batch(cfg, 1, 64)
+    lc, gc = _loss_and_grads(card, batch)
+    t0 = time.perf_counter()
+    lp, gp = _loss_and_grads(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    _hold("[train_full_width] loss", lc.cpu().reshape(1), lp.reshape(1),
+          "bfloat16", tol=MODEL_BF16_TOL)
+    cos = {}
+    for n, g in gp.items():         # in float64: tens of millions of terms
+        a, b = gc[n].double().cpu().flatten(), g.double().flatten()
+        den = float(a.norm() * b.norm())
+        cos[n] = float(a @ b) / den if den > 0 else 1.0
+    worst = min(cos, key=cos.get)
+    log(f"[train_full_width] {cfg.name} layers=2 {cfg.dtype} tokens=64: "
+        f"loss card {float(lc):.6f} cpu {float(lp):.6f} (cpu side "
+        f"{cpu_s:.1f} s); gradient cosine card vs cpu: "
+        + ", ".join(f"{n} {c:.6f}" for n, c in cos.items()))
+    if cos[worst] < GRAD_COSINE_MIN:
+        raise AssertionError(f"[train_full_width] gradient {worst} cosine "
+                             f"{cos[worst]:.6f} < {GRAD_COSINE_MIN}")
+    del card, cpu, gc, gp
+    _free()
+
+
+def _profile_train_step(tag, step, params, state, batch, step_ms):
+    """One training step under torch.profiler: device busy against the
+    profiled wall, and the device time inside the plain backward
+    (``plain_vjp.<kernel>`` ranges) by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILER_SESSIONS):   # a session may record no device work
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        avg = prof.key_averages()
+        # device work, not the device spans of the plain_vjp annotations
+        evs = [e for e in avg if str(e.device_type).endswith("CUDA")
+               and not e.key.startswith("plain_vjp.")]
+        if evs:
+            break
+    if not evs:
+        log(f"[{tag}:profile] not measured: the profiler saw no device work "
+            f"in {PROFILER_SESSIONS} sessions")
+        return
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    # an annotation's device span: the kernels launched inside it, in
+    # order on the one stream
+    plain = {e.key: e.self_device_time_total / 1e3 for e in avg
+             if e.key.startswith("plain_vjp.")
+             and str(e.device_type).endswith("CUDA")}
+    kernels = {n: sum(e.self_device_time_total for e in evs
+                      if any(k in e.key for k in keys)) / 1e3
+               for n, keys in (("rmsnorm", ("rmsnorm_kernel",)),
+                               ("flash_attention", ("flash_attention_tc",
+                                                    "flash_attention_kernel")),
+                               ("moe_gmm", ("moe_gmm_tc", "moe_gmm_kernel")),
+                               ("ssd_scan", ("ssd_scan_tc_kernel",
+                                             "ssd_scan_f32_kernel")))}
+    matmul = sum(e.self_device_time_total for e in evs
+                 if any(k in e.key for k in ("gemm", "nvjet", "xmma",
+                                             "cutlass", "splitK"))) / 1e3
+    log(f"[{tag}:profile] wall={wall:.3f} ms (profiled; unprofiled median "
+        f"{step_ms:.3f}) device_busy={busy:.3f} ms ({100 * busy / wall:.1f} "
+        f"% of the profiled step) plain backward (plain_vjp ranges) "
+        f"{sum(plain.values()):.3f} ms ({100 * sum(plain.values()) / busy:.1f}"
+        f" % of busy): " + ", ".join(f"{k} {v:.3f} ms"
+                                     for k, v in plain.items())
+        + f"; forward kernels {kernels}; matrix products {matmul:.3f} ms")
+    for e in sorted(evs, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:12]:
+        log(f"[{tag}:profile]   {e.key[:70]:70s} device="
+            f"{e.self_device_time_total / 1e3:.4f} ms calls={e.count}")
+
+
+def phase_train_path(device, layers=8, steps=4, seq=2048, batch=8):
+    """The training path: ``run_training`` (``repro_torch.launch.train``'s
+    code) on a full-width Llama-3-8B cut to ``layers`` of its 32 layers,
+    bfloat16, the registry's preset (``microbatch=8``, remat), a global
+    batch of ``batch`` x ``seq`` tokens of the reference's synthetic
+    stream, ``steps`` steps; counters reset and read around it, K3 and
+    K4's launches asserted; losses finite; step ms, tokens/s, model FLOPs
+    as a share of the bf16 peak, peak memory beside the reckoning; then
+    one step profiled.  Returns the launches."""
+    import torch
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.configs import PERF_PRESETS
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import run_training
+    cfg = get_config("llama3-8b", **PERF_PRESETS["llama3-8b"]).replace(
+        num_layers=layers)
+    # launch/train.py's settings
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=10)
+    dcfg = DataConfig(vocab_size=min(cfg.vocab_size, 256), seq_len=seq,
+                      global_batch=batch)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rep = run_training(cfg, tcfg, dcfg, total_steps=steps, verbose=False,
+                       device=device)
+    launches = {n: LAUNCHES.get(n, 0) for n in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    want = _train_launches(cfg, 2, cfg.microbatch * steps)
+    n_params = sum(p.numel() for p in build_model(cfg,
+                                                  device="meta").parameters())
+    tokens = batch * seq
+    step_ms = [1e3 * s for s in rep.step_s[1:]]
+    med = statistics.median(step_ms)
+    hd = cfg.resolved_head_dim()
+    # 6 N per token, plus the attention products (PaLM's 12 L H hd S per
+    # token, the full S x S, remat's recompute not counted)
+    flops = tokens * (6 * n_params + 12 * cfg.num_layers * cfg.num_heads
+                      * hd * seq)
+    reckon = n_params * (2 + 2 + 4 + 8)
+    log(f"[train_path] {cfg.name} layers={layers}/32 d_model={cfg.d_model} "
+        f"d_ff={cfg.d_ff} heads={cfg.num_heads}/{cfg.num_kv_heads} vocab="
+        f"{cfg.vocab_size} {cfg.dtype} params={n_params} microbatch="
+        f"{cfg.microbatch} remat={cfg.remat} batch={batch}x{seq} steps="
+        f"{steps}: losses {rep.losses}; step ms "
+        f"{[round(s, 3) for s in step_ms]} (steps 2..{steps}) min={min(step_ms):.3f} median={med:.3f}; "
+        f"tokens/s={tokens / (med / 1e3):.1f}; model FLOPs a step "
+        f"{flops:.4g} = {100 * flops / (med / 1e3) / PEAK_BF16_FLOPS:.2f} % "
+        f"of {PEAK_BF16_FLOPS:.3g} FLOP/s; max_memory_allocated={peak} "
+        f"(reckoning {reckon}: 2 + 2 + 4 + 8 bytes a parameter); launches "
+        f"{launches} (the code implies {want}); first step "
+        f"{1e3 * rep.step_s[0]:.1f} ms; wall {rep.wall_s:.1f} s")
+    if not all(math.isfinite(x) for x in rep.losses) or \
+            len(rep.losses) != steps:
+        raise AssertionError(f"[train_path] losses {rep.losses}")
+    if launches != want:
+        raise AssertionError(f"[train_path] launches {launches}, the code "
+                             f"implies {want}")
+    if peak > 75e9:
+        raise AssertionError(f"[train_path] peak memory {peak} over 75 GB")
+    _free()
+    # one more step, profiled (same settings, fresh weights)
+    model = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(dcfg.seed)).trainable()
+    params = model.params()
+    state = init_opt_state(params, cfg.opt_state_dtype)
+    step = make_train_step(model, tcfg)
+    b = batch_at(dcfg, 0)
+    step(params, state, b)
+    _profile_train_step("train_path", step, params, state, b, med)
+    del model, params, state, step
+    _free()
+    return launches
+
+
+def phase_train_restart(device, tmp):
+    """The reference's restart contract on the card: a tiny float32 Llama
+    (2 layers, d_model 32, d_ff 64) for 35 steps, checkpoints every 10,
+    uninterrupted and under ``run_training_with_restarts`` with a failure
+    injected at step 17: the post-restart losses equal, bit for bit; the
+    card's last checkpoint restored onto the CPU and onto the card, equal
+    bit for bit."""
+    import torch
+    from repro_torch.checkpoint.checkpointing import restore_checkpoint
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.testing import tiny_config
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import (run_training,
+                                                 run_training_with_restarts)
+    cfg = tiny_config("llama3-8b", num_layers=2, d_model=32, d_ff=64,
+                      dtype="float32")
+    dcfg = DataConfig(vocab_size=256, seq_len=32, global_batch=4)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=5,
+                       checkpoint_every=10)
+    a = run_training(cfg, tcfg, dcfg, total_steps=35, verbose=False,
+                     ckpt_dir=str(tmp / "a"), device=device)
+    b = run_training_with_restarts(cfg, tcfg, dcfg, total_steps=35,
+                                   ckpt_dir=str(tmp / "b"),
+                                   injector=FailureInjector(17),
+                                   verbose=False, device=device)
+    same = a.losses[-25:] == b.losses[-25:]
+    restored = []
+    for d in (device, torch.device("cpu")):
+        p = build_model(cfg, device=d).params()
+        tree, extra = restore_checkpoint(str(tmp / "b"),
+                                         (p, init_opt_state(p)))
+        restored.append(tree)
+    (pc, sc), (pp, sp) = restored
+    bitwise = all(torch.equal(pc[n].cpu(), pp[n])
+                  and torch.equal(sc.m[n].cpu(), sp.m[n])
+                  and torch.equal(sc.v[n].cpu(), sp.v[n]) for n in pp)
+    log(f"[train_restart] restarts={b.restarts} steps run {b.steps_run}; "
+        f"post-restart losses equal bit for bit: {same} (last "
+        f"{b.losses[-1]!r} vs {a.losses[-1]!r}; first {a.losses[0]:.4f}); "
+        f"checkpoint step {extra['step']} restored onto cpu and cuda "
+        f"bitwise equal: {bitwise} (step {int(sc.step)})")
+    if b.restarts != 1 or not same or not bitwise:
+        raise AssertionError("[train_restart] the restart is not bit-exact "
+                             "on the card")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -2415,6 +2812,21 @@ def main() -> int:
         name, which = k["name"].split(":")
         k["launches"] = path[which][name]
     kernels += side_kernels
+    train_tiny = phase_train_tiny(dev)
+    phase_train_full_width_check(dev)
+    train_path = phase_train_path(dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        phase_train_restart(dev, Path(tmp))
+    # each model kernel's launches on the train path beside its own path's:
+    # K3 and K4 on phase 26's Llama-3-8B, K6 and K7 on phase 24's families
+    for k in kernels:
+        if k["name"] in ("rmsnorm", "flash_attention"):
+            k["train_launches"] = train_path[k["name"]]
+            k["train_path"] = "llama3-8b training, 8 layers, 4 steps"
+        elif k["name"] in ("moe_gmm", "ssd_scan"):
+            k["train_launches"] = train_tiny[k["name"]]
+            k["train_path"] = "one training step of each tiny family"
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

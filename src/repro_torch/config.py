@@ -1,7 +1,7 @@
 """Model configurations of the port: frozen dataclasses and a registry.
 
-A copy of the JAX package's ``ModelConfig``, ``ShapeConfig`` and registry
-(the port imports nothing of that package).  ``repro_torch.configs``
+A copy of the JAX package's ``ModelConfig``, ``ShapeConfig``,
+``TrainConfig`` and registry (the port imports nothing of that package).  ``repro_torch.configs``
 registers every configuration of the JAX package's registry: the dense,
 MoE, SSM, hybrid, encoder-decoder and VLM families.
 """
@@ -153,6 +153,21 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    microbatch: int = 0              # 0 = no accumulation
+    grad_compression: str = "none"   # none | int8
+    checkpoint_every: int = 50
+    label_smoothing: float = 0.0
 
 
 # --------------------------------------------------------------------------

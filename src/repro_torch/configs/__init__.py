@@ -20,3 +20,16 @@ SSM_ARCHS = ("mamba2-1.3b",)
 HYBRID_ARCHS = ("jamba-1.5-large-398b",)
 ENCDEC_ARCHS = ("whisper-large-v3",)
 VLM_ARCHS = ("internvl2-26b",)
+
+# the JAX package's training presets (``repro.configs.PERF_PRESETS``), for
+# ``get_config(arch, **PERF_PRESETS[arch])``; "ep" runs the sort dispatch
+# on one device
+PERF_PRESETS = {
+    "qwen2-moe-a2.7b": dict(moe_impl="ep", microbatch=16, remat=False),
+    "phi3.5-moe-42b-a6.6b": dict(moe_impl="ep", microbatch=16),
+    "jamba-1.5-large-398b": dict(moe_impl="ep", microbatch=16),
+    "llama3-8b": dict(microbatch=8),
+    "yi-9b": dict(microbatch=8),
+    "qwen2-7b": dict(microbatch=8),
+    "qwen3-4b": dict(microbatch=8),
+}

@@ -1,20 +1,19 @@
-"""Prefill attention in the model layout: the kernel for CUDA tensors, the
-plain version (through the kernel layout, as the JAX package's ``ops`` calls
-its Pallas kernel) for CPU tensors."""
+"""Prefill attention in the model layout: the kernel for CUDA tensors
+(under autograd, a Function whose backward is the plain version's), the
+plain version (through the kernel layout, as the JAX package's ``ops``
+calls its Pallas kernel) for CPU tensors."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import plain_vjp, wants_grad
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Skv, K, hd) with H = K*G.  Returns
-    (B, Sq, H, hd)."""
-    if q.device.type != "cpu":
-        return flash_attention_kernel(q, k, v, causal=causal)
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool) -> torch.Tensor:
+    """The plain version in the model layout."""
     B, Sq, H, hd = q.shape
     _, Skv, K, _ = k.shape
     G = H // K
@@ -25,3 +24,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of = attention_ref(qf, kf, vf, causal=causal)
     return (of.reshape(B, K, G, Sq, hd).permute(0, 3, 1, 2, 4)
             .reshape(B, Sq, H, hd))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention_kernel(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        grads = plain_vjp(
+            "flash_attention",
+            lambda a, b, c: flash_attention_plain(a, b, c, ctx.causal),
+            (q, k, v), ctx.needs_input_grad[:3], (g,))
+        return (*grads, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, K, hd) with H = K*G.  Returns
+    (B, Sq, H, hd)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
+    return flash_attention_kernel(q, k, v, causal=causal)

@@ -27,10 +27,11 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Caches
+from repro_torch.models.transformer import Caches, remat_on
 
 CROSS_CACHES = ("xk", "xv")
 
@@ -102,47 +103,67 @@ def cross_q(p: L.Attention, x: torch.Tensor, cfg: ModelConfig
     return (x @ p.wq).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim())
 
 
+def _decoder_layer(lp: DecoderLayer, x: torch.Tensor,
+                   enc_out: Optional[torch.Tensor], cfg: ModelConfig,
+                   mode: str, cache: Optional[Caches] = None,
+                   pos: Optional[int] = None, lengths=None) -> torch.Tensor:
+    """One decoder layer.  ``cache``: this layer's ``k``/``v``/``xk``/
+    ``xv`` (none in ``train``), written at ``prefill``; ``decode`` writes
+    position ``pos`` and attends over ``lengths`` = (self, cross)."""
+    decode = mode == "decode"
+    h = L.apply_norm(x, lp.self_norm, cfg)
+    q, k, v = L.qkv_project(lp.self_attn, h, cfg, None)
+    if decode:
+        cache["k"][:, :, pos] = k[:, 0]
+        cache["v"][:, :, pos] = v[:, 0]
+        a = L.decode_step_attention(q, cache["k"], cache["v"], lengths[0])
+    else:
+        a = L.prefill_attention(q, k, v)
+        xk, xv = cross_kv(lp.cross_attn, enc_out, cfg)
+        if cache is not None:
+            for n, t in zip(("k", "v") + CROSS_CACHES, (k, v, xk, xv)):
+                cache[n].copy_(t.transpose(1, 2))
+    x = x + L.attn_out(lp.self_attn, a)
+
+    h = L.apply_norm(x, lp.cross_norm, cfg)
+    cq = cross_q(lp.cross_attn, h, cfg)
+    if decode:
+        ca = L.cross_decode_attention(cq, cache["xk"], cache["xv"],
+                                      lengths[1])
+    else:
+        ca = L.full_attention(cq, xk, xv)
+    x = x + L.attn_out(lp.cross_attn, ca)
+
+    h = L.apply_norm(x, lp.mlp_norm, cfg)
+    return x + L.mlp_apply(lp.mlp, h, cfg)
+
+
 def run_decoder(layers: nn.ModuleList, x: torch.Tensor,
                 enc_out: Optional[torch.Tensor], cfg: ModelConfig, mode: str,
-                caches: Caches, pos: Optional[int] = None) -> torch.Tensor:
+                caches: Optional[Caches] = None,
+                pos: Optional[int] = None) -> torch.Tensor:
     """x: (B, S_dec, D) embedded tokens (positions added by the caller)
-    through every decoder layer.  ``prefill``: writes the self caches of
-    every position and the cross caches from ``enc_out``; ``decode``: one
-    token at position ``pos``, written into the self caches, the cross
-    caches only read."""
-    decode = mode == "decode"
-    if decode:      # every (batch, KV head) row, once per step
+    through every decoder layer.  ``train``: no caches, each layer under
+    ``torch.utils.checkpoint`` with ``cfg.remat`` (the reference's
+    ``jax.checkpoint`` of its decoder body; the encoder has none);
+    ``prefill``: writes the self caches of every position and the cross
+    caches from ``enc_out``; ``decode``: one token at position ``pos``,
+    written into the self caches, the cross caches only read."""
+    if mode == "train":
+        remat = remat_on(cfg)
+        for lp in layers:
+            x = (checkpoint(_decoder_layer, lp, x, enc_out, cfg, mode,
+                            use_reentrant=False) if remat
+                 else _decoder_layer(lp, x, enc_out, cfg, mode))
+        return x
+    lengths = None
+    if mode == "decode":    # every (batch, KV head) row, once per step
         rows = x.shape[0] * cfg.num_kv_heads
-        self_len = torch.full((rows,), pos + 1, dtype=torch.int32,
-                              device=x.device)
-        cross_len = torch.full((rows,), caches["xk"].shape[3],
-                               dtype=torch.int32, device=x.device)
+        lengths = (torch.full((rows,), pos + 1, dtype=torch.int32,
+                              device=x.device),
+                   torch.full((rows,), caches["xk"].shape[3],
+                              dtype=torch.int32, device=x.device))
     for i, lp in enumerate(layers):
-        k_cache, v_cache = caches["k"][i], caches["v"][i]
-        xk_cache, xv_cache = caches["xk"][i], caches["xv"][i]
-        h = L.apply_norm(x, lp.self_norm, cfg)
-        q, k, v = L.qkv_project(lp.self_attn, h, cfg, None)
-        if decode:
-            k_cache[:, :, pos] = k[:, 0]
-            v_cache[:, :, pos] = v[:, 0]
-            a = L.decode_step_attention(q, k_cache, v_cache, self_len)
-        else:
-            a = L.prefill_attention(q, k, v)
-            k_cache.copy_(k.transpose(1, 2))
-            v_cache.copy_(v.transpose(1, 2))
-            xk, xv = cross_kv(lp.cross_attn, enc_out, cfg)
-            xk_cache.copy_(xk.transpose(1, 2))
-            xv_cache.copy_(xv.transpose(1, 2))
-        x = x + L.attn_out(lp.self_attn, a)
-
-        h = L.apply_norm(x, lp.cross_norm, cfg)
-        cq = cross_q(lp.cross_attn, h, cfg)
-        if decode:
-            ca = L.cross_decode_attention(cq, xk_cache, xv_cache, cross_len)
-        else:
-            ca = L.full_attention(cq, xk, xv)
-        x = x + L.attn_out(lp.cross_attn, ca)
-
-        h = L.apply_norm(x, lp.mlp_norm, cfg)
-        x = x + L.mlp_apply(lp.mlp, h, cfg)
+        cache = {n: caches[n][i] for n in ("k", "v") + CROSS_CACHES}
+        x = _decoder_layer(lp, x, enc_out, cfg, mode, cache, pos, lengths)
     return x

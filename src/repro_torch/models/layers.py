@@ -43,7 +43,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def new_param(shape, dtype, device,
               fill: Optional[float] = None) -> nn.Parameter:
-    """An inference weight, uninitialised unless ``fill`` is given."""
+    """A weight, uninitialised unless ``fill`` is given; it takes no
+    gradient until ``Model.trainable()``."""
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         t.fill_(fill)

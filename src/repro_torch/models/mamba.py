@@ -1,11 +1,11 @@
 """Mamba2 block (state-space duality, arXiv:2405.21060).
 
-The port of the JAX package's ``models/mamba.py``.  A prefill runs the
-chunked SSD scan through ``kernels.ssd_scan`` (the kernel on the card, its
-plain chunked version on the CPU; the JAX model computes the same function
-with ``ssd_chunked`` in XLA) and the gated RMSNorm through
-``kernels.rmsnorm``.  A decode step is one state update in plain tensor
-ops, as in the JAX package.
+The port of the JAX package's ``models/mamba.py``.  A prefill or a
+training pass runs the chunked SSD scan through ``kernels.ssd_scan`` (the
+kernel on the card, its plain chunked version on the CPU; the JAX model
+computes the same function with ``ssd_chunked`` in XLA) and the gated
+RMSNorm through ``kernels.rmsnorm``.  A decode step is one state update
+in plain tensor ops, as in the JAX package.
 
 Weights of one layer, ``(in, out)`` as there:
   in_proj_{z,x}: (D, d_inner)       gate / value streams
@@ -24,7 +24,7 @@ place.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,9 +132,10 @@ def _window(a: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
-                cache: Cache) -> torch.Tensor:
-    """Full sequence (prefill).  u: (B, S, D) -> (B, S, D); writes the
-    decode caches (``ssm``, ``conv_{x,b,c}``) into ``cache`` in place."""
+                cache: Optional[Cache] = None) -> torch.Tensor:
+    """Full sequence (train or prefill).  u: (B, S, D) -> (B, S, D); a
+    prefill writes the decode caches (``ssm``, ``conv_{x,b,c}``) into
+    ``cache`` in place (training passes none)."""
     Bsz, S, _ = u.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z = u @ p.in_proj_z
@@ -151,6 +152,8 @@ def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
     y = y + x * p.d[None, None, :, None].to(x.dtype)
     y = y.reshape(Bsz, S, cfg.d_inner)
     y = rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
+    if cache is None:
+        return y @ p.out_proj
     k = cfg.ssm_conv
     cache["ssm"].copy_(final)
     cache["conv_x"].copy_(_window(xa, k))

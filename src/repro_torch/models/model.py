@@ -1,5 +1,5 @@
 """Public model API: ``build_model(cfg) -> Model`` with ``init``,
-``prefill`` and ``decode``, and ``params_from_jax``.
+``train_loss``, ``prefill`` and ``decode``, and ``params_from_jax``.
 
 The port of the JAX package's ``models/model.py`` for the decoder-only
 dense, MoE, SSM, hybrid and VLM models and the encoder-decoder model.
@@ -9,7 +9,13 @@ optional parameter set — a dict of tensors by parameter name, such as a
 merged LoRA set that replaces a few weights and shares the rest — that
 stands in for the model's own weights during the call.
 
-Batch layouts (the JAX package's batch dict as keyword arguments)
+Batch layouts (the JAX package's batch dict; as keyword arguments for
+prefill and decode)
+  train (LM):       {tokens (B, S), labels (B, S), loss_mask (B, S)}
+  train (vlm):      {tokens (B, S_text), patch_embeds (B, P, D), labels,
+                     loss_mask}: the loss covers the text suffix only
+  train (encdec):   {frames (B, enc_frames, D), tokens (B, S), labels,
+                     loss_mask}
   prefill (LM):     tokens (B, S)
   prefill (vlm):    tokens (B, S_text), patch_embeds (B, P, D); the
                     projected patches go in front of the tokens, so the
@@ -122,6 +128,14 @@ class Model(nn.Module):
         """The model's own parameter set (tensors shared, not copied)."""
         return {name: p for name, p in self.named_parameters()}
 
+    def trainable(self, flag: bool = True) -> "Model":
+        """Let the weights take gradients (``requires_grad``), or stop
+        them; ``prefill`` and ``decode`` run without gradients either
+        way, with the same results."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
+
     @torch.no_grad()
     def load_params(self, params: Dict[str, Any]) -> "Model":
         """Copy a parameter set (tensors or arrays by name, every name of
@@ -202,8 +216,8 @@ class Model(nn.Module):
                                  f"no {name}")
             return None
         if t is None:
-            raise ValueError(f"{self.cfg.name}: the {family} family's prefill "
-                             f"needs {name} (B, {rows or 'P'}, d_model)")
+            raise ValueError(f"{self.cfg.name}: the {family} family needs "
+                             f"{name} (B, {rows or 'P'}, d_model)")
         D = self.cfg.d_model
         if (t.ndim != 3 or t.shape[0] != batch or t.shape[2] != D
                 or (rows is not None and t.shape[1] != rows)
@@ -212,6 +226,40 @@ class Model(nn.Module):
                              f"{tuple(t.shape)}, want ({batch}, "
                              f"{rows or 'P >= 1'}, {D})")
         return t.to(device=self.device, dtype=self.dtype)
+
+    def train_loss(self, batch: Dict[str, Any],
+                   params: Optional[Params] = None) -> torch.Tensor:
+        """The training loss of ``batch`` (tensors or arrays by the JAX
+        package's names: ``tokens``, ``labels``, ``loss_mask``, with
+        ``frames`` for the encoder-decoder and ``patch_embeds`` for the
+        VLM), a float32 scalar on the model's device, with gradients
+        enabled: the masked mean next-token cross-entropy (``lm_loss``)."""
+        cfg = self.cfg
+        b = {k: torch.as_tensor(v, device=self.device)
+             for k, v in batch.items()}
+        tokens = b["tokens"].long()
+        B = tokens.shape[0]
+        want = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
+        frames = self._side_input(b.get("frames"), "frames", want, B,
+                                  cfg.enc_frames)
+        patches = self._side_input(b.get("patch_embeds"), "patch_embeds",
+                                   want, B, None)
+        with torch.enable_grad(), self._using(params):
+            x = T.embed_tokens(self.embed, tokens)
+            if patches is not None:
+                x = torch.cat([patches @ self.projector, x], dim=1)
+            x = T.add_positions(self.pos_emb, x, 0)
+            if frames is not None:
+                enc_out = E.run_encoder(self.encoder, self.enc_final_norm,
+                                        frames, cfg)
+                x = E.run_decoder(self.layers, x, enc_out, cfg, "train")
+            else:
+                positions = torch.arange(x.shape[1], device=self.device)
+                x = T.run_stack(self.layers, x, cfg, "train", positions)
+                if patches is not None:     # the loss covers the text only
+                    x = x[:, patches.shape[1]:]
+            return T.lm_loss(self.final_norm, self._head(), x, b["labels"],
+                             b["loss_mask"], cfg)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, params: Optional[Params] = None,
@@ -350,3 +398,27 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 for p in range(n):
                     out[f"layers.{p * period + i}.{group}.{name}"] = t(a[p])
     return out
+
+
+def reference_leaf(name: str, period: int) -> str:
+    """The JAX package's leaf that holds the port's parameter ``name``:
+    the port keeps one tensor per layer where the reference stacks a
+    sub-layer's weight over its periods (``layers/sub<j % period>/...``,
+    ``layers/enc/...``, ``layers/dec/...``), so every port layer of one
+    such leaf maps to the same name.  ``period``: the layers of one period
+    of the family's plan (1 for the encoder-decoder)."""
+    head, _, rest = name.partition(".")
+    if head in ("layers", "encoder"):
+        layer, _, tail = rest.partition(".")
+        sub = int(layer) % period if head == "layers" else 0
+        return f"{head}.sub{sub}.{tail}"
+    return name
+
+
+def reference_ndim(name: str, t: torch.Tensor) -> int:
+    """The number of dims of the reference's leaf of ``name``: one more
+    than the port tensor's for a layer's parameter (stacked over the
+    periods there, so a per-layer norm scale or Mamba vector is 2-D), the
+    same for the others (embedding, head, ``final_norm``,
+    ``enc_final_norm``, ``pos_emb``, ``projector``)."""
+    return t.dim() + (1 if name.startswith(("layers.", "encoder.")) else 0)

@@ -8,9 +8,12 @@ one attention layer, ``ssm`` one Mamba layer, ``hybrid`` ``attn_every``
 layers, attention first).  Decoder layers are ``nn.Module``s in an
 ``nn.ModuleList``, period after period: port layer ``j`` is period
 ``j // len(plan)``, sub-layer ``j % len(plan)`` of the JAX tree, whose
-``lax.scan`` over stacked weights is a loop here.  Modes: ``prefill``
-(writes the caches) and ``decode`` (one token, updates the caches in
-place).  The encoder-decoder family's stacks are ``models/encdec.py``.
+``lax.scan`` over stacked weights is a loop here.  Modes: ``train`` (no
+caches; with ``cfg.remat`` each period recomputed in the backward, as the
+reference's ``jax.checkpoint`` of its scan body), ``prefill`` (writes the
+caches) and ``decode`` (one token, updates the caches in place).  The
+encoder-decoder family's stacks are ``models/encdec.py``.  ``lm_loss`` is
+the chunked cross-entropy of the training loss.
 
 Caches are a dict by kind, each stacked over the layers of that kind:
 ``k``/``v`` ``(n_attn, B, K, S, hd)`` in the model dtype, laid out per KV
@@ -24,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
@@ -96,28 +100,31 @@ class DecoderLayer(nn.Module):
             self.mlp = L.MLP(cfg, cfg.d_ff, dtype, device)
 
     def run(self, x: torch.Tensor, cfg: ModelConfig, mode: str, rope,
-            caches: Caches, pos: Optional[int] = None,
+            caches: Optional[Caches], pos: Optional[int] = None,
             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``prefill``: writes this layer's caches (k/v of every position,
-        or the Mamba state and conv windows); ``decode``: writes position
-        ``pos`` and attends over the first ``lengths`` positions, or
-        advances the Mamba state by one token."""
+        """``train``: no caches (``caches`` None); ``prefill``: writes this
+        layer's caches (k/v of every position, or the Mamba state and conv
+        windows); ``decode``: writes position ``pos`` and attends over the
+        first ``lengths`` positions, or advances the Mamba state by one
+        token."""
         i = self.cache_index
         h = L.apply_norm(x, self.mixer_norm, cfg)
         if self.mixer == "attn":
-            k_cache, v_cache = caches["k"][i], caches["v"][i]
             q, k, v = L.qkv_project(self.attn, h, cfg, rope)
             if mode == "decode":
+                k_cache, v_cache = caches["k"][i], caches["v"][i]
                 k_cache[:, :, pos] = k[:, 0]
                 v_cache[:, :, pos] = v[:, 0]
                 a = L.decode_step_attention(q, k_cache, v_cache, lengths)
             else:
                 a = L.prefill_attention(q, k, v)
-                k_cache.copy_(k.transpose(1, 2))
-                v_cache.copy_(v.transpose(1, 2))
+                if caches is not None:
+                    caches["k"][i].copy_(k.transpose(1, 2))
+                    caches["v"][i].copy_(v.transpose(1, 2))
             x = x + L.attn_out(self.attn, a)
         else:
-            cache = {n: caches[n][i] for n in MAMBA_CACHES}
+            cache = (None if caches is None
+                     else {n: caches[n][i] for n in MAMBA_CACHES})
             if mode == "decode":
                 x = x + M.mamba_decode(self.mamba, cache, h, cfg)
             else:
@@ -128,7 +135,7 @@ class DecoderLayer(nn.Module):
         if self.ffn == "dense":
             return x + L.mlp_apply(self.mlp, h, cfg)
         # the reference's rule: every expert on the token of a small decode
-        # step, the configured dispatch otherwise
+        # step, the configured dispatch otherwise (training included)
         small = mode == "decode" and h.shape[0] * h.shape[1] <= 16
         apply = X.moe_apply_dense if small else X.moe_apply
         return x + apply(self.moe, h, cfg)
@@ -143,17 +150,48 @@ def build_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
     return nn.ModuleList(layers)
 
 
+def remat_on(cfg: ModelConfig) -> bool:
+    """Whether a training pass recomputes its layers in the backward
+    (``cfg.remat``).  Only the reference's ``"full"`` policy (nothing
+    saved) is ported: another ``remat_policy`` raises."""
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported "
+            "(ROADMAP item 21); no registered configuration sets another")
+    return cfg.remat
+
+
+def _run_period(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
+                rope) -> torch.Tensor:
+    for layer in layers:
+        x = layer.run(x, cfg, "train", rope, None)
+    return x
+
+
 def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
-              mode: str, positions: torch.Tensor, caches: Caches,
+              mode: str, positions: torch.Tensor,
+              caches: Optional[Caches] = None,
               pos: Optional[int] = None) -> torch.Tensor:
-    """x: (B, S, D) through every layer; caches written in place."""
+    """x: (B, S, D) through every layer; caches written in place (none in
+    ``train``, where with ``cfg.remat`` each period of the plan runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, its kernels launched again)."""
     rope = lengths = None
-    if "k" in caches:
+    if any(layer.mixer == "attn" for layer in layers):
         rope = L.rope_tables(positions, cfg.resolved_head_dim(),
                              cfg.rope_theta)
         if mode == "decode":    # every (batch, KV head) row, once per step
             lengths = torch.full((x.shape[0] * cfg.num_kv_heads,), pos + 1,
                                  dtype=torch.int32, device=x.device)
+    if mode == "train":
+        remat = remat_on(cfg)
+        period = len(layer_plan(cfg))
+        for p0 in range(0, len(layers), period):
+            block = layers[p0:p0 + period]
+            x = (checkpoint(_run_period, block, x, cfg, rope,
+                            use_reentrant=False) if remat
+                 else _run_period(block, x, cfg, rope))
+        return x
     for layer in layers:
         x = layer.run(x, cfg, mode, rope, caches, pos, lengths)
     return x
@@ -186,13 +224,67 @@ def unembed(final_norm: L.Norm, head: torch.Tensor, x: torch.Tensor,
     ``head`` is (D, V)."""
     x = L.apply_norm(x, final_norm, cfg)
     B, S, D = x.shape
-    x2 = x.reshape(B * S, D)
-    if x.device.type == "cpu" or x.dtype == torch.float32:
-        logits = x2.float() @ head.float()
-    else:
-        logits = torch.mm(x2, head, out_dtype=torch.float32)
-    logits = logits.reshape(B, S, -1)
+    logits = logits_f32(x.reshape(B * S, D), head).reshape(B, S, -1)
     V = L.padded_vocab(cfg.vocab_size)
     if V != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+class _Logits32(torch.autograd.Function):
+    """The float32 product of bfloat16 operands on the card, with its
+    gradients as bfloat16 products of the cotangent rounded to bfloat16
+    (float32 accumulation in the products)."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        gx = g @ head.t() if ctx.needs_input_grad[0] else None
+        gh = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return gx, gh
+
+
+def logits_f32(x2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(T, D) @ (D, V) in float32 from model-dtype operands: a float32
+    product of the model-dtype values, as the JAX package's
+    ``preferred_element_type=float32`` gives."""
+    if x2.device.type == "cpu" or x2.dtype == torch.float32:
+        return x2.float() @ head.float()
+    return _Logits32.apply(x2, head)
+
+
+def lm_loss(final_norm: L.Norm, head: torch.Tensor, x: torch.Tensor,
+            labels: torch.Tensor, loss_mask: torch.Tensor, cfg: ModelConfig,
+            chunk: int = 0) -> torch.Tensor:
+    """Chunked cross-entropy, the logits of ``chunk`` positions (default
+    ``cfg.loss_chunk``; all of them where S is not a multiple) at a time,
+    so (B, S, V) never materialises at once.  x: (B, S, D) pre-final-norm
+    hidden states; labels / loss_mask: (B, S).  Float32 logits, the padded
+    vocabulary masked to -1e30; the masked mean over max(count, 1)."""
+    x = L.apply_norm(x, final_norm, cfg)
+    B, S, D = x.shape
+    V = head.shape[-1]
+    chunk = min(chunk or cfg.loss_chunk, S)
+    if S % chunk:
+        chunk = S       # the reference's fallback (tiny configs)
+    vocab_ok = torch.arange(V, device=x.device) < cfg.vocab_size
+    labels = labels.long()
+    loss_mask = loss_mask.float()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        xc = x[:, c0:c0 + chunk].reshape(-1, D)
+        logits = logits_f32(xc, head).reshape(B, -1, V)
+        logits = torch.where(vocab_ok, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+        mc = loss_mask[:, c0:c0 + chunk]
+        tot = tot + ((lse - ll) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -878,3 +878,206 @@ def test_tiny_encdec_and_vlm_models_card_vs_cpu(dev, name, dtype):
                 "decode_attention": 4 * L}
     assert {k: launches.get(k, 0) for k in want} == want
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------ training
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_plain)
+
+
+def _autograd_cases(dev, dtype, rng):
+    """(name, wrapper, plain, inputs, kernel) at one shape per kernel."""
+    f32 = torch.float32
+    x, scale = _normal(rng, (6, 128), dtype, dev), _normal(rng, (128,), f32,
+                                                           dev)
+    q = _normal(rng, (2, 40, 8, 64), dtype, dev)
+    k, v = (_normal(rng, (2, 40, 2, 64), dtype, dev) for _ in range(2))
+    xe, we = _normal(rng, (4, 24, 64), dtype, dev), _normal(rng, (4, 64, 96),
+                                                            dtype, dev)
+    ssd = _ssd_inputs(rng, 2, 40, 4, 16, 16, dtype, dev)
+    return [
+        ("rmsnorm", lambda a, b: rms_ops.rmsnorm(a, b, eps=1e-5),
+         lambda a, b: rmsnorm_ref(a, b, 1e-5), (x, scale),
+         lambda a, b: rms_kernel.rmsnorm_kernel(a, b, eps=1e-5)),
+        ("flash_attention", lambda *a: fa_ops.flash_attention(*a),
+         lambda *a: flash_attention_plain(*a, True), (q, k, v),
+         lambda *a: fa_kernel.flash_attention_kernel(*a, causal=True)),
+        ("moe_gmm", gmm_ops.moe_gmm, moe_gmm_ref, (xe, we),
+         gmm_kernel.moe_gmm_kernel),
+        ("ssd_scan", lambda *a: ssd_ops.ssd_scan(*a, chunk=16),
+         lambda *a: ssd_chunked(*a, 16), ssd,
+         lambda *a: ssd_kernel.ssd_scan_kernel(*a, chunk=16)),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4),
+                         ids=["rmsnorm", "flash", "moe_gmm", "ssd"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_autograd_wrapper_is_the_kernel_forward_and_plain_backward(
+        dev, which, dtype):
+    """Under autograd a wrapper's output is its kernel's, bit for bit (one
+    launch), and its gradients are the plain version's autograd gradients
+    on the same inputs, bit for bit (no launch)."""
+    rng = np.random.default_rng(31)
+    name, wrapper, plain, inputs, kernel = _autograd_cases(dev, dtype,
+                                                           rng)[which]
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    before = LAUNCHES[name]
+    out = wrapper(*leaves)
+    assert LAUNCHES[name] == before + 1
+    want = kernel(*inputs)
+    outs, wants = ((out, want) if isinstance(out, tuple)
+                   else ((out,), (want,)))
+    for a, b in zip(outs, wants):
+        assert a.requires_grad and torch.equal(a.detach(), b)
+    cot = [_normal(rng, a.shape, a.dtype, dev) for a in outs]
+    got = torch.autograd.grad(outs, leaves, cot)
+    assert LAUNCHES[name] == before + 2     # the kernel call above only
+    ref = [t.clone().requires_grad_(True) for t in inputs]
+    pouts = plain(*ref)
+    pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+    for g, w in zip(got, torch.autograd.grad(pouts, ref, cot)):
+        assert torch.equal(g, w)
+
+
+def _train_counts(cfg, passes):
+    """The model kernels' launches of one ``train_loss`` forward, the
+    layers' ``passes`` times (2 with remat: the backward recomputes them)
+    and the final norm once."""
+    from repro_torch.models.transformer import layer_kinds
+    if cfg.family == "encdec":
+        return {"rmsnorm": 0, "moe_gmm": 0, "ssd_scan": 0,
+                "flash_attention": cfg.enc_layers
+                + passes * 2 * cfg.num_layers}
+    k3 = k4 = k6 = k7 = 0
+    for mixer, ffn in layer_kinds(cfg):
+        k3 += 1 + (ffn != "none") + (mixer == "mamba") \
+            + 2 * (mixer == "attn" and cfg.qk_norm)
+        k4 += mixer == "attn"
+        k7 += mixer == "mamba"
+        k6 += 3 * (ffn == "moe")
+    return {"rmsnorm": passes * k3 + 1, "flash_attention": passes * k4,
+            "moe_gmm": passes * k6, "ssd_scan": passes * k7}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_path_launches_no_plain_forward(dev, monkeypatch, remat):
+    """The tiny Jamba (K3, K4, K6, K7 in one model): its training forward
+    launches every kernel and calls no plain version; its backward calls
+    the plain versions and launches only the recompute under remat."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    calls = {}
+    for mod, fn in ((rms_ops, "rmsnorm_ref"), (fa_ops, "attention_ref"),
+                    (gmm_ops, "moe_gmm_ref"), (ssd_ops, "ssd_chunked")):
+        def counted(*a, _f=getattr(mod, fn), _n=fn, **kw):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(mod, fn, counted)
+    cfg = tiny_config("jamba-1.5-large-398b", dtype="float32", remat=remat)
+    model = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0)).trainable()
+    batch = batch_at(DataConfig(256, 16, 2), 0)
+    reset_launches()
+    loss = model.train_loss(batch)
+    names = ("rmsnorm", "flash_attention", "moe_gmm", "ssd_scan")
+    assert {n: LAUNCHES[n] for n in names} == _train_counts(cfg, 1)
+    assert calls == {}
+    torch.autograd.grad(loss, list(model.params().values()),
+                        allow_unused=True)
+    assert {n: LAUNCHES[n] for n in names} == _train_counts(
+        cfg, 2 if remat else 1)
+    assert set(calls) == {"rmsnorm_ref", "attention_ref", "moe_gmm_ref",
+                          "ssd_chunked"}
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen2-moe-a2.7b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b",
+                                  "whisper-large-v3", "internvl2-26b"])
+def test_tiny_training_step_card_vs_cpu(dev, name):
+    """One float32 training step from one set of weights on the card and
+    on the CPU: loss within 1e-4 relative, each gradient within 1e-4 of
+    its tensor's largest magnitude, the weights after ``adamw_update`` of
+    the card's gradients on the card and on the CPU within 1e-4 (from
+    each side's own gradients they may differ by up to lr: Adam's first
+    step moves a weight by about lr * g / |g|)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    cfg = tiny_config(name, dtype="float32", remat=True)
+    max_seq = 32 if cfg.family == "encdec" else 0
+    cpu = build_model(cfg, device="cpu", max_seq=max_seq).init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev, max_seq=max_seq).load_params(
+        cpu.params())
+    batch = batch_at(DataConfig(256, 16, 2), 0)
+    rng = np.random.default_rng(3)
+    key = {"encdec": ("frames", cfg.enc_frames),
+           "vlm": ("patch_embeds", cfg.vision_patches)}.get(cfg.family)
+    if key:
+        batch[key[0]] = rng.normal(size=(2, key[1], cfg.d_model)).astype(
+            np.float32)
+    out = {}
+    for model in (card, cpu):
+        params = model.trainable().params()
+        loss = model.train_loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        out[model.device.type] = (float(loss.detach()), {
+            n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(params.items(), grads)})
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for n in gp:
+        scale = float(gp[n].abs().max())
+        torch.testing.assert_close(gc[n].cpu(), gp[n], rtol=1e-4,
+                                   atol=1e-4 * scale + 1e-30, msg=n)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0)
+    for model, g in ((card, gc), (cpu, {n: t.cpu() for n, t in gc.items()})):
+        params = model.params()
+        adamw_update(g, init_opt_state(params), params, tcfg)
+    for n, p in cpu.params().items():
+        torch.testing.assert_close(card.params()[n].detach().cpu(),
+                                   p.detach(), rtol=1e-4, atol=1e-4, msg=n)
+
+
+def test_restart_is_bit_exact_on_the_card(tmp_path):
+    """The reference's contract on ``cuda``: the post-restart losses equal
+    the uninterrupted run's; the card's checkpoint restores onto the CPU
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint.checkpointing import restore_checkpoint
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.testing import tiny_config
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import (run_training,
+                                                 run_training_with_restarts)
+    cfg = tiny_config("llama3-8b", num_layers=2, d_model=32, d_ff=64,
+                      dtype="float32")
+    dcfg = DataConfig(vocab_size=256, seq_len=32, global_batch=4)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=5,
+                       checkpoint_every=10)
+    a = run_training(cfg, tcfg, dcfg, total_steps=35, verbose=False,
+                     ckpt_dir=str(tmp_path / "a"), device="cuda")
+    b = run_training_with_restarts(cfg, tcfg, dcfg, total_steps=35,
+                                   ckpt_dir=str(tmp_path / "b"),
+                                   injector=FailureInjector(17),
+                                   verbose=False, device="cuda")
+    assert b.restarts == 1 and a.losses[-25:] == b.losses[-25:]
+    targets = {}
+    for d in ("cuda", "cpu"):
+        p = build_model(cfg, device=d).params()
+        targets[d], _ = restore_checkpoint(str(tmp_path / "b"),
+                                           (p, init_opt_state(p)))
+    on_card, on_cpu = targets["cuda"], targets["cpu"]
+    for n, t in on_card[0].items():
+        assert t.is_cuda and torch.equal(t.cpu(), on_cpu[0][n])
+        assert torch.equal(on_card[1].m[n].cpu(), on_cpu[1].m[n])

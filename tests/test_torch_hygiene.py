@@ -236,3 +236,54 @@ def test_moe_model_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(get_config("qwen2-moe-a2.7b"))
+
+
+# ------------------------------------------------------------------ training
+TRAINING_MODULES = ("training/optimizer.py", "training/compression.py",
+                    "training/train_loop.py", "checkpoint/checkpointing.py",
+                    "data/pipeline.py", "launch/steps.py", "launch/train.py")
+
+
+def test_training_modules_import_neither_jax_repro_nor_ml_dtypes():
+    """The training, checkpoint and data subpackages stand alone, and no
+    port module or ``chip_smoke.py`` needs ``ml_dtypes`` (the card's
+    machine has none)."""
+    for rel in TRAINING_MODULES:
+        mods = list(_imports(PORT / rel))
+        assert mods, rel
+        assert not [m for m in mods if m.split(".")[0]
+                    in ("jax", "jaxlib", "repro", "ml_dtypes")], rel
+    files = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    assert not [f for f in files for m in _imports(f)
+                if m.split(".")[0] == "ml_dtypes"]
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import run_training
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    cfg = tiny_config("llama3-8b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(cfg, TrainConfig(), DataConfig(256, 8, 2),
+                     total_steps=1, verbose=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1", "--ckpt", str(tmp_path)])
+
+
+def test_autograd_wrappers_refuse_non_cuda_tensors():
+    """Under autograd the model kernels' wrappers still launch the kernel
+    (which refuses a meta tensor) and never take the plain version."""
+    z = lambda *s: torch.zeros(*s, device="meta",  # noqa: E731
+                               requires_grad=True)
+    calls = [lambda: rmsnorm(z(2, 3, 8), z(8)),
+             lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
+                                     z(1, 5, 2, 16)),
+             lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24)),
+             lambda: ssd_scan(z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4),
+                              z(1, 4, 4), chunk=4)]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()

@@ -157,11 +157,27 @@ Phases (any failure raises and the script exits non-zero):
 27. restart on the card: the reference's contract (a tiny float32 Llama,
    35 steps, checkpoints every 10, a failure injected at step 17): the
    post-restart losses equal the uninterrupted run's bit for bit, and the
-   last checkpoint restored onto the CPU and the card equal bit for bit.
+   last checkpoint restored onto the CPU and the card equal bit for bit;
+28. the mesh path (``RefreshConfig(mesh_shards=n)``, the shards a loop
+   over blocks of one arena on the card): phase 6's 16,384-slot arena
+   with prewarming and triage from one state, ticked with 8 % of the
+   slots dirty, uniform and skewed (all on shard 0 of 8), as the 1-shard
+   delta tick, the mesh at 1 and 8 shards, and the 8-shard mesh with
+   ``lane_balance=0.25``, each with K1 and with K2: every mesh tick
+   bitwise equal to the delta tick slot by slot (ranks, triage scalars,
+   trigger and reach rows, arena rows through ``device_rows``), one K1
+   launch for each shard with walk rows; ms per tick, launches per tick
+   and walk rows per shard printed; K1 and K2 held to their plain
+   versions at the 8-shard launch's rows; then ``run_sim`` at
+   ``mesh_shards=8`` on the first 300 applications of phase 2's trace
+   against ``SimConfig()`` on the same apps, on ``cuda`` and on the CPU:
+   identical completion order and ACTs.
 
 Then one JSON line with every kernel's numbers (K3, K4, K6 and K7 also
 with their launches on the train path: phase 26 for K3 and K4, phase 24
-for K6 and K7), the card's name and power limit, and as the last line
+for K6 and K7; K1 and K2 with their launches on the mesh path: phase 28's
+``cuda`` run for K1, its 8-shard K2 ticks for K2), the card's name and
+power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero before
 printing any result.
@@ -1054,6 +1070,194 @@ def phase_delta_tick(device, W):
         _profile_tick(f"delta_tick:{label}", lambda: refresh_ranks_delta(
             packed, qs, 0, walked=walked, rank_in_kernel=in_kernel, **kw))
         qs.bump_refresh(walked)
+
+
+# phase 28's arms: (label, shards, lane_balance); each runs with K1 and K2
+MESH_ARMS = (("delta", None, None), ("mesh1", 1, None), ("mesh8", 8, None),
+             ("mesh8_lane", 8, 0.25))
+
+
+def phase_mesh(device, W, So, n_apps, CAP=16384):
+    """The mesh path: phase 6's 16,384-slot arena with prewarming and the
+    triage scalars, from one state, in eight arms — the 1-shard delta
+    tick, the mesh at 1 and 8 shards, and the 8-shard mesh balancing lanes
+    past 0.25, each with K1 and with K2 — over ticks of 8 % dirty slots,
+    uniform and skewed (every dirty slot on shard 0 of 8).  Every mesh
+    arm's ranks, triage scalars, trigger and reach rows and arena rows
+    (read through ``device_rows``) are held bitwise to the delta tick's
+    with the same kernel, slot by slot; ms per tick, K1 and K2 launches
+    per tick and walk rows per shard are printed.  K1 and K2 are held to
+    their plain versions at the 8-shard launch's rows.  Then ``run_sim``
+    at ``mesh_shards=8`` on the first ``n_apps`` applications of phase 2's
+    trace against ``SimConfig()`` on the same apps, on ``cuda`` and on the
+    CPU: identical completion order and ACTs.  Returns the K1 launches of
+    the ``cuda`` mesh run and the K2 launches of the K2 mesh ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.suite import T_IN, T_OUT, build_knowledge_base
+    from repro_torch.core.arena import QueueState
+    from repro_torch.core.hermeslet import warmup_time_for
+    from repro_torch.core.pdgraph import pack_graphs
+    from repro_torch.core.prewarm import build_prewarm_table
+    from repro_torch.core.refresh_config import RefreshConfig
+    from repro_torch.core.refresh_mesh import RefreshMesh, refresh_ranks_mesh
+    from repro_torch.core.refresh_pipeline import refresh_ranks_delta
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.pdgraph_walk import kernel
+    from repro_torch.kernels.pdgraph_walk.ops import pad_rows
+    DIRTY, REPS = 0.08, 6
+    kb = build_knowledge_base(n_trials=100, seed=3)
+    packed = pack_graphs(kb, T_IN, T_OUT, device=device)
+    tab = build_prewarm_table(kb, packed, warmup_time_for)
+    rng = np.random.default_rng(4)
+    gi = rng.integers(0, len(packed.names), CAP)
+    rows = [(f"a{i}", int(g), int(packed.entry[g]), i, None)
+            for i, g in enumerate(gi)]
+    arms = {}
+    for label, shards, lane in MESH_ARMS:
+        for rik in (True, False):
+            qs = QueueState(packed, capacity=CAP, n_shards=shards or 1)
+            qs.admit_many(rows)
+            mesh = RefreshMesh(shards, device=device) if shards else None
+            arms[(label, rik)] = (qs, mesh, lane)
+    n_dirty = int(DIRTY * CAP)
+    stats = {k: {"uniform": [], "skewed": []} for k in arms}
+    k2_launches = 0
+
+    def tick(key, walked, ranked):
+        qs, mesh, lane = arms[key]
+        rik = key[1]
+        kw = dict(n_walkers=W, prewarm_table=tab, prewarm_k=0.5,
+                  with_triage=True, rank_in_kernel=rik)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        if mesh is None:
+            t = refresh_ranks_delta(packed, qs, 0, walked=walked, **kw)
+            ranks = t.ranks
+        else:
+            t = refresh_ranks_mesh(packed, qs, 0, mesh=mesh, walked=walked,
+                                   ranked=ranked, lane_balance=lane, **kw)
+            ranks = qs.rank
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return ranks, ms, dict(LAUNCHES), getattr(t, "balanced", False)
+
+    for rep in range(REPS + 1):
+        kind = "uniform" if rep % 2 else "skewed"
+        if rep:
+            pool = (np.arange(0, CAP, 8) if kind == "skewed"
+                    else np.arange(CAP))
+            dirty = rng.choice(pool, n_dirty, replace=False)
+            prog = rng.choice(CAP, n_dirty, replace=False)
+            units = rng.integers(0, packed.n_units, n_dirty)
+            for qs, _, _ in arms.values():
+                for s, u in zip(dirty, units):
+                    qs.set_unit(qs.ids[s], int(u))
+                for s in prog:
+                    qs.add_progress(qs.ids[s], 0.25)
+        walks = {k: a[0].take_dirty() for k, a in arms.items()}
+        walked = walks[("delta", True)]
+        if any(not np.array_equal(w, walked) for w in walks.values()):
+            raise AssertionError("mesh arms drained different dirty sets")
+        ranked = {}
+        for k, (qs, _, _) in arms.items():
+            ranked[k] = np.asarray(sorted(qs.take_rank_dirty()
+                                          | set(walked.tolist())), np.int64)
+        order = list(arms) if rep % 2 == 0 else list(arms)[::-1]
+        out = {k: tick(k, walked, ranked[k]) for k in order}
+        occ = arms[("delta", True)][0].occupied()
+        for k, (ranks, ms, launches, balanced) in out.items():
+            qs = arms[k][0]
+            ref_qs = arms[("delta", k[1])][0]
+            ref_ranks = out[("delta", k[1])][0]
+            if rep:
+                stats[k][kind].append((ms, launches, balanced))
+            if rep and k == ("mesh8", False):
+                k2_launches += launches[kernel.PHASE_NAME]
+            if k[0] == "delta":
+                if not np.isfinite(ranks[occ]).all():
+                    raise AssertionError("delta tick: non-finite ranks")
+                continue
+            bad = [n for n, a, b in (
+                ("ranks", ranks[occ], ref_ranks[occ]),
+                ("sup", qs.sup[occ], ref_qs.sup[occ]),
+                ("opt", qs.opt[occ], ref_qs.opt[occ]),
+                ("mean", qs.mean[occ], ref_qs.mean[occ]),
+                ("trig", qs.trig[occ], ref_qs.trig[occ]),
+                ("reach", qs.reach[occ], ref_qs.reach[occ]))
+                if not np.array_equal(a, b)]
+            dev_rows = torch.as_tensor(qs.device_rows(occ), device=device)
+            bad += [n for n in ("d_probs", "d_edges", "a_hist", "a_lo",
+                                "a_span", "a_reach")
+                    if not torch.equal(getattr(qs, n)[dev_rows],
+                                       getattr(ref_qs, n)[occ])]
+            if bad:
+                raise AssertionError(f"mesh tick {k} rep {rep}: {bad} differ "
+                                     "from the delta tick")
+            want = len(set((walked % qs.n_shards).tolist())) if not \
+                balanced else min(qs.n_shards, len(walked))
+            got = launches[kernel.NAME if k[1] else kernel.PHASE_NAME]
+            if device.type == "cuda" and ((got != want) if k[1]
+                                          else (got < want)):
+                raise AssertionError(f"mesh tick {k}: {got} launches, "
+                                     f"{want} shards walked")
+            if rep and kind == "skewed" and k[0] == "mesh8_lane" \
+                    and not balanced:
+                raise AssertionError("the skewed tick did not balance")
+        for qs, _, _ in arms.values():
+            qs.bump_refresh(walked)
+        if rep:
+            by_owner = np.bincount(walked % 8, minlength=8)
+            by_walker = [len(walked[s::8]) for s in range(8)]
+            log(f"[mesh:{kind}] rep {rep}: walk rows per shard by owner "
+                f"{by_owner.tolist()}, round-robin {by_walker}; "
+                f"ranked {len(ranked[('mesh8', True)])}")
+    log(f"[mesh] every mesh arm == the delta tick bitwise over {REPS} "
+        f"ticks (ranks, sup, opt, mean, trig, reach, "
+        f"{', '.join(_ARENA_ROWS[:6])} through device_rows)")
+    for k, by_kind in stats.items():
+        for kind, v in by_kind.items():
+            t = [x[0] for x in v]
+            k1 = [x[1][kernel.NAME] for x in v]
+            k2 = [x[1][kernel.PHASE_NAME] for x in v]
+            log(f"[mesh] {k[0]} {'K1' if k[1] else 'K2'} {kind} cap={CAP} "
+                f"dirty={n_dirty} W={W} ms/tick median="
+                f"{statistics.median(t):.3f} min={min(t):.3f} "
+                f"all={['%.3f' % x for x in t]} K1/tick={k1} K2/tick={k2} "
+                f"balanced={[bool(x[2]) for x in v]}")
+    # where an 8-shard K1 tick's time goes (a fresh uniform dirty set)
+    qs, mesh, _ = arms[("mesh8", True)]
+    for s in rng.choice(CAP, n_dirty, replace=False):
+        qs.set_unit(qs.ids[s], int(rng.integers(0, packed.n_units)))
+    walked = qs.take_dirty()
+    _profile_tick("mesh:mesh8 K1", lambda: refresh_ranks_mesh(
+        packed, qs, 0, mesh=mesh, walked=walked, n_walkers=W,
+        prewarm_table=tab, prewarm_k=0.5, with_triage=True))
+    # K1 and K2 at the 8-shard mesh's launch: the rows a shard walks
+    A = pad_rows(-(-n_dirty // 8))
+    log(f"[mesh] K1/K2 held to their plain versions at {A} rows a shard")
+    _check_kernel(device, A, W, So)
+    _check_phase_kernel(device, A, W, So)
+    # run_sim at 8 shards against SimConfig() on the same apps
+    insts = _trace(n_apps)
+    kb = build_knowledge_base(n_trials=100, seed=3)
+    k1 = 0
+    for dev in ("cuda", "cpu"):
+        res = {}
+        for arm, rc in (("default", None),
+                        ("mesh8", RefreshConfig(mesh_shards=8))):
+            r, launches, _ = _run_path(
+                f"mesh_sim:{arm}:{dev}", kb, insts,
+                _main_config(device=dev, refresh=rc))
+            _check_completed(f"mesh_sim {arm} ({dev})", r, insts, launches,
+                             [kernel.NAME] if dev == "cuda" else [])
+            res[arm] = r
+            if dev == "cuda" and arm == "mesh8":
+                k1 = launches[kernel.NAME]
+        _same_schedule(f"mesh_sim mesh8 vs default ({dev})", res["default"],
+                       res["mesh8"], 0.0)
+    return k1, k2_launches
 
 
 def _trace(n_apps):
@@ -2818,6 +3022,15 @@ def main() -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         phase_train_restart(dev, Path(tmp))
+    # K1's and K2's launches on the mesh path beside their own paths'
+    mesh_k1, mesh_k2 = phase_mesh(dev, W, ov_width, min(300, args.sim_apps))
+    for k in kernels:
+        if k["name"] == kernel.NAME:
+            k["mesh_launches"] = mesh_k1
+            k["mesh_path"] = "run_sim at mesh_shards=8, 300 apps"
+        elif k["name"] == kernel.PHASE_NAME:
+            k["mesh_launches"] = mesh_k2
+            k["mesh_path"] = "6 mesh ticks at 8 shards, 16,384 slots"
     # each model kernel's launches on the train path beside its own path's:
     # K3 and K4 on phase 26's Llama-3-8B, K6 and K7 on phase 24's families
     for k in kernels:

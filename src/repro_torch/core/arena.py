@@ -9,6 +9,20 @@ slot-aligned across membership churn).  Host input rows are numpy arrays
 mutated in place O(1) per scheduler event; ``mark_dirty`` accumulates the
 slots whose PDGraph position changed for the next delta walk.
 
+**Shard placement** (the mesh-sharded refresh, :mod:`repro_torch.core.
+refresh_mesh`): with ``n_shards`` > 1 the arena is split into shards by
+residue — ``shard_of(slot) = slot % n_shards`` — so a slot's shard is a
+pure function of its id and survives capacity doubling.  Each shard owns
+its own free-list and dirty set, and its rows sit contiguously in the
+device arena in the shard-major row layout
+
+    device_row(slot) = (slot % n_shards) * (capacity // n_shards)
+                       + slot // n_shards
+
+(the identity map at one shard), so shard *s*'s rows are the block
+``[s * cap_s, (s + 1) * cap_s)``.  Admission takes its slot from the shard
+with the most free slots (lowest shard on a tie), as the reference does.
+
 Device rows (torch tensors on the packed KB's device):
 
 * ``d_probs`` / ``d_edges`` — (cap, n_buckets) demand-histogram rows;
@@ -20,13 +34,11 @@ Device rows (torch tensors on the packed KB's device):
   (online learning only, :mod:`repro_torch.core.posterior`; never
   allocated without it).
 
+All of them are in device-row order.
+
 Host mirrors: ``rank``, the triage scalars ``sup``/``opt``/``mean`` and the
 prewarm rows ``trig``/``reach``.  ``repack()`` rebuilds the arena at the
 smallest fitting capacity at a tick boundary and remaps every row.
-
-Not ported in this slice: shard placement across a mesh (ROADMAP.md,
-modules to port, item 8); the arena is the one-shard layout, where device
-row == slot id.
 """
 from __future__ import annotations
 
@@ -41,11 +53,16 @@ from repro_torch.core.pdgraph import ARRIVAL_NEVER, PackedKB, _pow2_ceil
 class QueueState:
     """Persistent per-application slot store (see module docstring)."""
 
-    def __init__(self, packed: PackedKB, capacity: int = 64):
+    def __init__(self, packed: PackedKB, capacity: int = 64,
+                 n_shards: int = 1):
+        if n_shards < 1 or n_shards & (n_shards - 1):
+            raise ValueError(f"n_shards must be a power of two, "
+                             f"got {n_shards}")
+        self.n_shards = n_shards
         self.device = packed.device
         self.n_units = packed.n_units
         self.max_samples = packed.n_samples
-        cap = max(_pow2_ceil(capacity), 1)
+        cap = max(_pow2_ceil(capacity), n_shards, 1)
         self.graph_idx = np.zeros(cap, np.int32)
         self.start = np.zeros(cap, np.int32)
         self.executed = np.zeros(cap, np.float32)
@@ -59,9 +76,11 @@ class QueueState:
         self.ids: List[Optional[str]] = [None] * cap
         self.slot: Dict[str, int] = {}
         self._occ = np.zeros(cap, bool)
-        self._free: List[int] = list(range(cap - 1, -1, -1))
+        self._frees: List[List[int]] = [
+            list(range(cap - n_shards + s, s - 1, -n_shards))
+            for s in range(n_shards)]
         self.live = 0
-        self._dirty: set = set()
+        self._dirty: List[set] = [set() for _ in range(n_shards)]
         self.rank_dirty: set = set()   # attained moved since last rank write
         self.override_apps = 0       # apps with >= 1 active override row
         self.kb_token = None         # packed-KB version tag (rebuild guard)
@@ -89,37 +108,65 @@ class QueueState:
     def capacity(self) -> int:
         return self.graph_idx.shape[0]
 
+    @property
+    def shard_capacity(self) -> int:
+        return self.capacity // self.n_shards
+
     def occupied(self) -> np.ndarray:
         """Slot ids of all live applications, ascending."""
         return np.nonzero(self._occ)[0]
 
+    # ------------------------------------------------------------- placement
+    def shard_of(self, slot: int) -> int:
+        return slot % self.n_shards
+
+    def device_rows(self, slots: np.ndarray) -> np.ndarray:
+        """Shard-major device-arena row of each slot (identity at 1 shard)."""
+        s = np.asarray(slots, np.int64)
+        return (s % self.n_shards) * self.shard_capacity + s // self.n_shards
+
+    def row_slots(self) -> np.ndarray:
+        """Inverse layout map: the slot id stored at each device row."""
+        rows = np.arange(self.capacity, dtype=np.int64)
+        return (rows % self.shard_capacity) * self.n_shards \
+            + rows // self.shard_capacity
+
     # ------------------------------------------------------------- dirty set
     @property
     def dirty(self) -> set:
-        return set(self._dirty)
+        """Union of the per-shard dirty sets (a fresh set)."""
+        out: set = set()
+        for d in self._dirty:
+            out |= d
+        return out
 
     @property
     def dirty_count(self) -> int:
-        return len(self._dirty)
+        return sum(len(d) for d in self._dirty)
+
+    def _add_dirty(self, slot: int) -> None:
+        self._dirty[slot % self.n_shards].add(slot)
 
     def mark_dirty(self, app_id: str) -> None:
         i = self.slot.get(app_id)
         if i is not None:
-            self._dirty.add(i)
+            self._add_dirty(i)
 
     def dirty_in(self, slots) -> set:
         """Dirty slots among ``slots`` (any iterable of slot ids)."""
-        return {s for s in slots if s in self._dirty}
+        return {s for s in slots if s in self._dirty[s % self.n_shards]}
 
     def clear_dirty(self, slots) -> None:
         for s in slots:
-            self._dirty.discard(int(s))
+            self._dirty[int(s) % self.n_shards].discard(int(s))
 
     def take_dirty(self) -> np.ndarray:
-        """Drain the dirty set (ascending slot ids)."""
-        out = np.asarray(sorted(self._dirty), np.int64)
-        self._dirty.clear()
-        return out
+        """Drain the dirty sets (ascending slot ids)."""
+        out: List[int] = []
+        for d in self._dirty:
+            out.extend(d)
+            d.clear()
+        return np.asarray(sorted(out), np.int64)
 
     def take_rank_dirty(self, within: Optional[set] = None) -> set:
         """Drain the rank-stale set (optionally only within a slot subset)."""
@@ -137,6 +184,22 @@ class QueueState:
     _DEVICE_ROWS = ("d_probs", "d_edges", "a_hist", "a_lo", "a_span",
                     "a_reach", "post")
 
+    @property
+    def _free(self) -> List[int]:
+        """Flat view of the per-shard free-lists."""
+        return [s for f in self._frees for s in f]
+
+    def _free_count(self) -> int:
+        return sum(len(f) for f in self._frees)
+
+    def _take_slot(self) -> int:
+        """Pop a free slot from the shard with the most free slots (lowest
+        shard on a tie), growing the arena first when it is full."""
+        if not self._free_count():
+            self._grow()
+        shard = max(range(self.n_shards), key=lambda s: len(self._frees[s]))
+        return self._frees[shard].pop()
+
     def _grow(self) -> None:
         old = self.capacity
         extra = ("trig", "reach") if self.trig is not None else ()
@@ -152,11 +215,19 @@ class QueueState:
             self.trig[old:] = ARRIVAL_NEVER
         self.ids.extend([None] * old)
         self._occ = np.concatenate([self._occ, np.zeros(old, bool)])
-        self._free.extend(range(old * 2 - 1, old - 1, -1))
+        n = self.n_shards
+        for s in range(n):
+            self._frees[s].extend(range(old * 2 - n + s, old - 1, -n))
+        # shard-major layout: each shard's block grows in place, so old rows
+        # keep their row within the shard (a plain concatenation at 1 shard)
+        cs = old // n
         for name in self._DEVICE_ROWS:
             a = getattr(self, name)
             if a is not None:
-                setattr(self, name, torch.cat([a, torch.zeros_like(a)]))
+                blocks = a.reshape((n, cs) + a.shape[1:])
+                setattr(self, name, torch.cat(
+                    [blocks, torch.zeros_like(blocks)], dim=1)
+                    .reshape((old * 2,) + a.shape[1:]))
 
     def _grow_override_width(self, width: int) -> None:
         width = min(_pow2_ceil(width), self.max_samples)
@@ -206,14 +277,14 @@ class QueueState:
         if len(slots) == 0:
             return
         self.ensure_posterior_rows()
-        rows = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        rows = torch.as_tensor(self.device_rows(slots), device=self.device)
         self.post[rows] = torch.as_tensor(np.asarray(vals, np.float32),
                                           device=self.device)
 
     def posterior_rows(self, slots: np.ndarray) -> np.ndarray:
         """Read back the device posterior rows of a slot subset."""
         self.ensure_posterior_rows()
-        rows = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        rows = torch.as_tensor(self.device_rows(slots), device=self.device)
         return self.post[rows].cpu().numpy()
 
     # ------------------------------------------------------------ lifecycle
@@ -221,10 +292,9 @@ class QueueState:
               refresh_id: int = 0, deadline: Optional[float] = None,
               stretch: float = 1.0) -> int:
         """Take a free slot for a new application (grow by doubling when
-        the arena is full); the slot starts dirty."""
-        if not self._free:
-            self._grow()
-        i = self._free.pop()
+        the arena is full) from the shard with the most free slots; the
+        slot starts dirty."""
+        i = self._take_slot()
         self.ids[i] = app_id
         self.slot[app_id] = i
         self._occ[i] = True
@@ -238,7 +308,7 @@ class QueueState:
         self.deadline[i] = np.inf if deadline is None else deadline
         self.stretch[i] = stretch
         self.ov_counts[i] = 0
-        self._dirty.add(i)
+        self._add_dirty(i)
         return i
 
     def admit_many(self, rows: Sequence[tuple]) -> np.ndarray:
@@ -247,13 +317,11 @@ class QueueState:
         n = len(rows)
         slots = np.empty(n, np.int64)
         for j, (app_id, *_rest) in enumerate(rows):
-            if not self._free:
-                self._grow()
-            i = self._free.pop()
+            i = self._take_slot()
             slots[j] = i
             self.ids[i] = app_id
             self.slot[app_id] = i
-            self._dirty.add(i)
+            self._add_dirty(i)
         self._occ[slots] = True
         self.live += n
         self.graph_idx[slots] = [r[1] for r in rows]
@@ -279,9 +347,9 @@ class QueueState:
                 self.override_apps -= 1
             self.ids[i] = None
             freed.append(i)
-            self._dirty.discard(i)
+            self._dirty[i % self.n_shards].discard(i)
             self.rank_dirty.discard(i)
-            self._free.append(i)
+            self._frees[i % self.n_shards].append(i)
         out = np.asarray(freed, np.int64)
         if len(out):
             self._occ[out] = False
@@ -294,7 +362,7 @@ class QueueState:
             self.mark_dirty(app_id)
 
     def retire(self, app_id: str) -> None:
-        """Release an application's slot back to the free-list."""
+        """Release an application's slot back to its shard's free-list."""
         self.retire_many([app_id])
 
     # --------------------------------------------------------------- events
@@ -302,7 +370,7 @@ class QueueState:
         i = self.slot[app_id]
         self.start[i] = unit_idx
         self.executed[i] = 0.0
-        self._dirty.add(i)
+        self._add_dirty(i)
 
     def add_progress(self, app_id: str, delta: float) -> None:
         # progress does NOT dirty the slot: the TOTAL-demand histogram stays
@@ -324,7 +392,7 @@ class QueueState:
             self.override_apps += 1
         self.ov_samples[i, unit_idx, :len(arr)] = arr
         self.ov_counts[i, unit_idx] = len(arr)
-        self._dirty.add(i)
+        self._add_dirty(i)
 
     def get_deadline(self, slot: int) -> Optional[float]:
         d = self.deadline[slot]
@@ -343,7 +411,8 @@ class QueueState:
         smaller power of two fits).  Returns the old->new slot map when a
         repack happened.  Call ONLY at a tick boundary."""
         cap = self.capacity
-        target = max(_pow2_ceil(max(self.live, 1)), min_capacity)
+        target = max(_pow2_ceil(max(self.live, 1)), min_capacity,
+                     self.n_shards)
         if cap <= min_capacity or self.live > occupancy_threshold * cap \
                 or target >= cap:
             return None
@@ -353,7 +422,8 @@ class QueueState:
         """Rebuild the arena at ``new_capacity`` (default: smallest fitting
         power of two), renumbering live slots densely in ascending old-slot
         order; every host row and device row is remapped (no re-walk)."""
-        new_cap = max(_pow2_ceil(new_capacity or max(self.live, 1)), 1)
+        old_cap, n = self.capacity, self.n_shards
+        new_cap = max(_pow2_ceil(new_capacity or max(self.live, 1)), n, 1)
         old_slots = self.occupied()                       # ascending
         if len(old_slots) > new_cap:
             raise ValueError(f"repack to {new_cap} < live {len(old_slots)}")
@@ -374,9 +444,14 @@ class QueueState:
         self.stretch[~fill] = 1.0
         if self.trig is not None:
             self.trig[~fill] = ARRIVAL_NEVER
-        # device rows: one gather (hole rows read row 0 — garbage-in-bounds,
-        # masked like any other hole)
-        gidx = torch.as_tensor(np.where(fill, src, 0), device=self.device)
+        # device rows: one gather in the new shard-major row order (hole rows
+        # read row 0 — garbage-in-bounds, masked like any other hole)
+        new_cs = new_cap // n
+        rows = np.arange(new_cap, dtype=np.int64)
+        nslot = (rows % new_cs) * n + rows // new_cs       # slot per new row
+        old_row = np.where(fill[nslot], (src[nslot] % n) * (old_cap // n)
+                           + src[nslot] // n, 0)
+        gidx = torch.as_tensor(old_row, device=self.device)
         for name in self._DEVICE_ROWS:
             a = getattr(self, name)
             if a is not None:
@@ -387,9 +462,13 @@ class QueueState:
             self.ids[new] = old_ids[old]
             self.slot[old_ids[old]] = new
         self._occ = fill
-        self._free = [s for s in range(new_cap - 1, -1, -1) if not fill[s]]
+        self._frees = [[s for s in range(new_cap - n + sh, sh - 1, -n)
+                        if not fill[s]] for sh in range(n)]
         remap = lambda ss: {mapping[s] for s in ss if s in mapping}  # noqa: E731
-        self._dirty = remap(self._dirty)
+        old_dirty = self.dirty
+        self._dirty = [set() for _ in range(n)]
+        for s in remap(old_dirty):
+            self._dirty[s % n].add(s)
         self.rank_dirty = remap(self.rank_dirty)
         self.repack_epoch += 1
         return mapping
@@ -409,11 +488,11 @@ class QueueState:
                 self.stretch[idx], self.ov_samples[idx], self.ov_counts[idx])
 
 
-def build_queue_state(packed: PackedKB, apps: Sequence,
-                      kb_token=None) -> QueueState:
+def build_queue_state(packed: PackedKB, apps: Sequence, kb_token=None,
+                      n_shards: int = 1) -> QueueState:
     """Rebuild a QueueState from live AppRuntime records; every admitted
     slot starts dirty, so the next delta tick re-walks the whole queue."""
-    qs = QueueState(packed, capacity=max(len(apps), 64))
+    qs = QueueState(packed, capacity=max(len(apps), 64), n_shards=n_shards)
     qs.kb_token = kb_token
     for a in apps:
         g = packed.graph_index[a.app_name]

@@ -28,8 +28,9 @@ small per-app results cross to the host.
   walk.  With ``posterior`` each walked row's posterior row is blended with
   the prior into its walk tables (:mod:`repro_torch.core.posterior`).
 
-On a CPU arena every kernel call takes its plain version.  Not ported in
-this slice: the mesh (ROADMAP.md, modules to port, item 8).
+On a CPU arena every kernel call takes its plain version.  The sharded
+arena's tick lives in :mod:`repro_torch.core.refresh_mesh` and runs this
+module's walk section once per shard.
 """
 from __future__ import annotations
 
@@ -196,7 +197,8 @@ def _prewarm_args(packed: PackedKB, prewarm_table):
 
 def _walk(packed: PackedKB, rows: _Rows, *, walker, base_key, seed,
           rank_in_kernel, n_walkers, max_steps, n_buckets, with_prewarm,
-          with_triage, with_rank=True, po_cum=None, po_scale=None):
+          with_triage, with_rank=True, po_cum=None, po_scale=None,
+          compact_schedule=None):
     """The walk section of every dispatch: queue rows -> the
     ``pdgraph_walk_ranked`` dict (``probs``, ``edges``, ``ranks``,
     ``total`` with triage, ``spill`` and the arrival rows with prewarming),
@@ -204,7 +206,10 @@ def _walk(packed: PackedKB, rows: _Rows, *, walker, base_key, seed,
     walk (``pdgraph_walk``, or the threefry walker from ``base_key``; the
     reference's ``_walk_total``) and the PyTorch reductions — the same bits
     unless a compaction stage spills.  The composition ranks only
-    ``with_rank`` (the delta tick re-ranks every slot in place anyway)."""
+    ``with_rank`` (the delta tick re-ranks every slot in place anyway) and
+    compacts the per-phase walk with ``compact_schedule`` (``None``: its
+    default single stage).  ``rows.kid`` / ``rows.rid`` are host arrays or
+    tensors."""
     dev = packed.device
     if walker == "threefry":
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
@@ -230,8 +235,8 @@ def _walk(packed: PackedKB, rows: _Rows, *, walker, base_key, seed,
             rows.start, rows.executed,
             walker_streams(seed, rows.kid, rows.rid, device=dev), rows.ovs,
             rows.ovc, valid=rows.valid, n_walkers=n_walkers,
-            max_steps=max_steps, track_arrivals=with_prewarm, po_cum=po_cum,
-            po_scale=po_scale)
+            max_steps=max_steps, compact_schedule=compact_schedule,
+            track_arrivals=with_prewarm, po_cum=po_cum, po_scale=po_scale)
         rem, arr, spill = out if with_prewarm else (out[0], None, out[1])
     total = rows.attained[:, None] + torch.maximum(rem, f32(0.0, rem))
     probs, edges = to_histogram_rows(total, n_buckets)
@@ -389,6 +394,9 @@ def refresh_ranks_delta(packed: PackedKB, qs: QueueState, seed, *,
     slot's device posterior row with the prior into its walk tables.
     ``walker="threefry"`` walks from ``base_key``.  Does NOT bump refresh
     ids; callers bump ``walked`` after consuming."""
+    if qs.n_shards != 1:
+        raise ValueError("refresh_ranks_delta serves 1-shard arenas; "
+                         "mesh-sharded stores go through refresh_ranks_mesh")
     _check_walker(walker, base_key, rank_in_kernel)
     with_pw = prewarm_table is not None
     qs.ensure_result_rows(n_buckets,

@@ -23,9 +23,10 @@ asks for the CPU explicitly, and construction raises when ``cuda`` is asked
 for without a card).  ``RefreshConfig(rank_in_kernel=False)`` composes the
 per-phase walk with the reductions; ``posterior`` (a ``PosteriorConfig``,
 ``fused_delta`` only) learns branch mixes and unit demands online.
-
-Not ported in this slice: ``mesh_shards`` (construction raises
-``NotImplementedError``; ROADMAP.md, modules to port, item 8).
+``mesh_shards`` splits the arena into shards on the same device
+(:mod:`repro_torch.core.refresh_mesh`): each tick walks every shard's dirty
+rows and re-ranks only the stale ones, the same bits as the single arena;
+``lane_balance`` walks a skewed dirty set round-robin.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from repro_torch.core.posterior import (END, Observation, PosteriorConfig,
 from repro_torch.core.prewarm import (PrewarmPlan, PrewarmSignal,
                                       build_prewarm_table)
 from repro_torch.core.refresh_config import RefreshConfig
+from repro_torch.core.refresh_mesh import RefreshMesh, refresh_ranks_mesh
 from repro_torch.core.refresh_pipeline import (refresh_ranks_delta,
                                                refresh_ranks_fused)
 from repro_torch.device import DeviceLike, resolve_device
@@ -103,18 +105,22 @@ class HermesScheduler:
                 RefreshConfig(), mode="composed" if batched else "looped")
         else:
             rc = refresh
-        if rc.mesh_shards is not None:
-            raise NotImplementedError(
-                "mesh_shards: the sharded arena is not ported yet "
-                "(ROADMAP.md, modules to port, item 8)")
         self.refresh_config = rc
         self.mode = rc.mode
         self.batched = self.mode != "looped"
         self.delta_full_threshold = rc.delta_full_threshold
         self.queue_delay_correction = rc.queue_delay_correction
+        # mesh sharding: the arena split into mesh_shards shards on this
+        # device, walked and ranked shard by shard (the same bits as the
+        # single arena); None keeps the single-arena delta tick
+        self.refresh_mesh: Optional[RefreshMesh] = None
+        if rc.mesh_shards is not None:
+            self.refresh_mesh = RefreshMesh(rc.mesh_shards,
+                                            device=self.device)
         self._stretch_alpha = 0.3       # queue-wait EWMA smoothing
         self.walker = rc.walker
         self.rank_in_kernel = rc.rank_in_kernel
+        self.lane_balance = rc.lane_balance
         if hasattr(self.policy, "vectorized"):
             self.policy.vectorized = self.batched
         self.apps: Dict[str, AppRuntime] = {}
@@ -129,6 +135,10 @@ class HermesScheduler:
         self.warmup_table = warmup_table  # per-key warm-up cost overrides
         self._prewarm_tab = None          # (kb token, PrewarmTable) cache
         self.prewarm_plan: Optional[PrewarmPlan] = None   # last fused plan
+        # mesh ticks with Gittins: app_id -> rank, updated only for the
+        # re-ranked slots each tick; callers get a shallow copy
+        self._mesh_ranks: Optional[Dict[str, float]] = None
+        self._mesh_ranks_qs = None        # owning QueueState (invalidation)
         self.backend_slowdown: Dict[str, float] = {}
         # online posterior learning: observations buffer on the host and
         # fold into per-graph statistics at the next delta tick, which
@@ -201,7 +211,9 @@ class HermesScheduler:
         token = self._packed[0]
         if self._qstate is None or self._qstate.kb_token != token:
             self._qstate = build_queue_state(
-                packed, list(self._live.values()), kb_token=token)
+                packed, list(self._live.values()), kb_token=token,
+                n_shards=(self.refresh_mesh.n_shards if self.refresh_mesh
+                          else 1))
         return self._qstate
 
     def _qstate_if_current(self):
@@ -331,6 +343,8 @@ class HermesScheduler:
         if self.posterior is not None:
             self._posterior_flush(qs, walked)
         tab = self._prewarm_table() if self.prewarm_batched else None
+        if self.refresh_mesh is not None:
+            return self._priorities_mesh(qs, live, walked, now, tab, full)
         tick = refresh_ranks_delta(
             self._packed[1], qs, self._seed, base_key=self._base_key,
             walked=walked, n_walkers=self.mc_walkers,
@@ -351,6 +365,62 @@ class HermesScheduler:
             for s in walked:
                 self.apps[qs.ids[int(s)]].refreshes += 1
         return self._ranks_from_store(qs, live, tick.ranks, now)
+
+    def _priorities_mesh(self, qs, live: List[AppRuntime],
+                         walked: np.ndarray, now: float, tab,
+                         full: bool) -> Dict[str, float]:
+        """The mesh tick: walk each shard's dirty rows and re-rank each
+        shard's *stale* rows (walked ∪ progressed); every other live rank
+        is served from the store's host rank mirror.  With plain Gittins
+        the consumption is an incremental dict, O(churn) a tick."""
+        within = None if full else {qs.slot[a.app_id] for a in live}
+        stale = qs.take_rank_dirty(within)
+        stale.update(int(s) for s in walked)
+        ranked = np.asarray(sorted(stale), np.int64)
+
+        def bookkeeping():
+            # overlapped with the device work (the refresh ids were
+            # already packed into the tick's carrier)
+            if len(walked):
+                qs.bump_refresh(walked)
+                for s in walked:
+                    self.apps[qs.ids[int(s)]].refreshes += 1
+
+        tick = refresh_ranks_mesh(
+            self._packed[1], qs, self._seed, mesh=self.refresh_mesh,
+            walked=walked, ranked=ranked, base_key=self._base_key,
+            n_walkers=self.mc_walkers, n_buckets=self.n_buckets,
+            walker=self.walker, prewarm_table=tab, prewarm_k=self.K,
+            retrigger=full, host_work=bookkeeping,
+            with_triage=self._with_triage, posterior=self.posterior,
+            rank_in_kernel=self.rank_in_kernel,
+            lane_balance=self.lane_balance)
+        self.fused_spill += tick.spill
+        if tab is not None:
+            plan_slots = qs.occupied() if full else walked
+            if len(plan_slots):
+                self._stash_plan(PrewarmPlan.from_store(qs, plan_slots,
+                                                        now, tab))
+        if type(self.policy) is GittinsPolicy:
+            # only the re-ranked slots touch the cached dict (retires prune
+            # it in _retire; a store rebuild resets it).  Event-path subset
+            # ticks update it too: they re-walk slots and drain their marks
+            cache = self._mesh_ranks
+            if cache is not None and self._mesh_ranks_qs is qs:
+                for s, r in zip(ranked.tolist(), tick.ranks.tolist()):
+                    cache[qs.ids[s]] = r
+            if not full:
+                slots = np.asarray([qs.slot[a.app_id] for a in live],
+                                   np.int64)
+                ids = [qs.ids[s] for s in slots.tolist()]
+                return dict(zip(ids, qs.rank[slots].tolist()))
+            if cache is None or self._mesh_ranks_qs is not qs:
+                occ = qs.occupied()
+                cache = dict(zip([qs.ids[s] for s in occ.tolist()],
+                                 qs.rank[occ].tolist()))
+                self._mesh_ranks, self._mesh_ranks_qs = cache, qs
+            return dict(cache)
+        return self._ranks_from_store(qs, live, qs.rank, now)
 
     def _ranks_from_store(self, qs, live: List[AppRuntime],
                           ranks_row: np.ndarray, now: float
@@ -525,6 +595,8 @@ class HermesScheduler:
         app.view = None
         app.overrides.clear()
         self._live.pop(app.app_id, None)
+        if self._mesh_ranks is not None:
+            self._mesh_ranks.pop(app.app_id, None)
         if self._qstate is not None:
             self._qstate.retire(app.app_id)
 

@@ -48,15 +48,19 @@ def counter_uniforms(stream: torch.Tensor, ctr: torch.Tensor):
     return r, r2
 
 
+def _int64(x, device) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+
+
 def walker_streams(seed, key_ids, refresh_ids,
                    device: Optional[torch.device] = None) -> torch.Tensor:
     """Per-(app, refresh) stream ids, ``int64`` in ``[0, 2**32)`` — the
     counter-RNG analogue of the ``fold_in(fold_in(key, key_id), refresh)``
-    chain."""
-    kid = torch.as_tensor(np.asarray(key_ids).astype(np.int64),
-                          device=device) & MASK32
-    rid = torch.as_tensor(np.asarray(refresh_ids).astype(np.int64),
-                          device=kid.device) & MASK32
+    chain.  ``key_ids`` / ``refresh_ids`` are host arrays or tensors."""
+    kid = _int64(key_ids, device) & MASK32
+    rid = _int64(refresh_ids, kid.device) & MASK32
     s = fmix32((int(seed) & MASK32) ^ _mul32(kid, GOLDEN))
     return fmix32(s ^ _mul32(rid, M1))
 

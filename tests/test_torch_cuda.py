@@ -1081,3 +1081,89 @@ def test_restart_is_bit_exact_on_the_card(tmp_path):
     for n, t in on_card[0].items():
         assert t.is_cuda and torch.equal(t.cpu(), on_cpu[0][n])
         assert torch.equal(on_card[1].m[n].cpu(), on_cpu[1].m[n])
+
+
+# ---------------------------------------------------------------- the mesh
+
+def _mesh_store(device, n_shards, cap=512, W=64):
+    """A sharded arena of ``cap - 8`` apps (overrides on every ninth) and
+    its prewarm table, the same on every device."""
+    from repro_torch.core.arena import QueueState
+    from repro_torch.core.hermeslet import warmup_time_for
+    from repro_torch.core.prewarm import build_prewarm_table
+    kb = build_knowledge_base(n_trials=60, seed=3)
+    packed = pack_graphs(kb, T_IN, T_OUT, device=device)
+    tab = build_prewarm_table(kb, packed, warmup_time_for)
+    qs = QueueState(packed, capacity=cap, n_shards=n_shards)
+    rng = np.random.default_rng(4)
+    gi = rng.integers(0, len(packed.names), cap - 8)
+    qs.admit_many([(f"a{i}", int(g), int(packed.entry[g]), i, None)
+                   for i, g in enumerate(gi)])
+    for i in range(0, cap - 8, 9):
+        qs.set_override(f"a{i}", i % packed.n_units,
+                        rng.uniform(0.1, 6.0, 1 + i % 7))
+    return packed, tab, qs
+
+
+def _mesh_ticks(device, n_shards, rik, lane):
+    """Three mesh ticks: every slot, a uniform dirty set, and a skewed one
+    (slots 0 mod 4, lane-balanced with ``lane``), each with progress on
+    other slots; returns the store and each tick's K1 / K2 launches and
+    walking shards."""
+    from repro_torch.core.refresh_mesh import RefreshMesh, refresh_ranks_mesh
+    from repro_torch.kernels import reset_launches
+    packed, tab, qs = _mesh_store(device, n_shards)
+    mesh = RefreshMesh(n_shards, device=device)
+    rng = np.random.default_rng(9)
+    out = []
+    for tick in range(3):
+        occ = qs.occupied()
+        if tick:
+            pick = (occ[occ % 4 == 0][:40] if tick == 2
+                    else rng.choice(occ, 40, replace=False))
+            for s in pick:
+                qs.set_unit(qs.ids[s], int(rng.integers(0, packed.n_units)))
+            for s in rng.choice(occ, 30, replace=False):
+                qs.add_progress(qs.ids[s], 0.5)
+        walked = qs.take_dirty()
+        ranked = np.asarray(sorted(qs.take_rank_dirty() | set(walked)),
+                            np.int64)
+        reset_launches()
+        t = refresh_ranks_mesh(
+            packed, qs, 7, mesh=mesh, walked=walked, ranked=ranked,
+            n_walkers=64, prewarm_table=tab, with_triage=True,
+            rank_in_kernel=rik, lane_balance=lane if tick == 2 else None)
+        shards = (min(n_shards, len(walked)) if t.balanced
+                  else len(set((walked % n_shards).tolist())))
+        out.append((dict(LAUNCHES), shards, t.balanced, t.spill))
+        qs.bump_refresh(walked)
+    return qs, out
+
+
+@pytest.mark.parametrize("rik", [True, False], ids=["K1", "K2"])
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_mesh_tick_on_the_card_equals_the_cpu(dev, n_shards, rik):
+    """The mesh tick on ``cuda`` (K1 a shard, or K2's phases a shard)
+    against the CPU's plain versions, bit for bit: ranks, triage scalars,
+    trigger rows and every arena row; K1 launches once for each shard
+    with walk rows, K2 at least once, and neither falls back."""
+    lane = 0.0 if n_shards > 1 else None
+    q_dev, ticks = _mesh_ticks(dev, n_shards, rik, lane)
+    q_cpu, cpu_ticks = _mesh_ticks(torch.device("cpu"), n_shards, rik, lane)
+    for name in ("rank", "sup", "opt", "mean", "trig", "reach", "a_att"):
+        np.testing.assert_array_equal(getattr(q_dev, name),
+                                      getattr(q_cpu, name), err_msg=name)
+    for name in ("d_probs", "d_edges", "a_hist", "a_lo", "a_span",
+                 "a_reach"):
+        assert torch.equal(getattr(q_dev, name).cpu(),
+                           getattr(q_cpu, name)), name
+    for (launches, shards, balanced, spill), cpu in zip(ticks, cpu_ticks):
+        assert spill == 0 and cpu[3] == 0
+        assert balanced == cpu[2]
+        if rik:
+            assert launches[kernel.NAME] == shards
+            assert launches[kernel.PHASE_NAME] == 0
+        else:
+            assert launches[kernel.NAME] == 0
+            assert launches[kernel.PHASE_NAME] >= shards
+    assert ticks[2][2] == (n_shards > 1)          # the skewed tick balanced

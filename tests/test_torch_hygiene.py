@@ -6,6 +6,7 @@ it; none names item 9 or item 16, which are ported."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 import torch
@@ -61,8 +62,23 @@ def kb():
     (RefreshConfig(mesh_shards=2), "item 8"),
 ])
 def test_out_of_slice_refresh_configs_raise(kb, refresh, item):
-    with pytest.raises(NotImplementedError, match=item):
-        HermesScheduler(kb, refresh=refresh, device="cpu")
+    """The sharded arena (item 8a) is ported: ``mesh_shards=2`` builds a
+    2-shard mesh on the asked-for device and runs a tick over a 2-shard
+    arena, where it used to raise ``NotImplementedError`` naming the
+    item."""
+    sched = HermesScheduler(kb, refresh=refresh, device="cpu")
+    assert sched.refresh_mesh.n_shards == 2
+    assert sched.refresh_mesh.device == torch.device("cpu")
+    for i, name in enumerate(sorted(kb)[:5]):
+        sched.on_arrival(f"a{i}", name, now=0.0)
+    ranks = sched.priorities(1.0)
+    assert sorted(ranks) == [f"a{i}" for i in range(5)]
+    assert all(np.isfinite(list(ranks.values())))
+    assert sched._qstate.n_shards == 2
+    assert {s % 2 for s in sched._qstate.occupied()} == {0, 1}
+    assert not [f for f in PORT.rglob("*.py")
+                if f"{item})" in f.read_text()
+                and "NotImplementedError" in f.read_text()]
 
 
 def test_bare_scheduler_runs_the_default_refresh(kb):

@@ -171,12 +171,40 @@ Phases (any failure raises and the script exits non-zero):
    versions at the 8-shard launch's rows; then ``run_sim`` at
    ``mesh_shards=8`` on the first 300 applications of phase 2's trace
    against ``SimConfig()`` on the same apps, on ``cuda`` and on the CPU:
-   identical completion order and ACTs.
+   identical completion order and ACTs;
+29. the expert-parallel MoE (``moe_impl="ep"``, ``distributed/ep_moe.py``:
+   every position of a logical ``(data, model)`` mesh on the one card,
+   the three expert products one K6 launch each over all ranks' buffers):
+   (a) Qwen1.5-MoE widths at 2 of 24 layers, float32, a 2 x 256-token
+   prefill under meshes (1, 1), (1, 4) and (2, 2), ``cuda`` against the
+   CPU from the same weights: logits within 1e-4, the same copies kept
+   and dropped (counts printed), K6 launched three times a layer; EP (1,
+   4) against the sort path within 1e-4 at a capacity factor where
+   neither drops a copy; (b) the full-depth bfloat16
+   ``PERF_PRESETS["qwen2-moe-a2.7b"]`` (30.29 GB) under
+   ``make_host_mesh(4)``: a 4 x 512-token prefill, finite logits, K6's
+   launches counted around it, prefill ms beside the sort path's on the
+   same weights (median of 3), peak memory, and K6 at the EP buffer
+   shapes (64, 208, 2,048, 1,408) and (64, 208, 1,408, 2,048) against its
+   plain version, timed beside its bound and ``torch.bmm``; (c) one
+   float32 training step of the tiny MoE under EP (1, 4), ``cuda`` against
+   the CPU: loss within 1e-4 relative, each gradient within 1e-4 of its
+   tensor's largest magnitude, K6's launches as the code implies;
+30. the selective remat policies: phase 26's configuration, one step's
+   loss and gradients under ``"full"`` (twice), ``"dots"`` and
+   ``"offloadable"`` from the same weights and batch, equal to
+   ``"full"``'s bit for bit (within the run-to-run gap if two ``"full"``
+   runs differ); step ms and peak memory for each;
+31. the dry run: ``python -m repro_torch.launch.dryrun --arch
+   qwen2-moe-a2.7b --shape train_4k --mesh single`` exits 0; its record
+   is printed.
 
 Then one JSON line with every kernel's numbers (K3, K4, K6 and K7 also
 with their launches on the train path: phase 26 for K3 and K4, phase 24
 for K6 and K7; K1 and K2 with their launches on the mesh path: phase 28's
-``cuda`` run for K1, its 8-shard K2 ticks for K2), the card's name and
+``cuda`` run for K1, its 8-shard K2 ticks for K2; K6 also at the EP
+buffer shape, ``moe_gmm:ep``, with its launches in phase 29's full-depth
+EP prefill), the card's name and
 power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero before
@@ -2935,6 +2963,378 @@ def phase_train_restart(device, tmp):
                              "on the card")
 
 
+# --------------------------------------------------------------------------
+# phases 29-31: the expert-parallel MoE on one card, the selective remat
+# policies, the dry run
+
+
+class _PackRecorder:
+    """Records each ``ep_moe._pack_by_key`` call's ``keep`` mask and real
+    keys (the second pack's last bin is padding), in call order: the first
+    pack of a layer, then its second."""
+
+    def __init__(self):
+        from repro_torch.distributed import ep_moe
+        self.mod, self.pack, self.calls = ep_moe, ep_moe._pack_by_key, []
+
+    def __enter__(self):
+        def recording(keys, n_bins, capacity):
+            res = self.pack(keys, n_bins, capacity)
+            real = res[1] < (n_bins if len(self.calls) % 2 == 0
+                             else n_bins - 1)
+            self.calls.append((res[3].cpu(), real.cpu()))
+            return res
+        self.mod._pack_by_key = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._pack_by_key = self.pack
+
+    def dropped(self):
+        """Real copies dropped at the destinations and at the experts."""
+        first = sum(int((~k & r).sum()) for k, r in self.calls[0::2])
+        second = sum(int((~k & r).sum()) for k, r in self.calls[1::2])
+        return first, second
+
+
+def _ep_ctx(shape, device):
+    from repro_torch.distributed.sharding import ShardCtx
+    from repro_torch.launch.mesh import make_mesh
+    return ShardCtx(make_mesh(shape, ("data", "model"), device))
+
+
+def _ep_capacities(cfg, tokens, shape):
+    """(Tc, C, C2, E_local) of the EP dispatch (``distributed/ep_moe.py``)
+    at ``tokens`` tokens over a ``(data, model)`` mesh."""
+    from repro_torch.models.layers import padded_experts
+    nd, n = shape
+    E = padded_experts(cfg.num_experts)
+    Tc, k = tokens // (nd * n), cfg.top_k
+    C = max(8, int(math.ceil(Tc * k * cfg.capacity_factor / n / 8)) * 8)
+    C2 = max(8, int(math.ceil(n * C * 1.3 / (E // n) / 8)) * 8)
+    return Tc, C, C2, E // n
+
+
+EP_MESHES = ((1, 1), (1, 4), (2, 2))
+
+
+def phase_ep_check(device):
+    """Phase 29 (a): Qwen1.5-MoE widths at 2 of its 24 layers, float32,
+    ``moe_impl="ep"``, a 2 x 256-token prefill under logical meshes (1, 1),
+    (1, 4) and (2, 2) on the card (K3-K6) and on the CPU from the same
+    weights: logits within 1e-4, the same copies kept and dropped, K6
+    launched three times a layer; then EP (1, 4) against the sort path on
+    the card at a capacity factor where neither drops a copy, within
+    1e-4."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.distributed.sharding import use_shard_ctx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import moe as X
+    from repro_torch.models.model import build_model
+    cfg = get_config("qwen2-moe-a2.7b").replace(num_layers=2,
+                                                 dtype="float32",
+                                                 moe_impl="ep")
+    card = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(1))
+    cpu = build_model(cfg, device="cpu").load_params(
+        {n: p.cpu() for n, p in card.params().items()})
+    tokens = torch.randint(1, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(2))
+    L = cfg.num_layers
+    for shape in EP_MESHES:
+        out, drops, keeps = {}, {}, {}
+        for side, model in (("card", card), ("cpu", cpu)):
+            reset_launches()
+            t0 = time.perf_counter()
+            with _PackRecorder() as rec, \
+                    use_shard_ctx(_ep_ctx(shape, model.device)):
+                _, out[side] = model.prefill(tokens)
+            if side == "card":
+                torch.cuda.synchronize()
+                launches = LAUNCHES.get("moe_gmm", 0)
+            ms = 1e3 * (time.perf_counter() - t0)
+            drops[side], keeps[side] = rec.dropped(), rec.calls
+            log(f"[ep_check {shape}] {side}: prefill {ms:.1f} ms (first "
+                f"call), copies dropped at the destinations / experts "
+                f"{drops[side]}")
+        Tc, C, C2, El = _ep_capacities(cfg, tokens.numel(), shape)
+        same = len(keeps["card"]) == len(keeps["cpu"]) == 2 * L and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(keeps["card"], keeps["cpu"]))
+        log(f"[ep_check {shape}] Tc={Tc} C={C} C2={C2} E_local={El}; kept "
+            f"and dropped copies identical card vs cpu: {same}; K6 "
+            f"launches {launches} (the code implies {3 * L})")
+        _hold(f"[ep_check {shape}] logits", out["card"].cpu(), out["cpu"],
+              "float32", tol=MODEL_F32_TOL)
+        if not same or launches != 3 * L:
+            raise AssertionError(f"[ep_check {shape}] copies kept differ or "
+                                 f"K6 launched {launches} times")
+    # EP against the sort path where nothing is dropped
+    wide = cfg.replace(capacity_factor=8.0)
+    card.cfg = wide
+    counts = []
+    route = X.route
+
+    def recording(p, xf, c):
+        w, i = route(p, xf, c)
+        counts.append(int(torch.bincount(i.flatten()).max()))
+        return w, i
+
+    X.route = recording
+    try:
+        with _PackRecorder() as rec, \
+                use_shard_ctx(_ep_ctx((1, 4), device)):
+            _, ep = card.prefill(tokens.to(device))
+        counts.clear()
+        _, srt = card.prefill(tokens.to(device))     # no context: sort
+    finally:
+        X.route = route
+    sort_cap = X.capacity(wide, tokens.numel())
+    log(f"[ep_check] capacity_factor=8.0: EP (1, 4) copies dropped "
+        f"{rec.dropped()}; the sort path's fullest expert {max(counts)} of "
+        f"its capacity {sort_cap}")
+    if rec.dropped() != (0, 0) or max(counts) > sort_cap:
+        raise AssertionError("[ep_check] a copy was dropped at "
+                             "capacity_factor=8.0")
+    _hold("[ep_check] EP (1, 4) vs the sort path, logits", ep, srt,
+          "float32", tol=MODEL_F32_TOL)
+    del card, cpu
+    _free()
+
+
+def phase_ep_path(device):
+    """Phase 29 (b): the full-depth Qwen1.5-MoE-A2.7B of ``PERF_PRESETS``
+    (``moe_impl="ep"``, bfloat16, random weights drawn on the card) under
+    ``make_host_mesh(4)``, (1, 4) on one card: a 4 x 512-token prefill,
+    finite logits, K6's launches counted around it (3 a layer); prefill
+    ms beside the sort path's on the same weights (median of 3,
+    alternating); peak memory; then K6 at the EP buffer shapes against its
+    plain version, timed beside its bound and ``torch.bmm``.  Returns the
+    kernels-line entry of K6 at the EP shape."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.configs import PERF_PRESETS
+    from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    cfg = get_config("qwen2-moe-a2.7b", **PERF_PRESETS["qwen2-moe-a2.7b"])
+    _free()
+    model = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(5))
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    tokens = torch.randint(1, cfg.vocab_size, (4, 512),
+                           generator=torch.Generator().manual_seed(6)
+                           ).to(device)
+    mesh = make_host_mesh(4, device=device)
+    ctx = ShardCtx(mesh)
+
+    def prefill(ep):
+        t0 = time.perf_counter()
+        with use_shard_ctx(ctx if ep else None):
+            _, logits = model.prefill(tokens)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), logits
+
+    prefill(True)
+    prefill(False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _PackRecorder() as rec:
+        _, ep_logits = prefill(True)
+    launches = LAUNCHES.get("moe_gmm", 0)
+    peak = torch.cuda.max_memory_allocated()
+    times = {"ep": [], "sort": []}
+    for _ in range(3):
+        for which in ("ep", "sort"):
+            ms, logits = prefill(which == "ep")
+            times[which].append(ms)
+    Tc, C, C2, El = _ep_capacities(cfg, tokens.numel(), (1, 4))
+    diff = float((ep_logits.float() - logits.float()).abs().max())
+    log(f"[ep_path] {cfg.name} layers={cfg.num_layers} {cfg.dtype} "
+        f"weights={weights} bytes; mesh {mesh}; 4 x 512 tokens: Tc={Tc} "
+        f"C={C} n*C={4 * C} E_local={El} C2={C2}; EP prefill ms "
+        f"{[round(t, 3) for t in times['ep']]} median "
+        f"{statistics.median(times['ep']):.3f}; sort prefill ms "
+        f"{[round(t, 3) for t in times['sort']]} median "
+        f"{statistics.median(times['sort']):.3f}; max_memory_allocated "
+        f"(EP prefill) {peak}; K6 launches {launches} (the code implies "
+        f"{3 * cfg.num_layers}); copies dropped at the destinations / "
+        f"experts {rec.dropped()}; last-position logits EP vs sort max "
+        f"|diff| {diff} (their dropped copies differ)")
+    if not torch.isfinite(ep_logits).all() or \
+            launches != 3 * cfg.num_layers:
+        raise AssertionError(f"[ep_path] non-finite logits or K6 launched "
+                             f"{launches} times")
+    del model, ep_logits, logits
+    _free()
+    E = 4 * El
+    main = _check_moe_gmm(device, E, C2, cfg.d_model, cfg.d_ff_expert,
+                          "bfloat16")
+    _check_moe_gmm(device, E, C2, cfg.d_ff_expert, cfg.d_model, "bfloat16")
+    entry = _kernel_entry("moe_gmm", main, "ep")
+    entry["launches"] = launches
+    entry["shape"] = [E, C2, cfg.d_model, cfg.d_ff_expert]
+    return entry
+
+
+def phase_ep_train(device):
+    """Phase 29 (c): one float32 training step of the tiny MoE (12 experts
+    padded to 16) under EP (1, 4) with remat, ``cuda`` (K6 under autograd)
+    against the CPU from the same weights: loss within 1e-4 relative, each
+    gradient within 1e-4 of its tensor's largest magnitude, K6's launches
+    as the code implies."""
+    import torch
+    from repro_torch.distributed.sharding import use_shard_ctx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    cfg = tiny_config("qwen2-moe-a2.7b", dtype="float32", remat=True,
+                      moe_impl="ep", num_experts=12)
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=device).load_params(cpu.params())
+    batch = _train_batch(cfg, 2, 16)
+    out = {}
+    for side, model in (("card", card), ("cpu", cpu)):
+        reset_launches()
+        with use_shard_ctx(_ep_ctx((1, 4), model.device)):
+            out[side] = _loss_and_grads(model, batch)
+        if side == "card":
+            launches = LAUNCHES.get("moe_gmm", 0)
+    (lc, gc), (lp, gp) = out["card"], out["cpu"]
+    worst = max(float((gc[n].cpu() - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for n, g in gp.items())
+    want = _train_launches(cfg, 2)["moe_gmm"]
+    log(f"[ep_train] loss card {float(lc):.7f} cpu {float(lp):.7f}; worst "
+        f"gradient error {worst:.3g} of its tensor's max; K6 launches "
+        f"{launches} (the code implies {want})")
+    if abs(float(lc) - float(lp)) > TRAIN_F32_TOL * abs(float(lp)) or \
+            worst > TRAIN_F32_TOL or launches != want:
+        raise AssertionError("[ep_train] the EP training step differs from "
+                             "the CPU's")
+    del card, cpu
+    _free()
+
+
+def _accumulated_grads(model, batch, n_mb):
+    """``make_train_step``'s loss and gradients without its update: the
+    mean over ``n_mb`` microbatches, accumulated in float32.  Also returns
+    the bytes the first microbatch's forward left allocated for its
+    backward (what a remat policy saves)."""
+    import torch
+    params = model.params()
+    names = list(params)
+    rows = next(iter(batch.values())).shape[0]
+    per = rows // n_mb
+    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for n, p in params.items()}
+    loss = torch.zeros((), dtype=torch.float32, device=model.device)
+    saved = None
+    for i in range(n_mb):
+        mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+        before = torch.cuda.memory_allocated()
+        mb_loss = model.train_loss(mb)
+        if saved is None:
+            saved = torch.cuda.memory_allocated() - before
+        grads = torch.autograd.grad(mb_loss, [params[n] for n in names])
+        for n, g in zip(names, grads):
+            acc[n] += g.float()
+        loss = loss + mb_loss.detach()
+        del grads
+    for a in acc.values():
+        a.div_(n_mb)
+    return loss / n_mb, acc, saved
+
+
+REMAT_POLICIES = ("full", "dots", "offloadable")
+
+
+def phase_remat(device, layers=8, seq=2048, batch=8, reps=3):
+    """Phase 30: phase 26's configuration (Llama-3-8B widths cut to
+    ``layers`` layers, bfloat16, ``microbatch=8``, remat, ``batch`` x
+    ``seq`` tokens) from one set of weights and one batch: a ``"full"``
+    step, then ``reps`` rounds of one step under each of ``"full"``,
+    ``"dots"`` and ``"offloadable"``.  Every step's loss and gradients must
+    equal the first's bit for bit (within the run-to-run gap of the
+    ``"full"`` steps if those differ).  Per policy: the median step ms
+    (the forward and backward of the microbatches; the optimizer, which
+    no policy changes, left out), the bytes one microbatch's forward
+    leaves for its backward, and the peak memory above the step's
+    start."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.configs import PERF_PRESETS
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models.model import build_model
+    cfg = get_config("llama3-8b", **PERF_PRESETS["llama3-8b"]).replace(
+        num_layers=layers)
+    _free()
+    model = build_model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(0)).trainable()
+    b = {k: torch.as_tensor(v, device=device) for k, v in batch_at(
+        DataConfig(vocab_size=min(cfg.vocab_size, 256), seq_len=seq,
+                   global_batch=batch), 0).items()}
+    ref = _accumulated_grads(model, b, cfg.microbatch)[:2]
+    runs = {p: [] for p in REMAT_POLICIES}
+    for _ in range(reps):
+        for policy in REMAT_POLICIES:
+            model.cfg = cfg.replace(remat_policy=policy)
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss, grads, saved = _accumulated_grads(model, b, cfg.microbatch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - base
+            same = bool(torch.equal(loss, ref[0])) and all(
+                torch.equal(g, ref[1][n]) for n, g in grads.items())
+            err = 0.0 if same else max(
+                float((g - ref[1][n]).abs().max()) for n, g in grads.items())
+            runs[policy].append((ms, saved, peak, same, err))
+            del grads
+    model.cfg = cfg
+    del model, ref, b
+    _free()
+    gap = max(r[4] for r in runs["full"])
+    for policy, rs in runs.items():
+        log(f"[remat:{policy}] {cfg.name} layers={layers} {cfg.dtype} "
+            f"microbatch={cfg.microbatch} batch={batch}x{seq}: step ms "
+            f"{[round(r[0], 3) for r in rs]} median "
+            f"{statistics.median(r[0] for r in rs):.3f}; bytes one "
+            f"microbatch's forward keeps for its backward {rs[0][1]}; peak "
+            f"above the step's start {max(r[2] for r in rs)}; loss and "
+            f"gradients equal the first 'full' step's bit for bit: "
+            f"{all(r[3] for r in rs)} (max |diff| {max(r[4] for r in rs)})")
+        if max(r[4] for r in rs) > gap:
+            raise AssertionError(f"[remat:{policy}] gradients differ from "
+                                 f"'full' beyond its run-to-run gap {gap}")
+    log(f"[remat] run-to-run gap of 'full': {gap}")
+
+
+def phase_dryrun(tmp):
+    """Phase 31: ``python -m repro_torch.launch.dryrun --arch
+    qwen2-moe-a2.7b --shape train_4k --mesh single`` exits 0 and writes
+    its record, which is printed."""
+    import os
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2-moe-a2.7b", "--shape", "train_4k", "--mesh", "single",
+         "--out", str(tmp)], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(SRC)))
+    log(f"[dryrun] exit {out.returncode}: {out.stdout.strip()}")
+    if out.returncode != 0:
+        raise AssertionError(f"[dryrun] exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rec = json.loads((tmp / "single" / "qwen2-moe-a2.7b__train_4k.json")
+                     .read_text())
+    log(f"[dryrun] record {json.dumps(rec)}")
+    if not rec.get("ok"):
+        raise AssertionError(f"[dryrun] record not ok: {rec}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -3031,6 +3431,12 @@ def main() -> int:
         elif k["name"] == kernel.PHASE_NAME:
             k["mesh_launches"] = mesh_k2
             k["mesh_path"] = "6 mesh ticks at 8 shards, 16,384 slots"
+    phase_ep_check(dev)
+    kernels.append(phase_ep_path(dev))
+    phase_ep_train(dev)
+    phase_remat(dev)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        phase_dryrun(Path(tmp))
     # each model kernel's launches on the train path beside its own path's:
     # K3 and K4 on phase 26's Llama-3-8B, K6 and K7 on phase 24's families
     for k in kernels:

@@ -1,7 +1,9 @@
 """Model configurations of the port: frozen dataclasses and a registry.
 
 A copy of the JAX package's ``ModelConfig``, ``ShapeConfig``,
-``TrainConfig`` and registry (the port imports nothing of that package).  ``repro_torch.configs``
+``TrainConfig``, registry and ``applicable_shapes`` (the port imports
+nothing of that package), with the roofline constants of the port's card
+(``HardwareConfig``, ``H100_SXM``) where the JAX package has a TPU's.  ``repro_torch.configs``
 registers every configuration of the JAX package's registry: the dense,
 MoE, SSM, hybrid, encoder-decoder and VLM families.
 """
@@ -156,6 +158,22 @@ SHAPES: Dict[str, ShapeConfig] = {
 
 
 @dataclass(frozen=True)
+class HardwareConfig:
+    """Roofline constants of one card: NVIDIA H100 SXM (NVIDIA's data
+    sheet, dense rates without sparsity, at the full 700 W power limit).
+    ``ici_bw`` holds the card's link rate to the other cards of its host:
+    NVLink, 900 GB/s all to all, 450 GB/s each way."""
+    name: str = "h100_sxm"
+    peak_flops: float = 989e12       # bf16 FLOP/s on the tensor cores
+    hbm_bw: float = 3.35e12          # bytes/s
+    ici_bw: float = 450e9            # bytes/s each way (NVLink)
+    hbm_bytes: float = 80e9          # capacity
+
+
+H100_SXM = HardwareConfig()
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
@@ -193,3 +211,13 @@ def get_config(name: str, **overrides) -> ModelConfig:
 def list_configs() -> Tuple[str, ...]:
     import repro_torch.configs  # noqa: F401
     return tuple(sorted(_REGISTRY))
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which of the four assigned shapes apply to this arch (brief rules)."""
+    out = ["train_4k", "prefill_32k"]
+    if cfg.has_decoder():
+        out.append("decode_32k")
+        if cfg.is_subquadratic():
+            out.append("long_500k")
+    return tuple(out)

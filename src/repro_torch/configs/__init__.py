@@ -22,8 +22,9 @@ ENCDEC_ARCHS = ("whisper-large-v3",)
 VLM_ARCHS = ("internvl2-26b",)
 
 # the JAX package's training presets (``repro.configs.PERF_PRESETS``), for
-# ``get_config(arch, **PERF_PRESETS[arch])``; "ep" runs the sort dispatch
-# on one device
+# ``get_config(arch, **PERF_PRESETS[arch])``; "ep" runs the expert-parallel
+# dispatch under a ``ShardCtx`` with a model axis, the sort dispatch
+# without one
 PERF_PRESETS = {
     "qwen2-moe-a2.7b": dict(moe_impl="ep", microbatch=16, remat=False),
     "phi3.5-moe-42b-a6.6b": dict(moe_impl="ep", microbatch=16),

@@ -28,7 +28,10 @@ small per-app results cross to the host.
   walk.  With ``posterior`` each walked row's posterior row is blended with
   the prior into its walk tables (:mod:`repro_torch.core.posterior`).
 
-On a CPU arena every kernel call takes its plain version.  The sharded
+On a CPU arena every kernel call takes its plain version, and the fused
+walk (``rank_in_kernel``) steps through the lossless 16-bit lookup tables
+of :mod:`repro_torch.kernels.pdgraph_walk.quant` where no overrides are
+given, as the reference's CPU twin does, with the same bits.  The sharded
 arena's tick lives in :mod:`repro_torch.core.refresh_mesh` and runs this
 module's walk section once per shard.
 """
@@ -50,6 +53,7 @@ from repro_torch.core.posterior import posterior_tables, prior_mean
 from repro_torch.kernels.pdgraph_walk.ops import (arrival_hists,
                                                   pdgraph_walk,
                                                   pdgraph_walk_ranked)
+from repro_torch.kernels.pdgraph_walk.quant import quant_tables
 from repro_torch.kernels.pdgraph_walk.ref import walker_streams
 
 
@@ -221,6 +225,10 @@ def _walk(packed: PackedKB, rows: _Rows, *, walker, base_key, seed,
         rem, arr = out if with_prewarm else (out, None)
         spill = 0
     elif rank_in_kernel:
+        # the CPU walk's lookup tables; the kernel reads none
+        quant = (quant_tables(packed.samples, packed.counts,
+                              packed.cum_trans)
+                 if dev.type == "cpu" and rows.ovs is None else None)
         return pdgraph_walk_ranked(
             packed.samples, packed.counts, packed.cum_trans, rows.gi,
             rows.start, rows.executed,
@@ -228,7 +236,8 @@ def _walk(packed: PackedKB, rows: _Rows, *, walker, base_key, seed,
             rows.attained, rows.ovs, rows.ovc, valid=rows.valid,
             n_walkers=n_walkers, max_steps=max_steps, n_buckets=n_buckets,
             track_arrivals=with_prewarm, with_rank=True,
-            with_total=with_triage, po_cum=po_cum, po_scale=po_scale)
+            with_total=with_triage, po_cum=po_cum, po_scale=po_scale,
+            quant=quant)
     else:
         out = pdgraph_walk(
             packed.samples, packed.counts, packed.cum_trans, rows.gi,

@@ -30,6 +30,7 @@ from repro_torch.core.gittins import (f32, gittins_rank_core,
                                       to_histogram_rows)
 from repro_torch.core.pdgraph import ARRIVAL_NEVER, _pow2_ceil
 from repro_torch.kernels.pdgraph_walk import kernel as _kernel
+from repro_torch.kernels.pdgraph_walk.quant import walk_phase_quant
 from repro_torch.kernels.pdgraph_walk.ref import walk_phase_ref
 
 
@@ -101,10 +102,11 @@ def _stages(schedule: Sequence[Tuple[int, int]], max_steps: int,
 
 def _walk(samples, counts, cum_trans, graph_idx, start, executed, streams,
           ov_samples, ov_counts, *, valid, n_walkers, max_steps, schedule,
-          track_arrivals, po_cum, po_scale, plain, stats=None):
+          track_arrivals, po_cum, po_scale, plain, stats=None, quant=None):
     """The compacted walk; each phase runs the kernel (``plain=False``,
-    CUDA tensors) or ``walk_phase_ref``.  Returns ``(total (N,), arrivals
-    (N, U) | None, spill)``."""
+    CUDA tensors) or ``walk_phase_ref`` — ``quant.walk_phase_quant`` where
+    ``quant`` holds the quantized tables and no overrides are given.
+    Returns ``(total (N,), arrivals (N, U) | None, spill)``."""
     dev = samples.device
     A = graph_idx.shape[0]
     G, U, S = samples.shape
@@ -141,7 +143,12 @@ def _walk(samples, counts, cum_trans, graph_idx, start, executed, streams,
                          device=dev)
 
     def phase(step0, n_steps):
-        if plain:
+        if plain and quant is not None and not with_ov:
+            out = walk_phase_quant(
+                *quant, cur, total, done, gi, app, stream, lane, ex,
+                n_units=U, step0=step0, n_steps=n_steps, lanes_per_app=W,
+                arrivals=arr, stats=stats, fpo_cum=po[0], fpo_scale=po[1])
+        elif plain:
             out = walk_phase_ref(
                 tables[0].reshape(G * U, S), tables[1].reshape(G * U),
                 tables[2].reshape(G * U, U + 1), ov[0], ov[1], cur, total,
@@ -238,7 +245,7 @@ def pdgraph_walk_ranked_plain(samples, counts, cum_trans, graph_idx, start,
                               track_arrivals: bool = False,
                               with_rank: bool = True,
                               with_total: bool = False,
-                              po_cum=None, po_scale=None):
+                              po_cum=None, po_scale=None, quant=None):
     """The plain PyTorch version of the fused walk, on any device.  It
     compacts with ``compact_schedule`` (``None``: :func:`walk_schedule` of
     the default knobs and the lane count, as the reference's CPU twin;
@@ -256,7 +263,7 @@ def pdgraph_walk_ranked_plain(samples, counts, cum_trans, graph_idx, start,
         ov_samples, ov_counts, valid=valid, n_walkers=W,
         max_steps=max_steps, schedule=compact_schedule,
         track_arrivals=track_arrivals, po_cum=po_cum, po_scale=po_scale,
-        plain=True, stats=stats)
+        plain=True, stats=stats, quant=quant)
     rem = rem.reshape(A, W)
     att = attained.to(device=samples.device, dtype=torch.float32)
     total = att[:, None] + torch.maximum(rem, f32(0.0, rem))
@@ -315,7 +322,9 @@ def pdgraph_walk_ranked(samples: torch.Tensor,     # (G, U, S) float32
                         track_arrivals: bool = False,
                         with_rank: bool = True, with_total: bool = False,
                         po_cum: Optional[torch.Tensor] = None,  # (A, U, U+1)
-                        po_scale: Optional[torch.Tensor] = None):  # (A, U)
+                        po_scale: Optional[torch.Tensor] = None,  # (A, U)
+                        quant: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None):
     """One-pass walk → demand-histogram rows → Gittins ranks (→ arrival
     histogram rows).
 
@@ -323,14 +332,18 @@ def pdgraph_walk_ranked(samples: torch.Tensor,     # (G, U, S) float32
     (``None`` unless ``with_rank``), ``total (A, W)`` (``None`` unless
     ``with_total``), ``spill`` (a host 0 on the kernel path) and, with ``track_arrivals``, ``a_hist
     (A, U, nb)``, ``a_lo / a_span / a_reach (A, U)``.  ``po_cum`` /
-    ``po_scale`` switch on posterior sampling."""
+    ``po_scale`` switch on posterior sampling.  ``quant``: the quantized
+    step tables (``quant.quant_tables``), which the CPU version reads where
+    no overrides are given (the reference's CPU twin); the kernel does not
+    read them."""
     if samples.device.type == "cpu":
         return pdgraph_walk_ranked_plain(
             samples, counts, cum_trans, graph_idx, start, executed, streams,
             attained, ov_samples, ov_counts, valid=valid,
             n_walkers=n_walkers, max_steps=max_steps, n_buckets=n_buckets,
             track_arrivals=track_arrivals, with_rank=with_rank,
-            with_total=with_total, po_cum=po_cum, po_scale=po_scale)
+            with_total=with_total, po_cum=po_cum, po_scale=po_scale,
+            quant=quant)
     out = _kernel.pdgraph_walk_fused_kernel(
         *kernel_operands(samples, counts, cum_trans, graph_idx, start,
                          executed, streams, attained, ov_samples, ov_counts,

@@ -1,11 +1,14 @@
-"""Step-function factories shared by the train and serve drivers.
+"""Step-function factories shared by the dry run, the trainer and the
+server, and the sharding specs of their inputs and outputs.
 
-The port of the JAX package's ``launch/steps.py`` step factories over the
-port's model API (its sharding trees have no one-device meaning; ROADMAP
-item 12b).  A train step takes a parameter set (``Model.params()`` of a
+The port of the JAX package's ``launch/steps.py`` over the port's model
+API.  A train step takes a parameter set (``Model.params()`` of a
 ``Model.trainable()`` model: the model's own tensors), an ``AdamState``
 and a batch dict (arrays or tensors), and updates the parameters and the
-moments in place (``training.optimizer.adamw_update``).
+moments in place (``training.optimizer.adamw_update``).  The sharding
+trees are specs (``distributed.sharding.P``) over a ``ShardCtx``'s mesh,
+by name as the inputs: the dry run's per-device accounting reads them
+(``launch/dryrun.py``); on one device nothing is placed by them.
 """
 from __future__ import annotations
 
@@ -13,8 +16,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import TrainConfig
+from repro_torch.config import ShapeConfig, TrainConfig
+from repro_torch.distributed.sharding import (P, ShardCtx, _axis_size, _fit,
+                                              named_shardings)
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import Model
 from repro_torch.training.compression import compress_decompress
 from repro_torch.training.optimizer import AdamState, adamw_update
@@ -105,3 +111,101 @@ def make_serve_step(model: Model):
             torch.int32)[:, None]
         return caches, next_token
     return serve_step
+
+
+# ----------------------------------------------------------------- shardings
+def batch_shardings(ctx: ShardCtx, batch_spec: Dict[str, Any]
+                    ) -> Dict[str, P]:
+    """Batch dim -> (pod, data); everything else replicated."""
+    b = ctx.logical("batch")
+    out = {}
+    for name, leaf in batch_spec.items():
+        spec = [b] + [None] * (leaf.dim() - 1)
+        if leaf.shape[0] % _axis_size(ctx, b) != 0:
+            spec[0] = None
+        out[name] = P(*spec)
+    return out
+
+
+def cache_shardings(ctx: ShardCtx, cache_spec: Dict[str, Any],
+                    seq_axes=None) -> Dict[str, P]:
+    """Decode caches (``Model.cache_spec``'s layout): batch -> (pod, data);
+    the attention KV's sequence dim -> model (+ pod where the batch cannot
+    use it, e.g. long_500k's B = 1); Mamba heads and channels -> model.
+    The reference's rules; its KV caches are ``(n, B, S, K, hd)``, the
+    port's ``(n, B, K, S, hd)``, so the sequence entry sits one dim later
+    here."""
+    b = ctx.logical("batch")
+    m = ctx.logical("model")
+    seq = seq_axes if seq_axes is not None else m
+    out = {}
+    for name, leaf in cache_spec.items():
+        nd = leaf.dim()
+        if name in ("k", "v"):            # (n, B, K, S, hd)
+            spec = [None] * (nd - 4) + [b, None, seq, None]
+        elif name in ("xk", "xv"):        # (n, B, K, F, hd): cross KV, small
+            spec = [None] * (nd - 4) + [b, None, None, None]
+        elif name == "ssm":               # (n, B, H, N, P)
+            spec = [None] * (nd - 4) + [b, m, None, None]
+        elif name.startswith("conv"):     # (n, B, k - 1, C)
+            spec = [None] * (nd - 3) + [b, None, m]
+        else:
+            spec = [None] * nd
+        out[name] = _fit(ctx, spec, leaf.shape)
+    return out
+
+
+def opt_state_shardings(ctx: ShardCtx, params_spec: Dict[str, Any],
+                        period: int) -> AdamState:
+    ps = named_shardings(ctx, params_spec, period)
+    return AdamState(step=P(), m=ps, v=ps)
+
+
+def abstract_opt_state(params_spec: Dict[str, Any], state_dtype: str
+                       ) -> AdamState:
+    """The optimizer state of ``params_spec`` on the ``meta`` device."""
+    dt = torch_dtype(state_dtype)
+    meta = torch.device("meta")
+    z = lambda p: torch.empty(p.shape, dtype=dt, device=meta)  # noqa: E731
+    return AdamState(step=torch.empty((), dtype=torch.int32, device=meta),
+                     m={n: z(p) for n, p in params_spec.items()},
+                     v={n: z(p) for n, p in params_spec.items()})
+
+
+def cell_functions(model: Model, shape: ShapeConfig, ctx: ShardCtx,
+                   tcfg: Optional[TrainConfig] = None):
+    """``(fn, abstract args, in specs, out specs)`` for one cell: the step
+    function of the cell's kind, its arguments on the ``meta`` device and
+    their specs over ``ctx``'s mesh (``None``: replicated or unconstrained,
+    as the reference)."""
+    cfg = model.cfg
+    period = len(T.layer_plan(cfg))
+    params_abs = model.init_abstract(
+        max_seq=shape.seq_len + 8 if cfg.rope_theta <= 0 else 0)
+    params_sh = named_shardings(ctx, params_abs, period)
+    specs = model.input_specs(shape)
+
+    if shape.kind == "train":
+        tcfg = tcfg or TrainConfig()
+        fn = make_train_step(model, tcfg)
+        opt_abs = abstract_opt_state(params_abs, cfg.opt_state_dtype)
+        opt_sh = opt_state_shardings(ctx, params_abs, period)
+        b_sh = batch_shardings(ctx, specs["batch"])
+        args = (params_abs, opt_abs, specs["batch"])
+        return fn, args, (params_sh, opt_sh, b_sh), (params_sh, opt_sh, None)
+
+    if shape.kind == "prefill":
+        fn = make_prefill_step(model)
+        b_sh = batch_shardings(ctx, specs["batch"])
+        return fn, (params_abs, specs["batch"]), (params_sh, b_sh), None
+
+    # decode
+    fn = make_serve_step(model)
+    names = ctx.mesh.axis_names
+    seq_axes = None
+    if shape.global_batch == 1 and "pod" in names:
+        seq_axes = tuple(a for a in ("pod", "model") if a in names)
+    c_sh = cache_shardings(ctx, specs["caches"], seq_axes=seq_axes)
+    t_sh = batch_shardings(ctx, {"t": specs["token"]})["t"]
+    args = (params_abs, specs["caches"], specs["token"], specs["pos"])
+    return fn, args, (params_sh, c_sh, t_sh, P()), (c_sh, t_sh)

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Caches, remat_on
+from repro_torch.models.transformer import Caches, remat_kwargs, remat_on
 
 CROSS_CACHES = ("xk", "xv")
 
@@ -144,16 +144,18 @@ def run_decoder(layers: nn.ModuleList, x: torch.Tensor,
                 pos: Optional[int] = None) -> torch.Tensor:
     """x: (B, S_dec, D) embedded tokens (positions added by the caller)
     through every decoder layer.  ``train``: no caches, each layer under
-    ``torch.utils.checkpoint`` with ``cfg.remat`` (the reference's
-    ``jax.checkpoint`` of its decoder body; the encoder has none);
+    ``torch.utils.checkpoint`` with ``cfg.remat`` and its policy (the
+    reference's ``jax.checkpoint`` of its decoder body; the encoder has
+    none);
     ``prefill``: writes the self caches of every position and the cross
     caches from ``enc_out``; ``decode``: one token at position ``pos``,
     written into the self caches, the cross caches only read."""
     if mode == "train":
         remat = remat_on(cfg)
+        policy = remat_kwargs(cfg) if remat else {}
         for lp in layers:
             x = (checkpoint(_decoder_layer, lp, x, enc_out, cfg, mode,
-                            use_reentrant=False) if remat
+                            use_reentrant=False, **policy) if remat
                  else _decoder_layer(lp, x, enc_out, cfg, mode))
         return x
     lengths = None

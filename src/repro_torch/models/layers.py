@@ -12,7 +12,9 @@ tensors.  LayerNorm has no kernel in the JAX package and stays plain.
 Plain matrix products stay ``torch.matmul`` on weights kept in the JAX
 package's ``(in, out)`` orientation.  Dtype policy as there:
 storage and products in the model dtype, norms, RoPE angles and softmax in
-float32.  The port runs on one device, so there is no ``shard()``.
+float32.  The port runs on one device, where the reference's ``shard()``
+constraints place nothing (``distributed/sharding.py``), so the layers do
+not call it.
 """
 from __future__ import annotations
 

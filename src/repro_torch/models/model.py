@@ -1,5 +1,7 @@
 """Public model API: ``build_model(cfg) -> Model`` with ``init``,
-``train_loss``, ``prefill`` and ``decode``, and ``params_from_jax``.
+``train_loss``, ``prefill`` and ``decode``, the abstract parameters, caches
+and inputs of the dry run (``init_abstract``, ``cache_spec``,
+``input_specs``), and ``params_from_jax``.
 
 The port of the JAX package's ``models/model.py`` for the decoder-only
 dense, MoE, SSM, hybrid and VLM models and the encoder-decoder model.
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
@@ -128,6 +130,12 @@ class Model(nn.Module):
         """The model's own parameter set (tensors shared, not copied)."""
         return {name: p for name, p in self.named_parameters()}
 
+    def init_abstract(self, max_seq: int = 0) -> Params:
+        """The parameter set of this configuration with ``max_seq`` learned
+        positions, as tensors on the ``meta`` device: names, shapes and
+        dtypes, no data (nothing is drawn)."""
+        return Model(self.cfg, "meta", max_seq).params()
+
     def trainable(self, flag: bool = True) -> "Model":
         """Let the weights take gradients (``requires_grad``), or stop
         them; ``prefill`` and ``decode`` run without gradients either
@@ -202,6 +210,43 @@ class Model(nn.Module):
             caches["conv_b"] = z(self.n_mamba, batch, k1, cfg.ssm_state)
             caches["conv_c"] = z(self.n_mamba, batch, k1, cfg.ssm_state)
         return caches
+
+    def cache_spec(self, batch_size: int, max_seq: int) -> T.Caches:
+        """The decode caches of ``batch_size`` rows of ``max_seq`` positions
+        on the ``meta`` device: ``new_caches``' layout (a dict by kind,
+        stacked over the layers of the kind) and dtypes."""
+        return Model(self.cfg, "meta").new_caches(batch_size, max_seq)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Abstract (``meta``) inputs of one dry-run cell, as the
+        reference's: the batch dict (int32 tokens and labels, a float32
+        loss mask, bfloat16 frames or patch embeddings) of a train or
+        prefill cell, or a decode step's caches, int32 token ``(B, 1)`` and
+        position ``()``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        tok = lambda *sh: torch.empty(sh, dtype=torch.int32,  # noqa: E731
+                                      device=meta)
+        f = lambda *sh: torch.empty(sh, dtype=torch.bfloat16,  # noqa: E731
+                                    device=meta)
+        if shape.kind == "decode":
+            return {"caches": self.cache_spec(B, S), "token": tok(B, 1),
+                    "pos": tok()}
+        if cfg.family == "encdec":
+            batch = {"frames": f(B, cfg.enc_frames, cfg.d_model),
+                     "tokens": tok(B, S)}
+        elif cfg.family == "vlm":
+            batch = {"tokens": tok(B, S - cfg.vision_patches),
+                     "patch_embeds": f(B, cfg.vision_patches, cfg.d_model)}
+        else:
+            batch = {"tokens": tok(B, S)}
+        if shape.kind == "train":
+            n_lab = batch["tokens"].shape[1]
+            batch["labels"] = tok(B, n_lab)
+            batch["loss_mask"] = torch.empty((B, n_lab), dtype=torch.float32,
+                                             device=meta)
+        return {"batch": batch}
 
     def _side_input(self, t: Optional[torch.Tensor], name: str, want: str,
                     batch: int, rows: Optional[int]) -> Optional[torch.Tensor]:

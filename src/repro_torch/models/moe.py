@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer: top-k routing, the shared expert, and the two
+"""Mixture-of-Experts layer: top-k routing, the shared expert, and the
 dispatch paths of the JAX package's ``models/moe.py``.
 
 * ``moe_apply_sort``: sort/capacity dispatch.  Token copies are sorted by
@@ -15,9 +15,12 @@ real experts, its top k (ties to the lower index, as ``jax.lax.top_k``),
 renormalised over the k.  Experts are padded to a multiple of 16; no token
 is routed to a padded expert.
 
-``moe_impl="ep"`` runs the sort path, which is what the reference does
-without a device mesh; its ``shard_map``/``all_to_all`` body is not ported
-(ROADMAP.md, item 8).
+``moe_impl="ep"`` runs the expert-parallel dispatch
+(``distributed/ep_moe.py``) under a ``ShardCtx`` whose mesh has a
+``model`` axis, every mesh position on one device and its three expert
+products through the same kernel; without one, or where the mesh does not
+divide the experts or the tokens, it runs the sort path, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -157,4 +160,7 @@ def moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.moe_impl == "dense":
         return moe_apply_dense(p, x, cfg)
-    return moe_apply_sort(p, x, cfg)        # "sort", and "ep" without a mesh
+    if cfg.moe_impl == "ep":
+        from repro_torch.distributed.ep_moe import moe_apply_ep
+        return moe_apply_ep(p, x, cfg)
+    return moe_apply_sort(p, x, cfg)

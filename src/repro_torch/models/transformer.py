@@ -10,7 +10,8 @@ layers, attention first).  Decoder layers are ``nn.Module``s in an
 ``j // len(plan)``, sub-layer ``j % len(plan)`` of the JAX tree, whose
 ``lax.scan`` over stacked weights is a loop here.  Modes: ``train`` (no
 caches; with ``cfg.remat`` each period recomputed in the backward, as the
-reference's ``jax.checkpoint`` of its scan body), ``prefill`` (writes the
+reference's ``jax.checkpoint`` of its scan body, keeping what
+``cfg.remat_policy`` saves), ``prefill`` (writes the
 caches) and ``decode`` (one token, updates the caches in place).  The
 encoder-decoder family's stacks are ``models/encdec.py``.  ``lm_loss`` is
 the chunked cross-entropy of the training loss.
@@ -23,13 +24,17 @@ contiguously; ``ssm`` ``(n_mamba, B, H, N, P)`` float32 and ``conv_x``/
 """
 from __future__ import annotations
 
+import contextlib
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import current_ctx, use_shard_ctx
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
@@ -152,13 +157,65 @@ def build_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
 
 def remat_on(cfg: ModelConfig) -> bool:
     """Whether a training pass recomputes its layers in the backward
-    (``cfg.remat``).  Only the reference's ``"full"`` policy (nothing
-    saved) is ported: another ``remat_policy`` raises."""
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' is ported "
-            "(ROADMAP item 21); no registered configuration sets another")
+    (``cfg.remat``); what it keeps is ``remat_policy``'s."""
     return cfg.remat
+
+
+# products with no batch dims: JAX's ``dots_with_no_batch_dims_saveable``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_all(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE
+
+
+@contextlib.contextmanager
+def _within(ctx, inner):
+    with use_shard_ctx(ctx), inner:
+        yield
+
+
+def remat_kwargs(cfg: ModelConfig) -> dict:
+    """``torch.utils.checkpoint``'s keyword arguments for
+    ``cfg.remat_policy`` (the reference's ``_remat_policy``): ``"full"``
+    saves nothing and recomputes the period; ``"dots"`` saves the outputs
+    of the matrix products with no batch dims (``aten.mm``, ``aten.addmm``)
+    and recomputes the rest, ``aten.bmm`` included; ``"offloadable"`` (the
+    reference's ``save_anything_except_these_names()`` with no names)
+    saves every operation's output, so the recompute returns each one as
+    the forward left it (buffers the forward filled in place included).  A
+    policy changes memory and time, never the loss or the gradients.  The
+    hand-written kernels run again in the recompute under every policy,
+    writing the same values.
+
+    The recompute runs where the backward runs: on the card, in the
+    autograd engine's own thread, which does not see the caller's
+    thread-local ``ShardCtx``; the forward's context is entered there
+    again, so a period recomputes the dispatch it ran (the EP MoE's)."""
+    if cfg.remat_policy == "full":
+        sac = None
+    elif cfg.remat_policy == "dots":
+        sac = partial(create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy == "offloadable":
+        sac = partial(create_selective_checkpoint_contexts, _save_all,
+                      allow_cache_entry_mutation=True)
+    else:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: not one of "
+                         "'full', 'dots', 'offloadable'")
+    ctx = current_ctx()
+    if ctx is None:
+        return {} if sac is None else {"context_fn": sac}
+
+    def context_fn():
+        fwd, rec = (sac() if sac is not None else
+                    (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _within(ctx, rec)
+    return {"context_fn": context_fn}
 
 
 def _run_period(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
@@ -175,7 +232,8 @@ def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, D) through every layer; caches written in place (none in
     ``train``, where with ``cfg.remat`` each period of the plan runs under
     ``torch.utils.checkpoint``: its activations are recomputed in the
-    backward, its kernels launched again)."""
+    backward, but for what ``remat_policy`` saves, and its kernels launched
+    again)."""
     rope = lengths = None
     if any(layer.mixer == "attn" for layer in layers):
         rope = L.rope_tables(positions, cfg.resolved_head_dim(),
@@ -185,11 +243,12 @@ def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                                  dtype=torch.int32, device=x.device)
     if mode == "train":
         remat = remat_on(cfg)
+        policy = remat_kwargs(cfg) if remat else {}
         period = len(layer_plan(cfg))
         for p0 in range(0, len(layers), period):
             block = layers[p0:p0 + period]
             x = (checkpoint(_run_period, block, x, cfg, rope,
-                            use_reentrant=False) if remat
+                            use_reentrant=False, **policy) if remat
                  else _run_period(block, x, cfg, rope))
         return x
     for layer in layers:

@@ -1167,3 +1167,142 @@ def test_mesh_tick_on_the_card_equals_the_cpu(dev, n_shards, rik):
             assert launches[kernel.NAME] == 0
             assert launches[kernel.PHASE_NAME] >= shards
     assert ticks[2][2] == (n_shards > 1)          # the skewed tick balanced
+
+
+# ------------------------------------------------ EP, remat policies, tables
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 4), (2, 2)],
+                         ids=["1x1", "1x4", "2x2"])
+def test_ep_moe_on_the_card_equals_the_cpu(dev, shape):
+    """The expert-parallel MoE layer (float32, 12 experts padded to 16, a
+    capacity factor that drops copies) on ``cuda`` against the CPU from
+    the same weights: within 1e-4, the same copies kept, and three K6
+    launches (one a product over every rank's expert buffers)."""
+    from repro_torch.distributed import ep_moe
+    from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as X
+    from repro_torch.testing import tiny_config
+    cfg = tiny_config("qwen2-moe-a2.7b", dtype="float32", moe_impl="ep",
+                      num_experts=12, capacity_factor=0.75)
+    cpu = X.MoE(cfg, torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for t in cpu.parameters():
+            t.normal_(generator=gen).mul_(0.125)
+    card = X.MoE(cfg, torch.float32, dev)
+    with torch.no_grad():
+        for a, b in zip(card.parameters(), cpu.parameters()):
+            a.copy_(b)
+    x = torch.randn(4, 32, cfg.d_model, generator=gen)
+    out, keeps = {}, {}
+    pack = ep_moe._pack_by_key
+    for side, p, xs in (("cuda", card, x.to(dev)), ("cpu", cpu, x)):
+        seen = keeps[side] = []
+
+        def recording(keys, n_bins, capacity, _seen=seen):
+            res = pack(keys, n_bins, capacity)
+            _seen.append(res[3].cpu())
+            return res
+
+        ep_moe._pack_by_key = recording
+        try:
+            reset_launches()
+            with use_shard_ctx(ShardCtx(make_mesh(shape, ("data", "model"),
+                                                  dev))):
+                out[side] = X.moe_apply(p, xs, cfg)
+            launches = LAUNCHES.get("moe_gmm", 0)
+        finally:
+            ep_moe._pack_by_key = pack
+        if side == "cuda":
+            assert launches == 3
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=0,
+                               atol=1e-4)
+    assert len(keeps["cuda"]) == len(keeps["cpu"]) == 2
+    for a, b in zip(keeps["cuda"], keeps["cpu"]):
+        assert torch.equal(a, b)
+    assert not keeps["cpu"][0].all()               # copies were dropped
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_ep_training_under_remat_on_the_card_equals_the_cpu(dev, policy):
+    """One float32 training step of the tiny MoE under EP (1, 4) with
+    remat: the card's backward (and its recompute) runs in the autograd
+    engine's thread, which must re-enter the forward's shard context;
+    loss within 1e-4 relative, each gradient within 1e-4 of its tensor's
+    largest magnitude."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    cfg = tiny_config("qwen2-moe-a2.7b", dtype="float32", moe_impl="ep",
+                      num_experts=12, remat=True, remat_policy=policy)
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=dev).load_params(cpu.params())
+    batch = batch_at(DataConfig(256, 16, 2), 0)
+    out = {}
+    for model in (card, cpu):
+        params = model.trainable().params()
+        mesh = make_mesh((1, 4), ("data", "model"), model.device)
+        with use_shard_ctx(ShardCtx(mesh)):
+            loss = model.train_loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[model.device.type] = (float(loss.detach()),
+                                  dict(zip(params, grads)))
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for n in gp:
+        scale = float(gp[n].abs().max())
+        torch.testing.assert_close(gc[n].cpu(), gp[n], rtol=1e-4,
+                                   atol=1e-4 * scale + 1e-30, msg=n)
+
+
+@pytest.mark.parametrize("policy", ["dots", "offloadable"])
+def test_remat_policies_keep_the_full_gradients_on_the_card(dev, policy):
+    """A tiny float32 Llama and MoE under each selective policy on the
+    card: the loss and every gradient equal ``"full"``'s bit for bit, and
+    the kernels launch as under ``"full"`` (the recompute runs them
+    again)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.model import build_model
+    from repro_torch.testing import tiny_config
+    batch = batch_at(DataConfig(256, 16, 2), 0)
+    for name in ("llama3-8b", "qwen2-moe-a2.7b"):
+        runs = []
+        for pol in ("full", policy):
+            cfg = tiny_config(name, dtype="float32", remat=True,
+                              remat_policy=pol)
+            model = build_model(cfg, device=dev).init(
+                torch.Generator(device=dev).manual_seed(0)).trainable()
+            params = model.params()
+            reset_launches()
+            loss = model.train_loss(batch)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+            runs.append((float(loss.detach()), grads, dict(LAUNCHES)))
+        (la, ga, ka), (lb, gb, kb) = runs
+        assert la == lb and ka == kb, name
+        for a, b in zip(ga, gb):
+            assert (a is None and b is None) or torch.equal(a, b), name
+
+
+def test_card_refresh_builds_no_walk_tables(dev, monkeypatch):
+    """The ranked refresh on ``cuda`` launches K1, which reads no lookup
+    tables: none are built."""
+    from repro_torch.core import refresh_pipeline
+    from repro_torch.core.refresh_config import RefreshConfig
+    from repro_torch.core.scheduler import HermesScheduler
+    built = []
+    monkeypatch.setattr(refresh_pipeline, "quant_tables",
+                        lambda *a: built.append(1))
+    kb = build_knowledge_base(n_trials=30, seed=4)
+    s = HermesScheduler(kb, refresh=RefreshConfig(), mc_walkers=64, seed=3,
+                        device=dev)
+    for i, name in enumerate(sorted(kb)):
+        s.on_arrival(f"a{i}", name, now=0.1 * i)
+    assert len(s.priorities(1.0)) == len(kb)
+    assert built == []

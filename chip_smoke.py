@@ -197,14 +197,39 @@ Phases (any failure raises and the script exits non-zero):
    runs differ); step ms and peak memory for each;
 31. the dry run: ``python -m repro_torch.launch.dryrun --arch
    qwen2-moe-a2.7b --shape train_4k --mesh single`` exits 0; its record
-   is printed.
+   is printed;
+32. a process group of one rank over NCCL in this process
+   (``launch.mesh.init_process_mesh``): the EP layer at Qwen1.5-MoE's
+   full width over the (1, 1) process mesh, its collectives through
+   NCCL, bitwise to the one-process body with K6 three times; the mesh
+   tick over the one-rank group on phase 28's arena, bitwise to the
+   delta tick, with K1 and K2;
+33. worlds of 2 and 4 processes over gloo, every rank on cuda:0 (NCCL
+   refuses two ranks on one card), spawned as torchrun starts them
+   (``launch.procs.spawn``; the kernels built once above): phase 29 (b)'s
+   full-depth EP prefill over process meshes (1, 2), (2, 2) and (1, 4),
+   each rank drawing its share of the experts layer by layer, its data
+   shard's logits bitwise to the one-process EP's with the same product
+   shapes (at (2, 2): each half of the batch over (1, 2); the whole batch
+   over a logical (2, 2), whose dense products have twice the rows, is
+   compared and printed), K6 3 times a layer in every rank, prefill ms
+   and peak memory a rank, and the form each collective took;
+34. the 4-rank mesh tick on phase 28's arena, each rank holding its block:
+   uniform and skewed (lane-balanced) dirty sets with K1 and K2, bitwise
+   to the single-arena delta tick in every rank, one K1 launch a tick in
+   every rank that walks;
+35. ``run_sim`` at ``mesh_shards=4`` on phase 28's 300 applications in
+   every rank of the 4-rank world, with the calendar engine and the
+   deprecated heap engine: the same result on every rank, equal to phase
+   28's ``SimConfig()`` run.
 
 Then one JSON line with every kernel's numbers (K3, K4, K6 and K7 also
 with their launches on the train path: phase 26 for K3 and K4, phase 24
 for K6 and K7; K1 and K2 with their launches on the mesh path: phase 28's
 ``cuda`` run for K1, its 8-shard K2 ticks for K2; K6 also at the EP
 buffer shape, ``moe_gmm:ep``, with its launches in phase 29's full-depth
-EP prefill), the card's name and
+EP prefill; K1, K2 and K6 also with ``process_launches``, each rank's
+launches in phases 32-35), the card's name and
 power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero before
@@ -255,6 +280,10 @@ PROFILER_SESSIONS = 5
 # above the card's 1.98 GHz top SM clock, so the hold lasts at least as
 # long as asked)
 SLEEP_HZ = 2.0e9
+
+
+# results one phase leaves for a later one
+SHARED = {}
 
 
 def log(*a) -> None:
@@ -1281,6 +1310,8 @@ def phase_mesh(device, W, So, n_apps, CAP=16384):
             _check_completed(f"mesh_sim {arm} ({dev})", r, insts, launches,
                              [kernel.NAME] if dev == "cuda" else [])
             res[arm] = r
+            if dev == "cuda" and arm == "default":
+                SHARED["sim_default"] = r      # phase 35's reference
             if dev == "cuda" and arm == "mesh8":
                 k1 = launches[kernel.NAME]
         _same_schedule(f"mesh_sim mesh8 vs default ({dev})", res["default"],
@@ -3152,6 +3183,19 @@ def phase_ep_path(device):
             times[which].append(ms)
     Tc, C, C2, El = _ep_capacities(cfg, tokens.numel(), (1, 4))
     diff = float((ep_logits.float() - logits.float()).abs().max())
+    # the one-process logits phase 33 holds the process meshes to: a data
+    # shard's ranks compute what the one-process body computes on that
+    # shard's sequences alone over (1, n), so at (2, 2) each half of the
+    # batch runs over (1, 2) (the same product shapes, bit for bit); the
+    # whole batch over (2, 2) gives other product shapes (M = 2,048 rows
+    # in the dense products, not 1,024), so it is only compared
+    SHARED["ep_logits"] = {(1, 4): ep_logits.cpu()}
+    with use_shard_ctx(_ep_ctx((1, 2), device)):
+        SHARED["ep_logits"][(1, 2)] = model.prefill(tokens)[1].cpu()
+        SHARED["ep_logits"][(2, 2)] = torch.cat(
+            [model.prefill(tokens[h:h + 2])[1].cpu() for h in (0, 2)])
+    with use_shard_ctx(_ep_ctx((2, 2), device)):
+        SHARED["ep_logits_batch"] = model.prefill(tokens)[1].cpu()
     log(f"[ep_path] {cfg.name} layers={cfg.num_layers} {cfg.dtype} "
         f"weights={weights} bytes; mesh {mesh}; 4 x 512 tokens: Tc={Tc} "
         f"C={C} n*C={4 * C} E_local={El} C2={C2}; EP prefill ms "
@@ -3335,6 +3379,412 @@ def phase_dryrun(tmp):
         raise AssertionError(f"[dryrun] record not ok: {rec}")
 
 
+# ------------------------------------------- phases 32-35: across processes
+
+# the process meshes of the spawned worlds (gloo, every rank on cuda:0)
+PROC_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+PROC_TICK_REPS = 4           # mesh ticks a (K1 / K2) arm: uniform, skewed
+
+
+def _moe_layer(cfg, device, seed):
+    """One full-width MoE layer of ``cfg`` with weights drawn on the card
+    at the model's scales."""
+    import torch
+    from repro_torch.models import moe as X
+    from repro_torch.models.layers import torch_dtype
+    p = X.MoE(cfg, torch_dtype(cfg.dtype), device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, t in p.named_parameters():
+        std = p.init_std.get(name, 1.0)
+        t.data.copy_(torch.randn(t.shape, generator=gen, device=device)
+                     .mul_(std))
+    return p
+
+
+def _proc_ticks(device, W, n, reps=PROC_TICK_REPS, CAP=16384):
+    """This rank's mesh ticks: phase 28's 16,384-slot arena held by the
+    ``n`` ranks of the default group (this rank's block on its card),
+    ticked from the
+    same state as the single-arena delta tick on this rank (the whole
+    arena), 8 % of the slots dirty, uniform then skewed (every dirty slot
+    on shard 0, lane-balanced past 0.25), with K1 and with K2.  Every rank
+    draws the same dirty sets.  Compares ranks, triage scalars, trigger and
+    reach rows and this rank's block of the arena rows bit for bit, and
+    returns the mismatches (never raising: the other ranks wait in the
+    collectives), ms per tick and this rank's K1 / K2 launches per tick
+    beside the launches its walk rows imply."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.suite import T_IN, T_OUT, build_knowledge_base
+    from repro_torch.core.arena import QueueState
+    from repro_torch.core.hermeslet import warmup_time_for
+    from repro_torch.core.pdgraph import pack_graphs
+    from repro_torch.core.prewarm import build_prewarm_table
+    import torch.distributed as dist
+    from repro_torch.core.refresh_mesh import RefreshMesh, refresh_ranks_mesh
+    from repro_torch.core.refresh_pipeline import refresh_ranks_delta
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.pdgraph_walk import kernel
+    kb = build_knowledge_base(n_trials=100, seed=3)
+    packed = pack_graphs(kb, T_IN, T_OUT, device=device)
+    tab = build_prewarm_table(kb, packed, warmup_time_for)
+    rng = np.random.default_rng(4)
+    gi = rng.integers(0, len(packed.names), CAP)
+    rows = [(f"a{i}", int(g), int(packed.entry[g]), i, None)
+            for i, g in enumerate(gi)]
+    n_dirty = int(0.08 * CAP)
+    out = {"fails": [], "ticks": []}
+    for rik in (True, False):
+        mesh = RefreshMesh(n, device=device, group=dist.group.WORLD)
+        me = mesh.rank
+        ref = QueueState(packed, capacity=CAP)
+        mine = QueueState(packed, capacity=CAP, n_shards=n, group=mesh.group)
+        for qs in (ref, mine):
+            qs.admit_many(rows)
+        kw = dict(n_walkers=W, prewarm_table=tab, prewarm_k=0.5,
+                  with_triage=True, rank_in_kernel=rik)
+        for rep in range(reps + 1):
+            kind = "uniform" if rep % 2 else "skewed"
+            if rep:
+                pool = (np.arange(0, CAP, n) if kind == "skewed"
+                        else np.arange(CAP))
+                dirty = rng.choice(pool, n_dirty, replace=False)
+                prog = rng.choice(CAP, n_dirty, replace=False)
+                units = rng.integers(0, packed.n_units, n_dirty)
+                for qs in (ref, mine):
+                    for sl, u in zip(dirty, units):
+                        qs.set_unit(qs.ids[sl], int(u))
+                    for sl in prog:
+                        qs.add_progress(qs.ids[sl], 0.25)
+            walked = ref.take_dirty()
+            if not np.array_equal(mine.take_dirty(), walked):
+                out["fails"].append(f"rik={rik} rep {rep}: dirty sets")
+            ranked = np.asarray(sorted(mine.take_rank_dirty()
+                                       | set(walked.tolist())), np.int64)
+            ref.take_rank_dirty()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = refresh_ranks_delta(packed, ref, 0, walked=walked, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reset_launches()
+            tick = refresh_ranks_mesh(packed, mine, 0, mesh=mesh,
+                                      walked=walked, ranked=ranked,
+                                      lane_balance=0.25, **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got = LAUNCHES.get(kernel.NAME if rik else kernel.PHASE_NAME, 0)
+            walks = (me < len(walked) if tick.balanced
+                     else bool((walked % n == me).any()))
+            occ = ref.occupied()
+            bad = [nm for nm, a, b in (
+                ("ranks", mine.rank[occ], want.ranks[occ]),
+                ("sup", mine.sup[occ], ref.sup[occ]),
+                ("opt", mine.opt[occ], ref.opt[occ]),
+                ("mean", mine.mean[occ], ref.mean[occ]),
+                ("trig", mine.trig[occ], ref.trig[occ]),
+                ("reach", mine.reach[occ], ref.reach[occ]))
+                if not np.array_equal(a, b)]
+            own = occ[occ % n == me]
+            loc = torch.as_tensor(own // n, device=device)
+            glob = torch.as_tensor(own, device=device)
+            bad += [nm for nm in ("d_probs", "d_edges", "a_hist", "a_lo",
+                                  "a_span", "a_reach")
+                    if not torch.equal(getattr(mine, nm)[loc],
+                                       getattr(ref, nm)[glob])]
+            if bad:
+                out["fails"].append(f"rik={rik} rep {rep} ({kind}): {bad}")
+            if rep:
+                out["ticks"].append(dict(
+                    kernel="K1" if rik else "K2", kind=kind,
+                    balanced=bool(tick.balanced), walked=len(walked),
+                    delta_ms=(t1 - t0) * 1e3, mesh_ms=(t2 - t1) * 1e3,
+                    launches=got, walks=walks))
+            for qs in (ref, mine):
+                qs.bump_refresh(walked)
+    return out
+
+
+def _rank_ep(shape, ref, device=None, times=3, batch=None):
+    """Phase 33 in one rank: the full-depth bfloat16 Qwen1.5-MoE-A2.7B of
+    ``PERF_PRESETS`` over the process ``shape`` mesh (gloo; every rank on
+    cuda:0), this rank's share drawn layer by layer; its data shard of a
+    4 x 512-token prefill against the one-process logits ``ref`` (and,
+    compared only, ``batch``: the whole batch's over a logical mesh of
+    ``shape``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import get_config
+    from repro_torch.configs import PERF_PRESETS
+    from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.models.model import build_model
+    pm = init_process_mesh(shape, ("data", "model"), backend="gloo",
+                           device=device)
+    cfg = get_config("qwen2-moe-a2.7b", **PERF_PRESETS["qwen2-moe-a2.7b"])
+    torch.cuda.reset_peak_memory_stats()
+    # one rank draws at a time: the card holds every rank's share, and a
+    # draw's float32 temporary (the embedding's, 1.2 GB) only once
+    for r in range(dist.get_world_size()):
+        if r == pm.rank:
+            t0 = time.perf_counter()
+            model = build_model(cfg, device=pm.device, mesh=pm).init(
+                torch.Generator(device=pm.device).manual_seed(5))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+        dist.barrier()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    ctx = ShardCtx(pm)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 512),
+                           generator=torch.Generator().manual_seed(6))
+    bl = 4 // shape[0]
+    d = ctx.data_shard
+    mine = tokens[d * bl:(d + 1) * bl].to(pm.device)
+    ms, launches, logits = [], None, None
+    for i in range(times + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with use_shard_ctx(ctx):
+            _, out = model.prefill(mine)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = LAUNCHES.get("moe_gmm", 0)
+        logits = out.float().cpu()
+    want = ref[d * bl:(d + 1) * bl].float()
+    res = dict(shape=list(shape), rank=pm.rank, coords=list(pm.coords),
+               layers=cfg.num_layers,
+               init_s=init_s, weights=weights, prefill_ms=ms,
+               k6_launches=launches,
+               finite=bool(torch.isfinite(logits).all()),
+               bitwise=bool(torch.equal(logits, want)),
+               max_abs_err=float((logits - want).abs().max()),
+               ref_max=float(want.abs().max()),
+               batch_err=None if batch is None else float(
+                   (logits - batch[d * bl:(d + 1) * bl].float()).abs()
+                   .max()),
+               peak=torch.cuda.max_memory_allocated())
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def _rank_sim(n, n_apps, engine, device):
+    """Phase 35 in one rank: ``run_sim`` at ``mesh_shards=n`` on the first
+    ``n_apps`` applications of phase 2's trace, on this rank's card."""
+    import warnings
+
+    import torch.distributed as dist
+    from repro_torch.apps.suite import build_knowledge_base
+    from repro_torch.core.refresh_config import RefreshConfig
+    from repro_torch.kernels.pdgraph_walk import kernel
+    insts = _trace(n_apps)
+    kb = build_knowledge_base(n_trials=100, seed=3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        cfg = _main_config(device=device, engine=engine,
+                           refresh=RefreshConfig(mesh_shards=n),
+                           process_group=dist.group.WORLD)
+    t0 = time.perf_counter()
+    res, launches, _ = _run_path(f"proc_sim:{engine}", kb, insts, cfg)
+    return dict(order=list(res.completion_order),
+                acts=[float(res.acts[i]) for i in res.completion_order],
+                calls=res.policy_calls, wall_s=time.perf_counter() - t0,
+                ms_per_call=1e3 * res.policy_time_s
+                / max(res.policy_calls, 1),
+                k1=launches.get(kernel.NAME, 0), completed=len(res.acts))
+
+
+def _rank_world(n, refs, W, n_apps, device="cuda", batch=None):
+    """Everything a rank of phase 33-35's ``n``-rank world runs (on
+    ``device``: ``cuda`` is this rank's card)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"ep": [_rank_ep(shape, refs[shape], device=device,
+                           batch=batch if shape[0] > 1 else None)
+                  for shape in PROC_MESHES[n]]}
+    if n == 4:
+        dev = torch.device("cuda", 0) if device == "cuda" else \
+            torch.device(device)
+        out["ticks"] = _proc_ticks(dev, W, n)
+        out["sim"] = {e: _rank_sim(n, n_apps, e, device)
+                      for e in ("calendar", "heap")}
+    return out
+
+
+def phase_process_nccl(device, W):
+    """Phase 32: a process group of one rank over NCCL in this process
+    (``init_process_mesh`` on a file store): the EP layer at Qwen1.5-MoE's
+    full width (bfloat16, 4 x 512 tokens) over the (1, 1) process mesh,
+    its collectives through NCCL, bitwise to the one-process body, K6
+    three times; the mesh tick over the one-rank group on phase 28's
+    arena bitwise to the delta tick, with K1 and with K2, one launch a
+    tick.  Returns (K6, K1, K2) launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import get_config
+    from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import init_process_mesh, make_mesh
+    from repro_torch.models import moe as X
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        pm = init_process_mesh((1, 1), ("data", "model"), device=device,
+                               rank=0, world_size=1, store=dist.FileStore(
+                                   str(Path(tmp) / "store"), 1))
+        try:
+            log(f"[proc_nccl] backend {pm.backend} device {pm.device} "
+                f"mesh {pm}")
+            cfg = get_config("qwen2-moe-a2.7b", dtype="bfloat16",
+                             moe_impl="ep")
+            p = _moe_layer(cfg, device, 7)
+            x = torch.randn((4, 512, cfg.d_model), device=device,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(8)).to(p.wi.dtype)
+            with use_shard_ctx(ShardCtx(make_mesh((1, 1), ("data", "model"),
+                                                  device))):
+                want = X.moe_apply(p, x, cfg)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_shard_ctx(ShardCtx(pm)):
+                got = X.moe_apply(p, x, cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            k6 = LAUNCHES.get("moe_gmm", 0)
+            same = bool(torch.equal(got, want))
+            log(f"[proc_nccl] EP layer (1, 1) over NCCL: bitwise to the "
+                f"one-process body {same}; K6 launches {k6}; {ms:.3f} ms "
+                f"(first call)")
+            if not same or k6 != 3:
+                raise AssertionError("[proc_nccl] the EP layer over NCCL "
+                                     "differs or K6 did not launch 3 times")
+            del p, x, want, got
+            _free()
+            ticks = _proc_ticks(device, W, 1, reps=2)
+        finally:
+            dist.destroy_process_group()
+    k1 = _check_proc_ticks("proc_nccl", [ticks])
+    return k6, k1["K1"], k1["K2"]
+
+
+def _check_proc_ticks(tag, per_rank):
+    """Log and hold every rank's mesh ticks; returns each kernel's launches
+    per rank (a list; one number for one rank)."""
+    for r, t in enumerate(per_rank):
+        if t["fails"]:
+            raise AssertionError(f"[{tag}] rank {r}: mesh tick differs from "
+                                 f"the delta tick: {t['fails'][:4]}")
+    launches = {"K1": [], "K2": []}
+    for r, t in enumerate(per_rank):
+        for k in ("K1", "K2"):
+            mine = [x for x in t["ticks"] if x["kernel"] == k]
+            launches[k].append(sum(x["launches"] for x in mine))
+            short = [x for x in mine if x["walks"] and x["launches"] < 1
+                     or not x["walks"] and x["launches"]]
+            if short:
+                raise AssertionError(f"[{tag}] rank {r} {k}: launches do "
+                                     f"not match its walk rows: {short}")
+            if k == "K1" and any(x["launches"] > 1 for x in mine):
+                raise AssertionError(f"[{tag}] rank {r}: more than one K1 "
+                                     f"launch a tick")
+            for kind in ("uniform", "skewed"):
+                v = [x for x in mine if x["kind"] == kind]
+                log(f"[{tag}] rank {r} {k} {kind}: mesh ms/tick "
+                    f"{['%.3f' % x['mesh_ms'] for x in v]} delta ms/tick "
+                    f"{['%.3f' % x['delta_ms'] for x in v]} launches "
+                    f"{[x['launches'] for x in v]} balanced "
+                    f"{[x['balanced'] for x in v]} walked "
+                    f"{[x['walked'] for x in v]}")
+    log(f"[{tag}] every rank's mesh ticks == the delta tick bitwise (ranks, "
+        f"sup, opt, mean, trig, reach, its block's arena rows)")
+    if len(per_rank) == 1:
+        return {k: v[0] for k, v in launches.items()}
+    return launches
+
+
+def phase_processes(W, n_apps):
+    """Phases 33-35: worlds of 2 and 4 processes over gloo, every rank on
+    cuda:0 (NCCL refuses two ranks on one card), started as torchrun
+    would start them (``launch.procs.spawn``).  33: the full-depth EP
+    prefill over meshes (1, 2), (2, 2) and (1, 4) bitwise to phase 29's
+    one-process logits with the same product shapes, K6 3 times a layer
+    in every rank, prefill ms, peak memory a rank; 34: the 4-rank mesh
+    tick on the 16,384-slot arena against the delta tick
+    (``_proc_ticks``); 35:
+    ``run_sim`` at ``mesh_shards=4`` on 300 applications in every rank,
+    with the calendar engine and the deprecated heap engine: the same
+    result on every rank, equal to phase 28's ``SimConfig()`` run.
+    Returns each kernel's launches per rank."""
+    from repro_torch.launch.procs import spawn
+    refs = SHARED["ep_logits"]
+    launches = {"moe_gmm": {}, "K1": {}, "K2": {}}
+    for n in (2, 4):
+        _free()
+        t0 = time.perf_counter()
+        world = spawn(_rank_world, n, n, refs, W, n_apps, "cuda",
+                      SHARED["ep_logits_batch"], timeout_s=900.0)
+        log(f"[proc] world of {n} ranks (gloo, cuda:0): "
+            f"{time.perf_counter() - t0:.1f} s")
+        for i, shape in enumerate(PROC_MESHES[n]):
+            rs = [w["ep"][i] for w in world]
+            for r in rs:
+                med = statistics.median(r["prefill_ms"])
+                log(f"[proc_ep {tuple(shape)}] rank {r['rank']} "
+                    f"{tuple(r['coords'])}: share {r['weights']} bytes drawn "
+                    f"in {r['init_s']:.2f} s; prefill ms "
+                    f"{[round(t, 3) for t in r['prefill_ms']]} median "
+                    f"{med:.3f}; K6 launches {r['k6_launches']}; logits "
+                    f"bitwise {r['bitwise']} max_abs_err "
+                    f"{r['max_abs_err']} (of |logit| up to "
+                    f"{r['ref_max']:.3f}); "
+                    + ("" if r["batch_err"] is None else
+                       f"against the whole batch over a logical "
+                       f"{tuple(shape)} mesh (other product shapes) "
+                       f"max_abs_err {r['batch_err']}; ")
+                    + f"peak {r['peak']}")
+                if not r["finite"] or not r["bitwise"] or \
+                        r["k6_launches"] != 3 * r["layers"]:
+                    raise AssertionError(f"[proc_ep {shape}] rank "
+                                         f"{r['rank']}: logits differ from "
+                                         f"the one-process EP's or K6 "
+                                         f"launched {r['k6_launches']} "
+                                         f"times")
+            launches["moe_gmm"][str(tuple(shape))] = \
+                [r["k6_launches"] for r in rs]
+        if n != 4:
+            continue
+        k = _check_proc_ticks("proc_tick", [w["ticks"] for w in world])
+        launches["K1"]["mesh ticks, 4 ranks"] = k["K1"]
+        launches["K2"]["mesh ticks, 4 ranks"] = k["K2"]
+        want = SHARED["sim_default"]
+        for engine in ("calendar", "heap"):
+            sims = [w["sim"][engine] for w in world]
+            for r, sm in enumerate(sims):
+                log(f"[proc_sim {engine}] rank {r}: completed "
+                    f"{sm['completed']} calls {sm['calls']} ms/call "
+                    f"{sm['ms_per_call']:.3f} wall {sm['wall_s']:.1f} s "
+                    f"K1 {sm['k1']}")
+            same = all(sm["order"] == sims[0]["order"]
+                       and sm["acts"] == sims[0]["acts"] for sm in sims)
+            ref = [float(want.acts[i]) for i in want.completion_order]
+            equal = sims[0]["order"] == list(want.completion_order) and \
+                sims[0]["acts"] == ref
+            log(f"[proc_sim {engine}] every rank the same result {same}; "
+                f"equal to phase 28's SimConfig() run {equal}")
+            if not same or not equal or min(sm["k1"] for sm in sims) < 1:
+                raise AssertionError(f"[proc_sim {engine}] the runs differ "
+                                     "or a rank launched no K1")
+            launches["K1"][f"run_sim mesh_shards=4 {engine}, 4 ranks"] = \
+                [sm["k1"] for sm in sims]
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -3437,6 +3887,21 @@ def main() -> int:
     phase_remat(dev)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         phase_dryrun(Path(tmp))
+    # across processes: NCCL at one rank here, then gloo worlds on cuda:0
+    nccl = phase_process_nccl(dev, W)
+    proc = phase_processes(W, min(300, args.sim_apps))
+    for k in kernels:
+        if k["name"] == kernel.NAME:
+            k["process_launches"] = {"mesh ticks, NCCL, 1 rank": nccl[1],
+                                     **proc["K1"]}
+        elif k["name"] == kernel.PHASE_NAME:
+            k["process_launches"] = {"mesh ticks, NCCL, 1 rank": nccl[2],
+                                     **proc["K2"]}
+        elif k["name"] == "moe_gmm:ep":
+            k["process_launches"] = {
+                "EP layer (1, 1), NCCL, 1 rank": nccl[0],
+                **{f"EP prefill {shape}, gloo, per rank": v
+                   for shape, v in proc["moe_gmm"].items()}}
     # each model kernel's launches on the train path beside its own path's:
     # K3 and K4 on phase 26's Llama-3-8B, K6 and K7 on phase 24's families
     for k in kernels:

@@ -39,6 +39,15 @@ All of them are in device-row order.
 Host mirrors: ``rank``, the triage scalars ``sup``/``opt``/``mean`` and the
 prewarm rows ``trig``/``reach``.  ``repack()`` rebuilds the arena at the
 smallest fitting capacity at a tick boundary and remaps every row.
+
+**One shard a process** (``group``: a ``torch.distributed`` process group
+of ``n_shards`` ranks): rank *s* allocates only its block, so its device
+tensors hold ``cap_s`` rows and slot ``i`` of its shard sits at local row
+``i // n_shards``.  The host bookkeeping (slots, free-lists, dirty sets,
+mirrors) stays whole and replicated: every rank makes the same calls.
+``repack`` moves rows between shards, so there every rank gathers the
+old blocks (one ``all_gather``) and keeps its new block's rows;
+``arena_rows`` reads a device tensor whole, in device-row order.
 """
 from __future__ import annotations
 
@@ -54,11 +63,21 @@ class QueueState:
     """Persistent per-application slot store (see module docstring)."""
 
     def __init__(self, packed: PackedKB, capacity: int = 64,
-                 n_shards: int = 1):
+                 n_shards: int = 1, group=None):
         if n_shards < 1 or n_shards & (n_shards - 1):
             raise ValueError(f"n_shards must be a power of two, "
                              f"got {n_shards}")
         self.n_shards = n_shards
+        # one shard a process: this rank's shard, whose block alone lives
+        # on this rank's device
+        self.group = group
+        self.local_shard: Optional[int] = None
+        if group is not None:
+            import torch.distributed as dist
+            if dist.get_world_size(group) != n_shards:
+                raise ValueError(f"a group of {dist.get_world_size(group)} "
+                                 f"ranks cannot hold {n_shards} shards")
+            self.local_shard = dist.get_rank(group)
         self.device = packed.device
         self.n_units = packed.n_units
         self.max_samples = packed.n_samples
@@ -111,6 +130,21 @@ class QueueState:
     @property
     def shard_capacity(self) -> int:
         return self.capacity // self.n_shards
+
+    @property
+    def held_rows(self) -> int:
+        """Device rows this process holds: its block, or the whole arena."""
+        return (self.shard_capacity if self.local_shard is not None
+                else self.capacity)
+
+    def arena_rows(self, name: str) -> torch.Tensor:
+        """Device tensor ``name`` whole, in device-row order (one shard a
+        process: every rank's block gathered, a collective)."""
+        a = getattr(self, name)
+        if self.local_shard is None:
+            return a
+        from repro_torch.distributed.collectives import all_gather_in
+        return all_gather_in(a, self.group)
 
     def occupied(self) -> np.ndarray:
         """Slot ids of all live applications, ascending."""
@@ -219,15 +253,16 @@ class QueueState:
         for s in range(n):
             self._frees[s].extend(range(old * 2 - n + s, old - 1, -n))
         # shard-major layout: each shard's block grows in place, so old rows
-        # keep their row within the shard (a plain concatenation at 1 shard)
-        cs = old // n
+        # keep their row within the shard (a plain concatenation at 1 shard,
+        # or of the one block a process holds)
+        nb = 1 if self.local_shard is not None else n
         for name in self._DEVICE_ROWS:
             a = getattr(self, name)
             if a is not None:
-                blocks = a.reshape((n, cs) + a.shape[1:])
+                blocks = a.reshape((nb, a.shape[0] // nb) + a.shape[1:])
                 setattr(self, name, torch.cat(
                     [blocks, torch.zeros_like(blocks)], dim=1)
-                    .reshape((old * 2,) + a.shape[1:]))
+                    .reshape((2 * a.shape[0],) + a.shape[1:]))
 
     def _grow_override_width(self, width: int) -> None:
         width = min(_pow2_ceil(width), self.max_samples)
@@ -241,7 +276,7 @@ class QueueState:
                            n_classes: Optional[int] = None,
                            arrivals: bool = False) -> None:
         """Allocate (or re-shape) the persisted result rows."""
-        cap, dev = self.capacity, self.device
+        cap, dev = self.held_rows, self.device
         if self._nb != n_buckets or self.d_probs is None:
             self._nb = n_buckets
             self.d_probs = torch.zeros((cap, n_buckets), dtype=torch.float32,
@@ -250,8 +285,9 @@ class QueueState:
             self.a_hist = None      # bucket count changed: arrival rows too
         if n_classes is not None and (
                 self.trig is None or self.trig.shape[1] != n_classes):
-            self.trig = np.full((cap, n_classes), ARRIVAL_NEVER, np.float32)
-            self.reach = np.zeros((cap, n_classes), np.float32)
+            self.trig = np.full((self.capacity, n_classes), ARRIVAL_NEVER,
+                                np.float32)
+            self.reach = np.zeros((self.capacity, n_classes), np.float32)
         if arrivals and self.a_hist is None:
             U = self.n_units
             self.a_hist = torch.zeros((cap, U, n_buckets),
@@ -260,14 +296,14 @@ class QueueState:
             self.a_span = torch.full((cap, U), 1e-6, dtype=torch.float32,
                                      device=dev)
             self.a_reach = torch.zeros_like(self.a_lo)
-            self.a_att = np.zeros(cap, np.float32)
+            self.a_att = np.zeros(self.capacity, np.float32)
 
     def ensure_posterior_rows(self) -> None:
         """Allocate the device posterior rows (online learning only)."""
         if self.post is None:
             from repro_torch.core.posterior import row_width
             U = self.n_units
-            self.post = torch.zeros((self.capacity, U, row_width(U)),
+            self.post = torch.zeros((self.held_rows, U, row_width(U)),
                                     dtype=torch.float32, device=self.device)
 
     def update_posterior_rows(self, slots: np.ndarray,
@@ -277,15 +313,21 @@ class QueueState:
         if len(slots) == 0:
             return
         self.ensure_posterior_rows()
-        rows = torch.as_tensor(self.device_rows(slots), device=self.device)
-        self.post[rows] = torch.as_tensor(np.asarray(vals, np.float32),
-                                          device=self.device)
+        slots = np.asarray(slots, np.int64)
+        vals = np.asarray(vals, np.float32)
+        if self.local_shard is not None:       # this rank's slots only
+            mine = slots % self.n_shards == self.local_shard
+            rows, vals = slots[mine] // self.n_shards, vals[mine]
+        else:
+            rows = self.device_rows(slots)
+        self.post[torch.as_tensor(rows, device=self.device)] = \
+            torch.as_tensor(vals, device=self.device)
 
     def posterior_rows(self, slots: np.ndarray) -> np.ndarray:
         """Read back the device posterior rows of a slot subset."""
         self.ensure_posterior_rows()
         rows = torch.as_tensor(self.device_rows(slots), device=self.device)
-        return self.post[rows].cpu().numpy()
+        return self.arena_rows("post")[rows].cpu().numpy()
 
     # ------------------------------------------------------------ lifecycle
     def admit(self, app_id: str, graph_idx: int, start: int, key_id: int,
@@ -451,11 +493,14 @@ class QueueState:
         nslot = (rows % new_cs) * n + rows // new_cs       # slot per new row
         old_row = np.where(fill[nslot], (src[nslot] % n) * (old_cap // n)
                            + src[nslot] // n, 0)
+        if self.local_shard is not None:       # this rank's new block
+            s = self.local_shard
+            old_row = old_row[s * new_cs:(s + 1) * new_cs]
         gidx = torch.as_tensor(old_row, device=self.device)
         for name in self._DEVICE_ROWS:
             a = getattr(self, name)
             if a is not None:
-                setattr(self, name, a[gidx])
+                setattr(self, name, self.arena_rows(name)[gidx])
         old_ids = self.ids
         self.ids = [None] * new_cap
         for old, new in mapping.items():
@@ -489,10 +534,12 @@ class QueueState:
 
 
 def build_queue_state(packed: PackedKB, apps: Sequence, kb_token=None,
-                      n_shards: int = 1) -> QueueState:
+                      n_shards: int = 1, group=None) -> QueueState:
     """Rebuild a QueueState from live AppRuntime records; every admitted
-    slot starts dirty, so the next delta tick re-walks the whole queue."""
-    qs = QueueState(packed, capacity=max(len(apps), 64), n_shards=n_shards)
+    slot starts dirty, so the next delta tick re-walks the whole queue.
+    ``group``: one shard a process (``QueueState``)."""
+    qs = QueueState(packed, capacity=max(len(apps), 64), n_shards=n_shards,
+                    group=group)
     qs.kb_token = kb_token
     for a in apps:
         g = packed.graph_index[a.app_name]

@@ -34,6 +34,20 @@ The mesh tick gives the same bits per slot as the single-arena delta tick
 arena launches K1 or K2 for every shard that has walk rows and never falls
 back to the plain walk; a shard with no walk rows launches nothing (its
 arena rows, spill and results are unchanged by padding-only walks).
+
+**One shard a process.**  Given a ``torch.distributed`` process group
+(``RefreshMesh(n_shards, group=...)``) the mesh takes one shard a rank,
+and a group of another size raises ``ValueError`` (the reference's
+device-count guard).  Every rank runs the same host code on replicated
+bookkeeping (its ``QueueState`` holds only its own block,
+``arena.QueueState(group=...)``) and the tick's body above on its own
+shard alone.  The balanced tick ``all_gather``s the packed result rows
+over the group where one process concatenates them; the small results
+(ranks, spill, triage scalars, trigger rows) are ``all_gather``ed so that
+every rank's host holds all of them, the counterpart of the host reading
+the reference's row-sharded outputs.  The ranks must reach every tick
+with the same walked and ranked sets (replicated host code does), or the
+collectives pair unlike tensors.
 """
 from __future__ import annotations
 
@@ -57,19 +71,32 @@ from repro_torch.kernels.pdgraph_walk.ops import pad_rows, walk_schedule
 class RefreshMesh:
     """A 1-D mesh of ``n_shards`` shards over one device's slot arena.
 
-    ``n_shards`` must be a power of two.  The shards share ``device``
-    (default ``cuda``; the caller asks for the CPU), so there is no device
-    count to check.  ``n_shards=1`` runs the sharded tick on one block, the
-    scaling baseline against the single-arena delta tick."""
+    ``n_shards`` must be a power of two.  Without a process ``group`` the
+    shards share ``device`` (default ``cuda``; the caller asks for the
+    CPU), so there is no device count to check.  With one, each rank holds
+    one shard, ``rank``, on its ``device``, and the group must have
+    ``n_shards`` ranks.  ``n_shards=1`` runs the sharded tick on one
+    block, the scaling baseline against the single-arena delta tick."""
 
     # id-keyed uploads kept before the oldest are evicted: a few KB
     # generations' worth (online refinement repacks the prewarm tables)
     _REP_CAP = 32
 
-    def __init__(self, n_shards: int = 1, device: DeviceLike = None):
+    def __init__(self, n_shards: int = 1, device: DeviceLike = None,
+                 group=None):
         if n_shards < 1 or n_shards & (n_shards - 1):
             raise ValueError(f"n_shards must be a power of two, got "
                              f"{n_shards}")
+        self.group = group
+        self.rank: Optional[int] = None
+        if group is not None:
+            import torch.distributed as dist
+            size = dist.get_world_size(self.group)
+            if size != n_shards:
+                raise ValueError(
+                    f"RefreshMesh wants {n_shards} shards but its process "
+                    f"group has {size} ranks (one shard a rank)")
+            self.rank = dist.get_rank(self.group)
         self.n_shards = n_shards
         self.device = resolve_device(device)
         self._rep: dict = {}     # id -> (source ref, device copy)
@@ -176,6 +203,9 @@ def refresh_ranks_mesh(packed: PackedKB, qs: QueueState, seed, *,
     if qs.capacity % n or qs.n_shards != n:
         raise ValueError(f"store is laid out for {qs.n_shards} shards, "
                          f"mesh has {n}")
+    if qs.local_shard != mesh.rank:
+        raise ValueError(f"store holds shard {qs.local_shard}, mesh rank "
+                         f"{mesh.rank}: build it with the mesh's group")
     if qs.device.type != mesh.device.type:
         raise ValueError(f"store is on {qs.device}, mesh on {mesh.device}")
     if rank_in_kernel is None:
@@ -236,12 +266,7 @@ def refresh_ranks_mesh(packed: PackedKB, qs: QueueState, seed, *,
     carrier[:, :Pr, _COL_RANK_ATT] = qs.attained[np.where(rvalid, rmat, 0)]
     ci[:, :Pw, _COL_OWNER] = np.where(wvalid, wmat % n, 0)
     ci[:, :Pw, _N_COLS:] = qs.ov_counts[widx]
-    car = torch.from_numpy(carrier).to(dev)
-    car_i = car.view(torch.int32)
     with_ov = qs.override_apps > 0
-    ovs = (torch.from_numpy(qs.ov_samples[widx]).to(dev) if with_ov
-           else None)
-
     uc = wt = None
     if with_pw:
         uc = mesh.replicated(prewarm_table.unit_class)
@@ -249,146 +274,230 @@ def refresh_ranks_mesh(packed: PackedKB, qs: QueueState, seed, *,
     pmean = prior_mean(packed.samples, packed.counts) if with_po else None
     # the shard's compaction schedule, sized by its walk lanes (K2 path)
     sched = walk_schedule(16, 4, Pw * n_walkers)
+    walk_kw = dict(walker=walker, base_key=base_key, seed=seed,
+                   rank_in_kernel=rank_in_kernel, n_walkers=n_walkers,
+                   max_steps=max_steps, n_buckets=n_buckets,
+                   with_prewarm=with_pw, with_triage=with_triage,
+                   with_rank=False, compact_schedule=sched)
+    # this process's shards: every shard, or (one shard a process) its own
+    lo, k = (0, n) if mesh.group is None else (mesh.rank, 1)
+    shards = range(lo, lo + k)
+    car = torch.from_numpy(carrier[lo:lo + k]).to(dev)
+    car_i = car.view(torch.int32)
+    ovs = (torch.from_numpy(qs.ov_samples[widx[lo:lo + k]]).to(dev)
+           if with_ov else None)
+
+    def block(name: str, s: int) -> torch.Tensor:
+        """Shard ``s``'s block of device tensor ``name``."""
+        a = getattr(qs, name)
+        return a if qs.local_shard is not None else \
+            a.narrow(0, s * cap_s, cap_s)
 
     # 1. each shard walks its rows: one K1 launch (or K2's phases) a shard
     walks = {}
-    for s in range(n):
+    for i, s in enumerate(shards):
         if not wn[s]:
             continue                     # padding only: nothing to walk
-        cw, cwi = car[s, :Pw], car_i[s, :Pw]
-        scat = cwi[:, _COL_SCAT]
-        rows = _Rows(gi=cwi[:, _COL_GI], start=cwi[:, _COL_START],
-                     executed=cw[:, _COL_EXEC], attained=cw[:, _COL_ATT],
-                     kid=cwi[:, _COL_KID], rid=cwi[:, _COL_RID],
-                     stretch=cw[:, _COL_STRETCH],
-                     ovs=ovs[s] if with_ov else None,
-                     ovc=cwi[:, _N_COLS:] if with_ov else None,
-                     valid=scat < cap_s)
-        po_cum = po_scale = None
-        if with_po:
-            # the owner's block holds the rows; padding rows clamp to a
-            # garbage row and their walks are never written
-            blk = qs.post.narrow(0, s * cap_s, cap_s)
-            gi = rows.gi.long()
-            po_cum, po_scale = posterior_tables(
-                blk[torch.clamp(scat.long(), max=cap_s - 1)],
-                packed.cum_trans[gi], pmean[gi],
-                branch_strength=posterior.branch_strength,
-                demand_strength=posterior.demand_strength)
-        walks[s] = (rows, _walk(
-            packed, rows, walker=walker, base_key=base_key, seed=seed,
-            rank_in_kernel=rank_in_kernel, n_walkers=n_walkers,
-            max_steps=max_steps, n_buckets=n_buckets,
-            with_prewarm=with_pw, with_triage=with_triage, with_rank=False,
-            po_cum=po_cum, po_scale=po_scale, compact_schedule=sched))
+        walks[s] = _shard_walk(
+            packed, car[i, :Pw], ovs[i] if with_ov else None, cap_s,
+            block("post", s) if with_po else None, pmean, posterior,
+            walk_kw)
 
     # 2. each shard writes its rows into its own block of the arena
+    arena = _arena_cols(with_pw)
+    if balanced:
+        _scatter_balanced(qs, walks, arena, car[:, :Pw], wcounts, shards,
+                          mesh, block)
+    else:
+        for i, s in enumerate(shards):
+            if s not in walks:
+                continue
+            res = walks[s][1]
+            m = int(wn[s])               # valid rows are each shard's prefix
+            dst = car_i[i, :m, _COL_SCAT].long()
+            for name, key in arena:
+                block(name, s).index_copy_(0, dst, res[key][:m])
+
+    # 3. the shards' stale rows, ranked in one call over their rows
+    rr = torch.clamp(car_i[:, :Pr, _COL_RANK_ROW].long(), max=cap_s - 1)
+    if qs.local_shard is None:
+        rr = rr + torch.arange(n, device=dev)[:, None] * cap_s
+    rr = rr.reshape(-1)
+    parts = [gittins_rank_core(qs.d_probs[rr], qs.d_edges[rr],
+                               car[:, :Pr, _COL_RANK_ATT].reshape(-1))]
+    walking = [s - lo for s in walks]        # their places among `shards`
+    wres = [res for _, res in walks.values()]
+
+    def by_shard(t: torch.Tensor, width: int) -> torch.Tensor:
+        """(k, width): the walking shards' rows of ``t``, zeros for the
+        shards that walked nothing."""
+        out = torch.zeros((k, width), dtype=torch.float32, device=dev)
+        if walking:
+            out[walking] = t.reshape(len(walking), width)
+        return out
+
+    if with_triage:
+        # (3, walking shards * Pw) -> each shard's (sup, opt, mean) rows
+        tri = (torch.stack(_triage_stats(torch.cat(
+            [r["total"] for r in wres]))).reshape(3, len(walking), Pw)
+               .transpose(0, 1) if walking else None)
+        parts.append(by_shard(tri, 3 * Pw))
+    parts.append(by_shard(torch.stack(
+        [torch.as_tensor(r["spill"], device=dev) for r in wres]).float()
+        if walking else None, 1))
+    if with_pw:
+        B = qs.trig.shape[1]
+        if retrigger:
+            # 4. the shards' blocks' rows in device-row order
+            parts += _retrigger(
+                qs, walked, qs.row_slots()[lo * cap_s:(lo + k) * cap_s],
+                uc, wt, n_walkers, prewarm_k)
+        else:
+            trig = reach = None
+            if walking:
+                res = {key: torch.cat([r[key] for r in wres])
+                       for key in ("a_hist", "a_lo", "a_span", "a_reach")}
+                wrows = [rows for rows, _ in walks.values()]
+                gi = torch.cat([r.gi for r in wrows]).long()
+                trig, reach = _triggers_from_hists(
+                    res["a_hist"], res["a_lo"], res["a_span"],
+                    res["a_reach"], n_walkers,
+                    torch.zeros(gi.shape[0], dtype=torch.float32,
+                                device=dev), uc[gi], wt, prewarm_k,
+                    torch.cat([r.stretch for r in wrows]))
+            parts += [by_shard(trig, Pw * B), by_shard(reach, Pw * B)]
+    if host_work is not None:
+        host_work()                # overlaps the enqueued device work
+
+    # 5. the small results of every shard on this host: one read-back (one
+    # shard a process: gathered from every rank first)
+    mine = torch.cat([t.reshape(k, -1).float() for t in parts], 1)
+    if mesh.group is not None:
+        from repro_torch.distributed.collectives import all_gather_in
+        mine = all_gather_in(mine, mesh.group)
+    every = _host(mine)
+    col = 0
+
+    def take(width):
+        nonlocal col
+        out = every[:, col:col + width]
+        col += width
+        return out
+
+    if with_pw:
+        qs.a_att[walked] = qs.attained[walked]
+    qs.rank[r_by_shard] = take(Pr)[rvalid]
+    if with_triage:
+        tri = take(3 * Pw).reshape(n, 3, Pw)
+        qs.sup[w_by_shard] = tri[:, 0][wvalid]
+        qs.opt[w_by_shard] = tri[:, 1][wvalid]
+        qs.mean[w_by_shard] = tri[:, 2][wvalid]
+    spill = int(take(1).sum())
+    if with_pw:
+        rows_a = cap_s if retrigger else Pw
+        trig = take(rows_a * B).reshape(n * rows_a, B)
+        reach = take(rows_a * B).reshape(n * rows_a, B)
+        if retrigger:
+            # (cap, B) in device-row order -> slot order
+            rows = qs.device_rows(np.arange(cap, dtype=np.int64))
+            qs.trig, qs.reach = trig[rows], reach[rows]
+        else:
+            qs.trig[w_by_shard] = trig[wvalid.ravel()]
+            qs.reach[w_by_shard] = reach[wvalid.ravel()]
+    return MeshTick(qs.rank[ranked], spill, walked, ranked, balanced)
+
+
+def _retrigger(qs: QueueState, walked: np.ndarray, row_slots: np.ndarray,
+               uc, wt, n_walkers: int, prewarm_k: float):
+    """Trigger and reach rows of the arena rows holding ``row_slots`` (in
+    device-row order), re-conditioned on the service each slot attained
+    since its walk (0 for the slots walked this tick)."""
+    delta_all = qs.attained - qs.a_att
+    if len(walked):
+        delta_all[walked] = 0.0
+    rc = np.empty((3, len(row_slots)), np.float32)
+    rc[0].view(np.int32)[:] = qs.graph_idx[row_slots]
+    rc[1] = delta_all[row_slots]
+    rc[2] = qs.stretch[row_slots]
+    rct = torch.from_numpy(rc).to(qs.device)
+    return _triggers_from_hists(
+        qs.a_hist, qs.a_lo, qs.a_span, qs.a_reach, n_walkers, rct[1],
+        uc[rct[0].view(torch.int32).long()], wt, prewarm_k, rct[2])
+
+
+def _arena_cols(with_pw: bool):
+    """(arena tensor, walk result key) pairs a tick writes."""
     arena = [("d_probs", "probs"), ("d_edges", "edges")]
     if with_pw:
         arena += [("a_hist", "a_hist"), ("a_lo", "a_lo"),
                   ("a_span", "a_span"), ("a_reach", "a_reach")]
-    if balanced:
-        _scatter_balanced(qs, walks, arena, car, wcounts, n, cap_s)
-    else:
-        for s, (rows, res) in walks.items():
-            k = int(wn[s])               # valid rows are each shard's prefix
-            dst = car_i[s, :k, _COL_SCAT].long()
-            for name, key in arena:
-                getattr(qs, name).narrow(0, s * cap_s, cap_s).index_copy_(
-                    0, dst, res[key][:k])
+    return arena
 
-    # 3. every shard's stale rows, ranked in one call over their rows
-    rr = torch.clamp(car_i[:, :Pr, _COL_RANK_ROW].long(), max=cap_s - 1)
-    grow = (rr + torch.arange(n, device=dev)[:, None] * cap_s).reshape(-1)
-    ranks = gittins_rank_core(qs.d_probs[grow], qs.d_edges[grow],
-                              car[:, :Pr, _COL_RANK_ATT].reshape(-1))
-    walk_shards = list(walks)
-    triage = None
-    if with_triage and walk_shards:
-        triage = torch.stack(_triage_stats(torch.cat(
-            [walks[s][1]["total"] for s in walk_shards])))
-    trigger = reach = None
-    if with_pw:
-        if retrigger:
-            # 4. (cap,) rows in device-row order: shard s's block is its own
-            row_slots = qs.row_slots()
-            delta_all = qs.attained - qs.a_att
-            if len(walked):
-                delta_all[walked] = 0.0
-            rc = np.empty((3, cap), np.float32)
-            rc[0].view(np.int32)[:] = qs.graph_idx[row_slots]
-            rc[1] = delta_all[row_slots]
-            rc[2] = qs.stretch[row_slots]
-            rct = torch.from_numpy(rc).to(dev)
-            trigger, reach = _triggers_from_hists(
-                qs.a_hist, qs.a_lo, qs.a_span, qs.a_reach, n_walkers, rct[1],
-                uc[rct[0].view(torch.int32).long()], wt, prewarm_k, rct[2])
-        elif walk_shards:
-            res = {k: torch.cat([walks[s][1][k] for s in walk_shards])
-                   for k in ("a_hist", "a_lo", "a_span", "a_reach")}
-            wrows = [walks[s][0] for s in walk_shards]
-            gi = torch.cat([r.gi for r in wrows]).long()
-            trigger, reach = _triggers_from_hists(
-                res["a_hist"], res["a_lo"], res["a_span"], res["a_reach"],
-                n_walkers, torch.zeros(gi.shape[0], dtype=torch.float32,
-                                       device=dev), uc[gi], wt, prewarm_k,
-                torch.cat([r.stretch for r in wrows]))
-    if host_work is not None:
-        host_work()                # overlaps the enqueued device work
 
-    if with_pw:
-        qs.a_att[walked] = qs.attained[walked]
-    qs.rank[r_by_shard] = _host(ranks).reshape(n, Pr)[rvalid]
-    wsel = wvalid[walk_shards]          # (k, Pw): the walking shards' rows
-    if triage is not None:
-        sup, opt, mean = _host(triage).reshape(3, len(walk_shards), Pw)
-        qs.sup[w_by_shard] = sup[wsel]
-        qs.opt[w_by_shard] = opt[wsel]
-        qs.mean[w_by_shard] = mean[wsel]
-    if trigger is not None:
-        if retrigger:
-            # (cap, B) in device-row order -> slot order
-            rows = qs.device_rows(np.arange(cap, dtype=np.int64))
-            qs.trig = _host(trigger)[rows]
-            qs.reach = _host(reach)[rows]
-        else:
-            qs.trig[w_by_shard] = _host(trigger)[wsel.ravel()]
-            qs.reach[w_by_shard] = _host(reach)[wsel.ravel()]
-    spill = sum(int(res["spill"]) for _, res in walks.values())
-    return MeshTick(qs.rank[ranked], spill, walked, ranked, balanced)
+def _shard_walk(packed: PackedKB, cw: torch.Tensor, ovs, cap_s: int, post,
+                pmean, posterior, walk_kw):
+    """One shard's walk of its carrier rows ``cw`` (``(Pw, cols)``; K1, or
+    K2's phases): ``(rows, results)``.  ``post`` is the owner's block of
+    the posterior rows (padding rows clamp to a garbage row and their
+    walks are never written)."""
+    cwi = cw.view(torch.int32)
+    scat = cwi[:, _COL_SCAT]
+    rows = _Rows(gi=cwi[:, _COL_GI], start=cwi[:, _COL_START],
+                 executed=cw[:, _COL_EXEC], attained=cw[:, _COL_ATT],
+                 kid=cwi[:, _COL_KID], rid=cwi[:, _COL_RID],
+                 stretch=cw[:, _COL_STRETCH], ovs=ovs,
+                 ovc=cwi[:, _N_COLS:] if ovs is not None else None,
+                 valid=scat < cap_s)
+    po_cum = po_scale = None
+    if post is not None:
+        gi = rows.gi.long()
+        po_cum, po_scale = posterior_tables(
+            post[torch.clamp(scat.long(), max=cap_s - 1)],
+            packed.cum_trans[gi], pmean[gi],
+            branch_strength=posterior.branch_strength,
+            demand_strength=posterior.demand_strength)
+    return rows, _walk(packed, rows, po_cum=po_cum, po_scale=po_scale,
+                       **walk_kw)
 
 
 def _scatter_balanced(qs: QueueState, walks, arena, car: torch.Tensor,
-                      wcounts, n: int, cap_s: int) -> None:
+                      wcounts, shards, mesh: RefreshMesh, block) -> None:
     """The balanced tick's return of result rows to their owners.  Each
     walking shard packs its result rows with their owner and owner-local
-    row (the carrier's raw int32 bit patterns); the packs are concatenated
-    in shard order (the reference's ``all_gather``); shard ``s`` then
-    writes exactly the rows whose owner column is ``s`` (padding rows carry
-    row ``cap_s`` and are never taken)."""
+    row (``car``: the shards' carrier walk rows, whose raw int32 bit
+    patterns hold both; a shard that walked nothing packs padding rows); the packs are concatenated in shard order, or
+    ``all_gather``ed over the process group (the reference's
+    ``all_gather``); shard ``s`` then writes exactly the rows whose owner
+    column is ``s`` (padding rows carry row ``cap_s`` and are never
+    taken)."""
+    n, cap_s, Pw = mesh.n_shards, qs.shard_capacity, car.shape[1]
+    widths = [int(np.prod(getattr(qs, name).shape[1:])) for name, _ in arena]
     packs = []
-    for s, (_, res) in walks.items():
-        D = res["probs"].shape[0]
-        meta = car[s, :D, [_COL_OWNER, _COL_SCAT]]
-        packs.append(torch.cat([meta] + [res[key].reshape(D, -1)
-                                         for _, key in arena], 1))
+    for i, s in enumerate(shards):
+        meta = car[i, :Pw, [_COL_OWNER, _COL_SCAT]]
+        body = (torch.cat([walks[s][1][key].reshape(Pw, -1)
+                           for _, key in arena], 1) if s in walks else
+                meta.new_zeros((Pw, sum(widths))))
+        packs.append(torch.cat([meta, body], 1))
     g = torch.cat(packs)                                  # (k*Pw, 2 + K)
+    if mesh.group is not None:
+        from repro_torch.distributed.collectives import all_gather_in
+        g = all_gather_in(g, mesh.group)                  # (n*Pw, 2 + K)
     gi32 = g[:, :2].contiguous().view(torch.int32)
     owner, gscat = gi32[:, 0], gi32[:, 1]
     # rows grouped by owner (padding last), in gather order within an owner
     key = torch.where(gscat < cap_s, owner, torch.full_like(owner, n))
     order = torch.argsort(key, stable=True)
     off = np.concatenate([[0], np.cumsum(wcounts)])
-    for s in range(n):
+    for s in shards:
         if not wcounts[s]:
             continue
         sel = order[int(off[s]):int(off[s + 1])]
         dst = gscat[sel].long()
         rows = g[sel]
         col = 2
-        for name, _ in arena:
-            blk = getattr(qs, name).narrow(0, s * cap_s, cap_s)
-            w = int(np.prod(blk.shape[1:]))
+        for (name, _), w in zip(arena, widths):
+            blk = block(name, s)
             blk.index_copy_(0, dst, rows[:, col:col + w].reshape(
                 (-1,) + blk.shape[1:]))
             col += w

@@ -26,7 +26,10 @@ per-phase walk with the reductions; ``posterior`` (a ``PosteriorConfig``,
 ``mesh_shards`` splits the arena into shards on the same device
 (:mod:`repro_torch.core.refresh_mesh`): each tick walks every shard's dirty
 rows and re-ranks only the stale ones, the same bits as the single arena;
-``lane_balance`` walks a skewed dirty set round-robin.
+``lane_balance`` walks a skewed dirty set round-robin.  Given a
+``torch.distributed`` process group of ``mesh_shards`` ranks
+(``process_group``) every rank runs this scheduler replicated and ticks
+its own shard, and every rank's results are the same.
 """
 from __future__ import annotations
 
@@ -86,7 +89,7 @@ class HermesScheduler:
                  refresh: Optional[RefreshConfig] = None,
                  warmup_table: Optional[Dict[str, float]] = None,
                  posterior: Optional[PosteriorConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, process_group=None):
         self.device = resolve_device(device)
         self.kb = knowledge_base
         self.policy: Policy = make_policy(policy) if policy != "gittins" \
@@ -112,11 +115,17 @@ class HermesScheduler:
         self.queue_delay_correction = rc.queue_delay_correction
         # mesh sharding: the arena split into mesh_shards shards on this
         # device, walked and ranked shard by shard (the same bits as the
-        # single arena); None keeps the single-arena delta tick
+        # single arena), or one shard a rank of ``process_group`` (every
+        # rank runs this scheduler replicated); None keeps the
+        # single-arena delta tick
         self.refresh_mesh: Optional[RefreshMesh] = None
         if rc.mesh_shards is not None:
             self.refresh_mesh = RefreshMesh(rc.mesh_shards,
-                                            device=self.device)
+                                            device=self.device,
+                                            group=process_group)
+        elif process_group is not None:
+            raise ValueError("process_group requires "
+                             "RefreshConfig(mesh_shards=...)")
         self._stretch_alpha = 0.3       # queue-wait EWMA smoothing
         self.walker = rc.walker
         self.rank_in_kernel = rc.rank_in_kernel
@@ -213,7 +222,9 @@ class HermesScheduler:
             self._qstate = build_queue_state(
                 packed, list(self._live.values()), kb_token=token,
                 n_shards=(self.refresh_mesh.n_shards if self.refresh_mesh
-                          else 1))
+                          else 1),
+                group=(self.refresh_mesh.group if self.refresh_mesh
+                       else None))
         return self._qstate
 
     def _qstate_if_current(self):

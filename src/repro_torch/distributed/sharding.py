@@ -14,11 +14,13 @@ resolves the model code's logical names to the axes of a mesh
   "seq"    -> "model"                  KV-cache sequence sharding (decode)
 
 A spec is a ``P``, a tuple of one entry per dim: ``None`` (replicated), an
-axis name, or a tuple of axis names.  The port runs on one device, so
-nothing is placed: ``shard()`` resolves its names as the reference does
-(an unknown name raises ``KeyError``) and returns its input, and the specs
-serve the dry run's per-device accounting (``launch/dryrun.py``) and the
-expert-parallel MoE's mesh shape (``distributed/ep_moe.py``).
+axis name, or a tuple of axis names.  Nothing is placed: ``shard()``
+resolves its names as the reference does (an unknown name raises
+``KeyError``) and returns its input, and the specs serve the dry run's
+per-device accounting (``launch/dryrun.py``) and the expert-parallel MoE's
+mesh shape (``distributed/ep_moe.py``).  Over a ``ProcessMesh`` (one
+process a position) the context also names this rank's data shard and
+model rank, and ``shard_params`` keeps a rank's share of the experts.
 """
 from __future__ import annotations
 
@@ -58,6 +60,27 @@ class ShardCtx:
             a for a in ("pod", "data") if a in names)
         self.model_axis: Optional[str] = "model" if "model" in names else None
         self.param_sharding = param_sharding
+
+    @property
+    def process(self) -> bool:
+        """Whether the mesh's positions are processes (a ``ProcessMesh``):
+        then this process holds one position's share."""
+        return bool(getattr(self.mesh, "process", False))
+
+    @property
+    def data_shard(self) -> int:
+        """This rank's index over the batch axes (row-major), 0 without
+        them (process meshes only)."""
+        i = 0
+        for a in self.batch_axes:
+            i = i * self.mesh.shape[a] + self.mesh.index(a)
+        return i
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on the model axis (process meshes
+        only)."""
+        return self.mesh.index(self.model_axis) if self.model_axis else 0
 
     def logical(self, name: Optional[str]):
         if name is None:
@@ -231,4 +254,36 @@ def named_shardings(ctx: ShardCtx, params: Dict[str, Any], period: int
         resolved = resolve_pspec(ctx, spec)
         entries = list(resolved) + [None] * (t.dim() - len(resolved))
         out[name] = _fit(ctx, entries, t.shape)
+    return out
+
+
+_EXPERT_WEIGHT = re.compile(r"(^|\.)moe\.w[igo]$")
+
+
+def expert_rows(mesh, num_experts: int) -> Optional[slice]:
+    """The padded experts this rank of a process ``mesh`` holds (``E / n``
+    of them, ``n`` the model axis), or ``None`` where it holds them all (a
+    logical mesh, no model axis, or ``n`` not dividing the experts: the
+    EP dispatch then runs the sort path, which needs every expert)."""
+    ctx = ShardCtx(mesh)
+    if not ctx.process or ctx.model_axis is None:
+        return None
+    n = mesh.shape[ctx.model_axis]
+    if n == 1 or num_experts % n:
+        return None
+    e = num_experts // n
+    return slice(ctx.model_rank * e, (ctx.model_rank + 1) * e)
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's share of a full parameter set over a process ``mesh``:
+    each MoE layer's ``wi``, ``wg`` and ``wo`` cut to the rank's experts
+    (a copy, so the full tensor can be freed), every other tensor as it
+    is (replicated)."""
+    out = {}
+    for name, t in params.items():
+        rows = (expert_rows(mesh, t.shape[0])
+                if _EXPERT_WEIGHT.search(name) else None)
+        out[name] = t if rows is None else t[rows].clone()
     return out

@@ -51,10 +51,12 @@ Params = Dict[str, torch.Tensor]
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
-                 max_seq: int = 0):
+                 max_seq: int = 0, experts: Optional[slice] = None):
         """``max_seq``: rows of the learned position table of a model
         without RoPE (``rope_theta <= 0``: the encoder-decoder's decoder);
-        0 means none, as the JAX package's ``init(max_seq=0)``."""
+        0 means none, as the JAX package's ``init(max_seq=0)``.
+        ``experts``: the padded experts each MoE layer holds (a process
+        rank's share, ``sharding.expert_rows``); all by default."""
         super().__init__()
         kinds = T.layer_kinds(cfg)  # raises for a config its family
                                     # cannot run
@@ -80,7 +82,7 @@ class Model(nn.Module):
             self.enc_final_norm = L.Norm(D, dev, with_bias=True)
             self.layers = E.build_decoder(cfg, dt, dev)
         else:
-            self.layers = T.build_layers(cfg, dt, dev)
+            self.layers = T.build_layers(cfg, dt, dev, experts)
         self.n_attn = sum(m == "attn" for m, _ in kinds)
         self.n_mamba = len(kinds) - self.n_attn
         self._slots = {name: (mod, attr)
@@ -102,10 +104,13 @@ class Model(nn.Module):
         temporary is one weight, the embedding; ``pos_emb`` std 0.02, the
         VLM ``projector`` 1/sqrt(D)); a module's ``init_fn``
         leaves (the Mamba ``dt_bias`` and ``a_log``) as that function
-        draws them; norms ones, biases zeros."""
+        draws them; norms ones, biases zeros.  A layer holding a share of
+        its experts draws each expert tensor whole and keeps its rows (one
+        layer's full tensor at a time), so the share equals those rows of
+        the whole model's."""
         stds = {"embed": 0.02, "pos_emb": 0.02,
                 "projector": 1.0 / np.sqrt(self.cfg.d_model)}
-        fns = {}
+        fns, full = {}, {}
         if self.lm_head is not None:
             stds["lm_head"] = 1.0 / np.sqrt(self.cfg.d_model)
         for mod_name, mod in self.named_modules():
@@ -113,6 +118,8 @@ class Model(nn.Module):
                 stds[f"{mod_name}.{name}"] = std
             for name, fn in getattr(mod, "init_fn", {}).items():
                 fns[f"{mod_name}.{name}"] = fn
+            for name, shape in getattr(mod, "init_full", {}).items():
+                full[f"{mod_name}.{name}"] = (shape, mod.experts)
         for name, p in self.named_parameters():
             if name in fns:
                 p.copy_(fns[name](p.shape, generator, p.device))
@@ -120,9 +127,10 @@ class Model(nn.Module):
             if name not in stds:        # norm scales, biases
                 p.fill_(0.0 if name.split(".")[-1].startswith("b") else 1.0)
                 continue
-            tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            shape, rows = full.get(name, (p.shape, slice(None)))
+            tmp = torch.empty(shape, dtype=torch.float32, device=p.device)
             tmp.normal_(generator=generator).mul_(stds[name])
-            p.copy_(tmp)
+            p.copy_(tmp[rows])
             del tmp
         return self
 
@@ -368,11 +376,17 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
-                max_seq: int = 0) -> Model:
+                max_seq: int = 0, mesh=None) -> Model:
     """The model with uninitialised weights: call ``init`` or
     ``load_params``.  ``max_seq``: the learned position table's rows
-    (``Model``)."""
-    return Model(cfg, device, max_seq)
+    (``Model``).  ``mesh``: a ``ProcessMesh`` whose model axis splits the
+    experts; the model then holds this rank's share
+    (``sharding.expert_rows``), the rest replicated."""
+    experts = None
+    if mesh is not None and cfg.num_experts:
+        from repro_torch.distributed.sharding import expert_rows
+        experts = expert_rows(mesh, L.padded_experts(cfg.num_experts))
+    return Model(cfg, device, max_seq, experts)
 
 
 def _np(a) -> np.ndarray:

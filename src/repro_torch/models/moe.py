@@ -21,11 +21,16 @@ is routed to a padded expert.
 products through the same kernel; without one, or where the mesh does not
 divide the experts or the tokens, it runs the sort path, as the reference
 does.
+
+Over a ``ProcessMesh`` (one process a position) a rank holds only its
+share of the experts (``MoE(experts=rows)``, the rows of the padded expert
+dim it owns): the EP dispatch runs its own position, and the sort and
+dense dispatches, which need every expert, raise.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,21 +45,29 @@ class MoE(nn.Module):
     """Weights of one MoE layer: the router (float32, ``(D, num_experts)``),
     the expert stacks ``wi``/``wg`` ``(E, D, Fe)`` and ``wo`` ``(E, Fe, D)``
     over the padded experts, and the shared expert's ``(in, out)`` weights
-    with its float32 gate."""
+    with its float32 gate.  ``experts`` (a slice of the padded experts):
+    hold only those rows of ``wi``/``wg``/``wo``, a process rank's share;
+    ``Model.init`` then draws each full tensor and keeps the rows."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device,
+                 experts: Optional[slice] = None):
         super().__init__()
         D = cfg.d_model
         Fe = cfg.d_ff_expert or cfg.d_ff
         E = padded_experts(cfg.num_experts)
         s_in, s_out = 1.0 / math.sqrt(D), 1.0 / math.sqrt(Fe)
+        self.experts = experts
+        El = E if experts is None else len(range(E)[experts])
         self.router = new_param((D, cfg.num_experts), torch.float32, device)
-        self.wi = new_param((E, D, Fe), dtype, device)
-        self.wg = new_param((E, D, Fe), dtype, device)
-        self.wo = new_param((E, Fe, D), dtype, device)
+        self.wi = new_param((El, D, Fe), dtype, device)
+        self.wg = new_param((El, D, Fe), dtype, device)
+        self.wo = new_param((El, Fe, D), dtype, device)
         # std of each weight drawn at init (the JAX package's scales)
         self.init_std = {"router": s_in, "wi": s_in, "wg": s_in,
                          "wo": s_out}
+        # a share's weights are drawn at their full shape, then cut
+        self.init_full = {} if experts is None else {
+            "wi": (E, D, Fe), "wg": (E, D, Fe), "wo": (E, Fe, D)}
         if cfg.num_shared_experts:
             Fs = cfg.num_shared_experts * Fe
             self.shared_wi = new_param((D, Fs), dtype, device)
@@ -97,8 +110,17 @@ def _experts(p: MoE, buf: torch.Tensor) -> torch.Tensor:
     return moe_gmm(F.silu(g) * h, p.wo)
 
 
+def _every_expert(p: MoE, how: str) -> None:
+    if p.experts is not None:
+        raise NotImplementedError(
+            f"the {how} dispatch needs every expert; this rank holds "
+            f"experts {p.experts.start}..{p.experts.stop - 1} only (the EP "
+            f"dispatch over its process mesh)")
+
+
 def moe_apply_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Sort/capacity dispatch.  x: (B, S, D)."""
+    _every_expert(p, "sort")
     B, S, D = x.shape
     T, k = B * S, cfg.top_k
     E = padded_experts(cfg.num_experts)
@@ -142,6 +164,7 @@ def moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Every expert on every token (the tokens repeated across the experts
     as a stride-0 view), combined in float32 with the one-hot routing
     weights."""
+    _every_expert(p, "dense")
     B, S, D = x.shape
     T = B * S
     E = padded_experts(cfg.num_experts)

@@ -86,7 +86,8 @@ def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: Tuple[str, str],
-                 cache_index: int, dtype, device):
+                 cache_index: int, dtype, device,
+                 experts: Optional[slice] = None):
         super().__init__()
         gelu = cfg.act == "gelu"
         self.mixer, self.ffn = kind
@@ -100,7 +101,7 @@ class DecoderLayer(nn.Module):
         if self.ffn != "none":
             self.ffn_norm = L.Norm(cfg.d_model, device, with_bias=gelu)
         if self.ffn == "moe":
-            self.moe = X.MoE(cfg, dtype, device)
+            self.moe = X.MoE(cfg, dtype, device, experts)
         elif self.ffn == "dense":
             self.mlp = L.MLP(cfg, cfg.d_ff, dtype, device)
 
@@ -146,11 +147,15 @@ class DecoderLayer(nn.Module):
         return x + apply(self.moe, h, cfg)
 
 
-def build_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
+def build_layers(cfg: ModelConfig, dtype, device,
+                 experts: Optional[slice] = None) -> nn.ModuleList:
+    """The decoder stack; ``experts``: the padded experts each MoE layer
+    holds (a process rank's share), all of them by default."""
     counts = {"attn": 0, "mamba": 0}
     layers = []
     for kind in layer_kinds(cfg):
-        layers.append(DecoderLayer(cfg, kind, counts[kind[0]], dtype, device))
+        layers.append(DecoderLayer(cfg, kind, counts[kind[0]], dtype, device,
+                                   experts))
         counts[kind[0]] += 1
     return nn.ModuleList(layers)
 

@@ -1,7 +1,7 @@
-"""The cluster simulator's event engine.
+"""Pluggable event engines for the cluster simulator.
 
 The simulator's hot loop is *drain one timestamp's micro-batch, handle it,
-refresh ranks once, reschedule once*.  The event queue exposes exactly that
+refresh ranks once, reschedule once*.  Both engines here expose exactly that
 contract:
 
 * ``push(t, kind, payload)`` — schedule an event (never in the past);
@@ -9,8 +9,10 @@ contract:
   event whose timestamp equals the earliest one, in push order;
 * ``len(q)`` — outstanding events.
 
-``CalendarEventQueue`` is a bucketed calendar queue
-(time wheel with an unbounded, sparse wheel): events land in
+``HeapEventQueue`` is the seed's ``heapq`` of ``(t, seq, kind, payload)``
+tuples, batch-drained (the reference's deprecated ``heap`` engine, kept as
+its bit-equivalence oracle).  ``CalendarEventQueue`` is a bucketed calendar
+queue (time wheel with an unbounded, sparse wheel): events land in
 ``floor(t / bucket_s)`` buckets as plain appends; a bucket is sorted ONCE
 with a vectorized stable argsort when the clock reaches it, and batches are
 then cut out of the sorted run with ``searchsorted`` — no per-event
@@ -20,9 +22,10 @@ currently being drained (completion chains, immediate prewarms) go to a
 equal-timestamp order across runs is push order because a run is always
 created strictly after every earlier run's events were pushed.
 
-The batch order equals that of a heap of ``(t, push seq)``: bucket order is
-monotone in t, a stable sort on t within the bucket keeps ties in push
-order, and late pushes follow in run creation order.
+Both engines produce IDENTICAL batch sequences for identical pushes: the
+heap orders by ``(t, seq)``; the calendar orders by bucket (monotone in t),
+then by a stable sort on t within the bucket (ties keep push = seq order),
+then by run creation order across late pushes.
 
 ``ArrayWaitQueue`` is the matching waiting-queue structure: a sorted
 structure of ``(r0, r1, r2)`` key columns over numpy arrays whose full
@@ -36,11 +39,39 @@ the pop order is total and bit-identical to a plain heap of the same keys.
 from __future__ import annotations
 
 import heapq
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["CalendarEventQueue", "ArrayWaitQueue"]
+__all__ = ["HeapEventQueue", "CalendarEventQueue", "ArrayWaitQueue",
+           "HeapWaitQueue", "make_event_queue", "make_wait_queue",
+           "ENGINES"]
+
+ENGINES = ("heap", "calendar")
+
+
+class HeapEventQueue:
+    """The seed's event heap: ``(t, seq, kind, payload)`` tuples, drained a
+    whole equal-timestamp micro-batch at a time."""
+
+    def __init__(self):
+        self._heap: List[tuple] = []
+        self._seq = itertools.count()
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def push(self, t: float, kind: str, payload=None) -> None:
+        heapq.heappush(self._heap, (t, next(self._seq), kind, payload))
+
+    def next_batch(self) -> Tuple[float, List[tuple]]:
+        t, _, kind, payload = heapq.heappop(self._heap)
+        batch = [(kind, payload)]
+        while self._heap and self._heap[0][0] == t:
+            _, _, k, p = heapq.heappop(self._heap)
+            batch.append((k, p))
+        return t, batch
 
 
 class _Run:
@@ -149,6 +180,44 @@ class CalendarEventQueue:
             if len(r) and r.head() == t:
                 self._n -= r.take(t, batch)
         return float(t), batch
+
+
+class HeapWaitQueue:
+    """The seed's waiting queue: a heap of ``(key, task)`` with key tuples
+    snapshotted at push time; full refreshes rebuild the heap from
+    re-computed keys (O(Q) Python key calls + heapify — the legacy cost
+    model, kept verbatim as the benchmark baseline)."""
+
+    def __init__(self):
+        self._heap: List[tuple] = []
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def push(self, key: tuple, task, app_index: int = -1) -> None:
+        heapq.heappush(self._heap, (key, task))
+
+    def peek_key(self) -> tuple:
+        return self._heap[0][0]
+
+    def pop(self):
+        return heapq.heappop(self._heap)[1]
+
+    def discard(self, app_ids) -> list:
+        """Drop every queued task whose ``app_id`` is in ``app_ids``
+        (shed/deferred applications); returns the removed tasks."""
+        removed = [t for _, t in self._heap if t.app_id in app_ids]
+        if removed:
+            self._heap = [e for e in self._heap
+                          if e[1].app_id not in app_ids]
+            heapq.heapify(self._heap)
+        return removed
+
+    def rebuild(self, key_fn) -> None:
+        if self._heap:
+            fresh = [(key_fn(t), t) for _, t in self._heap]
+            heapq.heapify(fresh)
+            self._heap = fresh
 
 
 class ArrayWaitQueue:
@@ -265,3 +334,17 @@ class ArrayWaitQueue:
         self._pos = 0
         self._fresh = []
 
+def make_event_queue(engine: str, bucket_s: float = 1.0):
+    if engine == "heap":
+        return HeapEventQueue()
+    if engine == "calendar":
+        return CalendarEventQueue(bucket_s=bucket_s)
+    raise ValueError(f"unknown sim engine {engine!r}; known: {ENGINES}")
+
+
+def make_wait_queue(engine: str):
+    if engine == "heap":
+        return HeapWaitQueue()
+    if engine == "calendar":
+        return ArrayWaitQueue()
+    raise ValueError(f"unknown sim engine {engine!r}; known: {ENGINES}")

@@ -7,12 +7,20 @@ priority refresh with preemption at bucket boundaries, and PDGraph-driven
 prewarming.  The scheduler under test is the real ``HermesScheduler`` — the
 simulator only supplies ground truth (pre-sampled trajectories) and time.
 
-The host event engine is the array-native one: a bucketed calendar queue
-over numpy arrays for events, vectorized ``lexsort`` waiting queues, batch
-admission (``HermesScheduler.on_arrivals`` → ``QueueState.admit_many``) and
-ranks consumed as one vector per refresh (``priorities_arrays``) scattered
-into a dense host rank column.  (The reference's deprecated ``heap`` engine
-is not ported.)
+Two host engines share one drain loop (``SimConfig.engine``):
+
+* ``calendar`` (default) — the array-native engine: a bucketed calendar
+  queue over numpy arrays for events, vectorized ``lexsort`` waiting
+  queues, batch admission (``HermesScheduler.on_arrivals`` →
+  ``QueueState.admit_many``) and ranks consumed as one vector per refresh
+  (``priorities_arrays``) scattered into a dense host rank column.
+* ``heap`` — the seed's ``heapq`` event loop, per-app rank dicts and
+  heap waiting queues.  **Deprecated**, as in the reference: constructing
+  ``SimConfig(engine="heap")`` emits a :class:`DeprecationWarning`; it is
+  kept as the bit-equivalence oracle of the calendar engine.
+
+Both engines produce identical completion orders and ``SimResult`` stats
+for the same trace.
 
 This is the PyTorch counterpart of ``repro.serving.simulator``, host code
 kept line for line; the scheduler's slot arena and walk kernel run on
@@ -25,7 +33,7 @@ from __future__ import annotations
 import itertools
 import time as _time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -46,7 +54,8 @@ from repro_torch.runtime.fault_tolerance import (BackendStragglerWatchdog,
                                            FailureInjector, HeartbeatRegistry,
                                            requeue_backoff)
 from repro_torch.serving.backends import Backend, FaultConfig, build_pools
-from repro_torch.serving.events import ArrayWaitQueue, CalendarEventQueue
+from repro_torch.serving.events import (ENGINES, make_event_queue,
+                                       make_wait_queue)
 
 
 @dataclass
@@ -69,6 +78,11 @@ class SimConfig:
     mc_walkers: int = 256
     n_buckets: int = 10
     seed: int = 0
+    # host event engine: "calendar" = the array-native calendar-queue
+    # engine (the default and only supported engine); "heap" = the seed's
+    # heapq loop — DEPRECATED, kept as the bit-equivalence oracle
+    # (selecting it warns)
+    engine: str = "calendar"
     # priority-refresh pipeline configuration: ONE validated RefreshConfig
     # (mode / walker / mesh_shards / delta_full_threshold /
     # queue_delay_correction — see repro_torch.core.refresh_config)
@@ -104,8 +118,22 @@ class SimConfig:
     # where the scheduler's slot arena and walk kernel run: None = "cuda";
     # "cpu" runs the plain PyTorch versions
     device: Optional[str] = None
+    # a torch.distributed process group of refresh.mesh_shards ranks: each
+    # rank runs this simulation replicated and holds one arena shard
+    process_group: Optional[Any] = None
 
     def __post_init__(self):
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown sim engine {self.engine!r}; "
+                             f"known: {ENGINES}")
+        if self.engine == "heap":
+            import warnings
+            warnings.warn(
+                "SimConfig(engine='heap') is deprecated and will be removed "
+                "in the next release; the array-native engine='calendar' "
+                "(the default) is the supported engine. The heap loop is "
+                "retained only as the slow-tier bit-equivalence oracle.",
+                DeprecationWarning, stacklevel=3)
         if self.refresh is None:
             self.refresh = RefreshConfig()
 
@@ -230,6 +258,7 @@ class ClusterSim:
     def __init__(self, kb: Dict[str, PDGraph], cfg: SimConfig):
         self.kb = kb
         self.cfg = cfg
+        self.engine = cfg.engine
         warmup = {}
         if cfg.warmup_model:
             from repro_torch.core.hermeslet import warmup_table_from_model
@@ -244,7 +273,8 @@ class ClusterSim:
             mc_walkers=cfg.mc_walkers, seed=cfg.seed,
             refresh=cfg.refresh,
             warmup_table=self.warmup_table,
-            posterior=cfg.posterior, device=cfg.device)
+            posterior=cfg.posterior, device=cfg.device,
+            process_group=cfg.process_group)
         self.let = HermesLet(kv_capacity=cfg.kv_capacity,
                              lora_capacity=cfg.lora_capacity,
                              docker_capacity=cfg.docker_capacity,
@@ -292,19 +322,22 @@ class ClusterSim:
             {k: {} for k in self.slots}
         # waiting queues hold (rank_key, task) with keys snapshotted at push
         # time; keys go stale when ranks refresh, so full refreshes re-key
-        # and rebuild each queue in one vectorized gather + lexsort
-        self.waiting = {k: ArrayWaitQueue() for k in self.slots}
+        # and rebuild each queue — a heapify of Python tuples on the heap
+        # engine, one vectorized gather + lexsort on the calendar engine
+        self.waiting = {k: make_wait_queue(self.engine) for k in self.slots}
         self.apps: Dict[str, AppSim] = {}
-        self.events = CalendarEventQueue(bucket_s=cfg.bucket_s)
+        self.events = make_event_queue(self.engine, bucket_s=cfg.bucket_s)
         self._tid = itertools.count()
         self.now = 0.0
         self.rng = np.random.default_rng(cfg.seed + 1)
         self.policy_time = 0.0
         self.policy_calls = 0
-        # rank store: a dense float64 column indexed by a stable per-app host
-        # index (assigned at arrival) that rank vectors from
+        # rank store: the heap engine keeps the seed's per-app dict; the
+        # calendar engine keeps a dense float64 column indexed by a stable
+        # per-app host index (assigned at arrival) that rank vectors from
         # priorities_arrays scatter into and waiting-queue rebuilds gather
         # from — no per-app boxing anywhere on the tick path
+        self._ranks: Dict[str, float] = {}
         self._app_ai: Dict[str, int] = {}
         self._rank_arr = np.full(1024, np.inf)
         self._completions: List[str] = []
@@ -460,15 +493,16 @@ class ClusterSim:
                                                          self.warmup_table)
             sim.initial_remaining = sim.true_remaining
             self.apps[inst.app_id] = sim
-            # a monotone counter, NOT len(_app_ai): a deferred app re-admits
-            # under its old id and must get a FRESH dense index (len() would
-            # alias it with the next admission)
-            ai = self._app_ai[inst.app_id] = self._ai_next
-            self._ai_next += 1
-            if ai >= len(self._rank_arr):
-                grown = np.full(2 * len(self._rank_arr), np.inf)
-                grown[:ai] = self._rank_arr
-                self._rank_arr = grown
+            if self.engine == "calendar":
+                # a monotone counter, NOT len(_app_ai): a deferred app
+                # re-admits under its old id and must get a FRESH dense
+                # index (len() would alias it with the next admission)
+                ai = self._app_ai[inst.app_id] = self._ai_next
+                self._ai_next += 1
+                if ai >= len(self._rank_arr):
+                    grown = np.full(2 * len(self._rank_arr), np.inf)
+                    grown[:ai] = self._rank_arr
+                    self._rank_arr = grown
         self.sched.on_arrivals(
             [(i.app_id, i.app_name, i.tenant, i.deadline) for i in insts],
             self.now)
@@ -596,6 +630,7 @@ class ClusterSim:
         if self.admission is not None:
             self.admission.note_exit(app_id)
         self.sched.on_app_shed(app_id)
+        self._ranks.pop(app_id, None)
         self._remaining -= 1
 
     def _defer_midrun(self, app_id: str) -> None:
@@ -614,6 +649,7 @@ class ClusterSim:
         inst = sim.inst
         self._drop_tasks(app_id)
         self.sched.on_app_shed(app_id)
+        self._ranks.pop(app_id, None)
         del self.apps[app_id]
         if k <= adm.cfg.max_defers and \
                 (inst.deadline is None or retry < inst.deadline):
@@ -896,6 +932,7 @@ class ClusterSim:
         if nxt is None:
             sim.finished = self.now
             self._completions.append(task.app_id)
+            self._ranks.pop(task.app_id, None)
             if self.admission is not None:
                 self.admission.note_exit(task.app_id)
             return True
@@ -941,27 +978,36 @@ class ClusterSim:
         task_level = getattr(policy, "task_level", False)
         static = getattr(policy, "static_ranks", False) and \
             getattr(policy, "independent_ranks", True)
-        if subset:
-            sel = app_ids
-        elif static:
-            # admission-fixed ranks: a full tick can only have NEW rows to
-            # write (this batch's arrivals/transitions); everything already
-            # in the column is final
-            sel = touched or []
+        if self.engine == "calendar":
+            if subset:
+                sel = app_ids
+            elif static:
+                # admission-fixed ranks: a full tick can only have NEW rows
+                # to write (this batch's arrivals/transitions); everything
+                # already in the column is final
+                sel = touched or []
+            else:
+                sel = None
+            if sel is None or sel:
+                ids, ranks = self.sched.priorities_arrays(self.now, sel)
+                if ids:
+                    idx = np.fromiter((self._app_ai[i] for i in ids),
+                                      np.int64, count=len(ids))
+                    self._rank_arr[idx] = ranks
+            if not subset and not task_level and not static:
+                # task-level keys are rank-independent and static ranks are
+                # push-time-final: those queues never need re-keying;
+                # everyone else re-keys in one gather
+                for wq in self.waiting.values():
+                    wq.rebuild(self._rank_arr)
         else:
-            sel = None
-        if sel is None or sel:
-            ids, ranks = self.sched.priorities_arrays(self.now, sel)
-            if ids:
-                idx = np.fromiter((self._app_ai[i] for i in ids),
-                                  np.int64, count=len(ids))
-                self._rank_arr[idx] = ranks
-        if not subset and not task_level and not static:
-            # task-level keys are rank-independent and static ranks are
-            # push-time-final: those queues never need re-keying; everyone
-            # else re-keys in one gather
-            for wq in self.waiting.values():
-                wq.rebuild(self._rank_arr)
+            if subset:
+                self._ranks.update(self.sched.priorities(self.now,
+                                                         app_ids=app_ids))
+            else:
+                self._ranks = self.sched.priorities(self.now)
+                for wq in self.waiting.values():
+                    wq.rebuild(self._task_rank)
         self.policy_time += _time.perf_counter() - t0
         self.policy_calls += 1
         if self.sched.prewarm_batched:
@@ -971,13 +1017,16 @@ class ClusterSim:
     def _task_rank(self, task: SimTask) -> Tuple[float, float, int]:
         if getattr(self.sched.policy, "task_level", False):
             return (task.submitted, task.task_id, 0)
-        r = float(self._rank_arr[self._app_ai[task.app_id]])
+        if self.engine == "calendar":
+            r = float(self._rank_arr[self._app_ai[task.app_id]])
+        else:
+            r = self._ranks.get(task.app_id, np.inf)
         return (r, task.submitted, task.task_id)
 
     def _enqueue(self, task: SimTask):
         self._waiting_service[task.kind] += task.remaining
-        self.waiting[task.kind].push(self._task_rank(task), task,
-                                     self._app_ai[task.app_id])
+        ai = self._app_ai[task.app_id] if self.engine == "calendar" else -1
+        self.waiting[task.kind].push(self._task_rank(task), task, ai)
 
     def _pop_live(self, wq, kind: str) -> Optional[SimTask]:
         """Pop the highest-priority waiting task that still belongs to a

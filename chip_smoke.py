@@ -221,7 +221,35 @@ Phases (any failure raises and the script exits non-zero):
 35. ``run_sim`` at ``mesh_shards=4`` on phase 28's 300 applications in
    every rank of the 4-rank world, with the calendar engine and the
    deprecated heap engine: the same result on every rank, equal to phase
-   28's ``SimConfig()`` run.
+   28's ``SimConfig()`` run;
+36. the GSPMD train step (``build_model(cfg, mesh=)``: FSDP over the data
+   axes, tensor- and vocabulary-parallel over the model axis): Llama-3-8B
+   widths cut to 2 layers, bfloat16, 4 x 2,048 tokens, 2 steps over
+   process mesh (2, 2) and 1 over (4, 1) in a 4-rank gloo world on
+   cuda:0, and the gradients at (1, 1) over NCCL in this process; each
+   rank's weights drawn whole and cut to its blocks, held to the
+   one-process port on the card from the same draw: losses within 5e-2, each gradient's cosine at least
+   0.99, each rank's weights a quarter of the whole but for the
+   replicated norm scales; step ms a rank beside one process's (gloo's
+   host copies), peak memory and K3/K4 launches a rank;
+37. the sequence-sharded decode: Llama-3-8B widths cut to 4 layers,
+   bfloat16, a 2 x 512-token prompt and 8 greedy steps over (1, 4) (and
+   (1, 1) over NCCL), each rank's caches its quarter of the positions,
+   attention through K5's partial mode and a merge in rank order: its
+   largest |logit - float32 logit| (the float32 model of the same
+   weights) at most 1.25 times the one-process bfloat16 port's, its
+   distance to that port printed, tokens identical where the one-process
+   top-2 margin exceeds 5e-2, K5's partial mode against its plain twin on
+   each rank (rows of length 0 included, timed beside
+   ``_scaled_dot_product_efficient_attention`` with the log-sum-exp),
+   decode ms a step a rank, K5 launches a rank;
+38. the elastic restart: phase 36's (2, 2) state after 2 steps saved
+   (gathered whole onto rank 0, which writes), restored onto (1, 4) and
+   (4, 1): parameters and moments bitwise (a 64-bit fingerprint of every
+   whole tensor's bits), the next step's loss within 5e-2 of the
+   unbroken (2, 2) run's.
+
+``--only gspmd`` builds the kernels and runs phases 36-38 alone.
 
 Then one JSON line with every kernel's numbers (K3, K4, K6 and K7 also
 with their launches on the train path: phase 26 for K3 and K4, phase 24
@@ -229,7 +257,9 @@ for K6 and K7; K1 and K2 with their launches on the mesh path: phase 28's
 ``cuda`` run for K1, its 8-shard K2 ticks for K2; K6 also at the EP
 buffer shape, ``moe_gmm:ep``, with its launches in phase 29's full-depth
 EP prefill; K1, K2 and K6 also with ``process_launches``, each rank's
-launches in phases 32-35), the card's name and
+launches in phases 32-35, K3 and K4 with theirs in phase 36; K5's partial
+mode, ``decode_attention:partial``, with its launches in phase 37), the
+card's name and
 power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository around it, it exits non-zero before
@@ -3505,7 +3535,7 @@ def _proc_ticks(device, W, n, reps=PROC_TICK_REPS, CAP=16384):
     return out
 
 
-def _rank_ep(shape, ref, device=None, times=3, batch=None):
+def _rank_ep(shape, ref, device=None, times=2, batch=None):
     """Phase 33 in one rank: the full-depth bfloat16 Qwen1.5-MoE-A2.7B of
     ``PERF_PRESETS`` over the process ``shape`` mesh (gloo; every rank on
     cuda:0), this rank's share drawn layer by layer; its data shard of a
@@ -3785,6 +3815,771 @@ def phase_processes(W, n_apps):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-38: the GSPMD paths across processes (Llama-3-8B widths)
+
+GSPMD_AXES = ("data", "model")
+# 2 of 32 layers, bf16, a global batch of 4 x 2,048 tokens, 2 steps (the
+# (2, 2) run's, saved for phase 38)
+GSPMD_TRAIN = dict(layers=2, batch=4, seq=2048, steps=2, seed=31)
+# phase 36's meshes and the steps timed on each: (4, 1), whose FSDP gathers
+# and reduce-scatters over four ranks move three times (2, 2)'s bytes
+# through gloo's host copies, times the first step only
+GSPMD_TRAIN_MESHES = {(2, 2): GSPMD_TRAIN["steps"], (4, 1): 1}
+GSPMD_RESTORE_MESHES = ((1, 4), (4, 1))
+# 4 of 32 layers, bf16, a 2 x 512-token prompt, 8 greedy steps over (1, 4)
+GSPMD_DECODE = dict(layers=4, batch=2, prompt=512, steps=8, seed=37,
+                    mesh=(1, 4))
+# decode tokens are compared where the one-process top-2 margin exceeds it
+GSPMD_MARGIN = 5e-2
+# the sharded decode's largest |logit - float32 logit| over the one-process
+# bfloat16 port's (1.029 in the first card runs: 0.06398 against 0.06220)
+GSPMD_F32_GAP = 1.25
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(dev, reset=False):
+    """Peak device memory (0 off the card); ``reset`` restarts it."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def _gspmd_cfg(layers):
+    from repro_torch.config import get_config
+    return get_config("llama3-8b").replace(num_layers=layers)
+
+
+def _gspmd_tcfg():
+    from repro_torch.config import TrainConfig
+    return TrainConfig(warmup_steps=1)
+
+
+def _gspmd_batch(cfg, step):
+    """``batch_at``'s synthetic stream over the whole vocabulary."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    return batch_at(DataConfig(vocab_size=cfg.vocab_size,
+                               seq_len=GSPMD_TRAIN["seq"],
+                               global_batch=GSPMD_TRAIN["batch"]), step)
+
+
+def _mesh_sum(t, pm):
+    """``t`` summed over every axis of the process mesh ``pm``, in its own
+    dtype (float64 and int64 sums; on the CPU over gloo, on the card over
+    NCCL)."""
+    import torch.distributed as dist
+    t = t.to(pm.device if pm.backend == "nccl" else "cpu").contiguous()
+    for a in pm.axis_names:
+        dist.all_reduce(t, group=pm.group(a))
+    return t.cpu()
+
+
+def _chunks(t, n=1 << 24):
+    flat = t.reshape(-1)
+    for i in range(0, flat.numel(), n):
+        yield flat[i:i + n]
+
+
+def _grad_cosines(grads, place, path):
+    """Each gradient tensor's cosine to the one-process gradient saved at
+    ``path`` (``torch.save`` of full tensors, read through a memory map):
+    this rank's blocks' dot products in float64, each block counted once
+    over the mesh."""
+    import torch
+    from repro_torch.distributed.sharding import local_block
+    ref = torch.load(path, mmap=True, map_location="cpu")
+    names = sorted(grads)
+    stats = torch.zeros((len(names), 3), dtype=torch.float64)
+    for i, n in enumerate(names):
+        if not place.counted_here(n):
+            continue
+        want = local_block(ref[n], place.specs[n], place.mesh).to(
+            grads[n].device)
+        for a, b in zip(_chunks(grads[n]), _chunks(want)):
+            a, b = a.double(), b.double()
+            stats[i] += torch.stack([a @ b, a @ a, b @ b]).cpu()
+    stats = _mesh_sum(stats, place.mesh)
+    return {n: float(d / max(math.sqrt(float(x * y)), 1e-300))
+            for n, (d, x, y) in zip(names, stats.tolist())}
+
+
+def _fingerprints(tree, place):
+    """A 64-bit fingerprint of each whole tensor of ``tree`` (parameter
+    names -> this rank's blocks): the sum over its elements of their bits
+    times a weight of their index in the whole tensor (int64, wrapping),
+    summed over the mesh with each block counted once; equal fingerprints
+    mean equal bits but for a 2^-64 chance."""
+    import torch
+    from repro_torch.distributed.sharding import block_slices
+    names = sorted(tree)
+    fp = torch.zeros(len(names), dtype=torch.int64)
+    for i, n in enumerate(names):
+        if not place.counted_here(n):
+            continue
+        t = tree[n]
+        full = place.full[n]
+        sl = block_slices(full, place.specs[n], place.mesh)
+        bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                                   else torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        rows = max(1, (1 << 22) // max(1, bits[0].numel()))
+        for r0 in range(0, bits.shape[0], rows):
+            blk = bits[r0:r0 + rows].to(torch.int64)
+            idx = torch.zeros((), dtype=torch.int64, device=t.device)
+            for dim, s in enumerate(sl):
+                lo = s.start + (r0 if dim == 0 else 0)
+                n_d = blk.shape[dim]
+                ar = torch.arange(lo, lo + n_d, dtype=torch.int64,
+                                  device=t.device)
+                shape = [1] * blk.dim()
+                shape[dim] = n_d
+                idx = idx * full[dim] + ar.view(shape)
+            acc += (blk * (idx % 65521 + 1)).sum()
+        fp[i] = acc.cpu()
+    return dict(zip(names, _mesh_sum(fp, place.mesh).tolist()))
+
+
+def _draw_placed(cfg, pm, seed):
+    """The dense model placed over the process mesh ``pm``, each weight
+    drawn whole (the one-process model's draw) and cut to this rank's
+    block; one rank draws at a time (the float32 temporaries of the
+    embedding are 2.1 GB)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.model import build_model
+    model = None
+    for r in range(pm.size):
+        if r == pm.rank:
+            model = build_model(cfg, device=pm.device, mesh=pm).init(
+                torch.Generator(device=pm.device).manual_seed(seed))
+            _sync(pm.device)
+        dist.barrier()
+    return model
+
+
+def _placed_train(pm, ref, batches, steps, ckpt=None):
+    """Phase 36 over one process mesh: the gradients of the first batch
+    (K3/K4 launches counted), their cosines to the one-process port's,
+    then ``steps`` timed steps; with ``ckpt``, the state is
+    fingerprinted, saved there (phase 38) and one more step taken."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import P, spec_axes
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.optimizer import AdamState, init_opt_state
+    cfg = _gspmd_cfg(GSPMD_TRAIN["layers"])
+    model = _draw_placed(cfg, pm, GSPMD_TRAIN["seed"]).trainable()
+    place = model.placement
+    params = model.params()
+    weights = sum(p.numel() * p.element_size() for p in params.values())
+    replicated = sum(p.numel() * p.element_size() for n, p in params.items()
+                     if not spec_axes(place.specs[n]))
+    state = init_opt_state(params, cfg.opt_state_dtype)
+    step = make_train_step(model, _gspmd_tcfg())
+    _peak(pm.device, reset=True)
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    g_loss, grads = step.gradients(params, batches[0])
+    _sync(pm.device)
+    grad_s = time.perf_counter() - t0
+    launches = {n: LAUNCHES.get(n, 0) for n in ("rmsnorm",
+                                                 "flash_attention")}
+    cos = _grad_cosines(grads, place, ref["grads_path"])
+    # step 1 is these gradients' update (its time: theirs and the
+    # update's, not the cosines'), step 2 a whole step
+    t0 = time.perf_counter()
+    params, state, m = step.apply(params, state, g_loss, grads)
+    _sync(pm.device)
+    ms = [(grad_s + time.perf_counter() - t0) * 1e3]
+    losses = [float(m["loss"])]
+    del grads
+    for k in range(1, steps):
+        dist.barrier()
+        _sync(pm.device)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[k])
+        _sync(pm.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    out = dict(shape=list(pm.shape.values()), rank=pm.rank,
+               coords=list(pm.coords), grad_loss=float(g_loss),
+               launches=launches, cosines=cos, losses=losses, step_ms=ms,
+               weights=weights, replicated=replicated,
+               peak=_peak(pm.device))
+    if ckpt is not None:
+        from repro_torch.checkpoint.checkpointing import save_checkpoint
+        out["fingerprints"] = {
+            "params": _fingerprints(params, place),
+            "m": _fingerprints(state.m, place),
+            "v": _fingerprints(state.v, place)}
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, steps, (params, state), {"step": steps - 1},
+                        mesh=pm, shardings=(place.specs, AdamState(
+                            P(), place.specs, place.specs)))
+        out["save_s"] = time.perf_counter() - t0
+        params, state, m = step(params, state, batches[steps])
+        out["next_loss"] = float(m["loss"])
+    del model, params, state, step
+    _free()
+    return out
+
+
+def _placed_restore(pm, ckpt, batch):
+    """Phase 38 onto one process mesh: the (2, 2) state restored (each
+    rank keeps its block under this mesh's specs), fingerprinted, then one
+    more step."""
+    import torch
+    from repro_torch.checkpoint.checkpointing import restore_checkpoint
+    from repro_torch.distributed.sharding import P
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import AdamState, init_opt_state
+    cfg = _gspmd_cfg(GSPMD_TRAIN["layers"])
+    model = build_model(cfg, device=pm.device, mesh=pm).trainable()
+    place = model.placement
+    params = model.params()
+    state = init_opt_state(params, cfg.opt_state_dtype)
+    t0 = time.perf_counter()
+    (saved, state), extra = restore_checkpoint(
+        ckpt, (params, state), shardings=(place.specs, AdamState(
+            P(), place.specs, place.specs)), mesh=pm)
+    model.load_params(saved)
+    _sync(pm.device)
+    restore_s = time.perf_counter() - t0
+    params = model.params()
+    fp = {"params": _fingerprints(params, place),
+          "m": _fingerprints(state.m, place),
+          "v": _fingerprints(state.v, place)}
+    step = make_train_step(model, _gspmd_tcfg())
+    params, state, m = step(params, state, batch)
+    out = dict(shape=list(pm.shape.values()), rank=pm.rank,
+               step=int(state.step), extra=extra, fingerprints=fp,
+               restore_s=restore_s, next_loss=float(m["loss"]))
+    del model, params, state, saved, step
+    _free()
+    return out
+
+
+def _placed_decode(pm, ref):
+    """Phase 37 in one rank: the 4-layer model placed over (1, 4), the
+    prompt prefilled into caches of prompt + steps positions (this rank's
+    slice of them), then the one-process port's greedy tokens decoded
+    (teacher-forced, so every step's logits are comparable); K5's partial
+    mode against its plain twin on this rank's caches with empty rows."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention import kernel as k5
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_partials
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_partials_ref
+    cfg = _gspmd_cfg(GSPMD_DECODE["layers"])
+    model = _draw_placed(cfg, pm, GSPMD_DECODE["seed"])
+    prompt = torch.as_tensor(ref["prompt"]).to(pm.device)
+    forced = torch.as_tensor(ref["tokens"]).to(pm.device)
+    S, steps = prompt.shape[1], GSPMD_DECODE["steps"]
+    dist.barrier()
+    _sync(pm.device)
+    reset_launches()
+    t0 = time.perf_counter()
+    caches, logits = model.prefill(prompt, max_seq=S + steps)
+    _sync(pm.device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {n: LAUNCHES.get(n, 0) for n in (
+        "rmsnorm", "flash_attention", k5.NAME, k5.PARTIAL_NAME)}
+    out, ms = [logits.float().cpu()], []
+    reset_launches()
+    for t in range(steps):
+        _sync(pm.device)
+        t0 = time.perf_counter()
+        caches, logits = model.decode(caches, forced[:, t:t + 1], S + t)
+        _sync(pm.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    step_launches = {n: LAUNCHES.get(n, 0) for n in (
+        "rmsnorm", "flash_attention", k5.NAME, k5.PARTIAL_NAME)}
+    got = torch.cat(out, dim=1)
+    want = torch.as_tensor(ref["logits"])
+    f32_err = float((got - torch.as_tensor(ref["logits_f32"])).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > GSPMD_MARGIN
+    same = got.argmax(-1) == want.argmax(-1)
+    # K5's partial mode on this rank's layer-0 slice: rows of length 0, 1,
+    # half and all of the slice
+    kc, vc = caches["k"][0], caches["v"][0]
+    B, K, Sl, hd = kc.shape
+    q = torch.randn((B, cfg.num_heads, hd), device=pm.device,
+                    generator=torch.Generator(device=pm.device)
+                    .manual_seed(pm.rank)).to(kc.dtype)
+    lens = torch.tensor([(0, 1, Sl // 2, Sl)[i % 4] for i in range(B * K)],
+                        dtype=torch.int32, device=pm.device)
+    before = LAUNCHES[k5.PARTIAL_NAME]
+    o, lse = decode_attention_partials(q[:, None], kc.transpose(1, 2),
+                                       vc.transpose(1, 2), lens)
+    G = cfg.num_heads // K
+    wo, wl = decode_attention_partials_ref(
+        q.reshape(B * K, G, hd), kc.reshape(B * K, Sl, hd),
+        vc.reshape(B * K, Sl, hd), lens)
+    o, lse = o.reshape(B * K, G, hd), lse.reshape(B * K, G)
+    empty = (lens == 0)[:, None].expand_as(lse)
+    partial_ok = (bool((lse[empty] == -math.inf).all())
+                  and bool((o[empty] == 0).all())
+                  and bool(torch.allclose(o, wo, rtol=KERNEL_TOL["bfloat16"],
+                                          atol=KERNEL_TOL["bfloat16"]))
+                  and bool(torch.allclose(lse[~empty], wl[~empty],
+                                          rtol=2e-5, atol=2e-5))
+                  and LAUNCHES[k5.PARTIAL_NAME]
+                  == before + (pm.device.type == "cuda"))
+    res = dict(rank=pm.rank, prefill_ms=prefill_ms, step_ms=ms,
+               prefill_launches=prefill_launches,
+               step_launches=step_launches, cache_positions=Sl,
+               max_abs_err=float((got - want).abs().max()),
+               err_by_step=[float((got[:, i] - want[:, i]).abs().max())
+                            for i in range(got.shape[1])],
+               f32_err=f32_err,
+               finite=bool(torch.isfinite(got).all()),
+               tokens_compared=int(sure.sum()),
+               tokens_same=bool(same[sure].all()),
+               partial_ok=partial_ok,
+               partial_err=float((o - wo).abs().max()),
+               weights=sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+               peak=_peak(pm.device))
+    del model, caches
+    _free()
+    return res
+
+
+def _rank_gspmd(ref):
+    """Everything a rank of phases 36-38's 4-rank world runs (gloo, every
+    rank on cuda:0)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = ref["device"]
+    cfg = _gspmd_cfg(GSPMD_TRAIN["layers"])
+    batches = [_gspmd_batch(cfg, k) for k in range(GSPMD_TRAIN["steps"] + 1)]
+    out = {"train": [], "restore": []}
+    t0 = time.perf_counter()
+    for shape, steps in GSPMD_TRAIN_MESHES.items():
+        pm = init_process_mesh(shape, GSPMD_AXES, backend="gloo",
+                               device=device)
+        out["train"].append(_placed_train(
+            pm, ref, batches, steps,
+            ref["ckpt"] if shape == (2, 2) else None))
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for shape in GSPMD_RESTORE_MESHES:
+        pm = init_process_mesh(shape, GSPMD_AXES, backend="gloo",
+                               device=device)
+        out["restore"].append(_placed_restore(
+            pm, ref["ckpt"], batches[GSPMD_TRAIN["steps"]]))
+    out["restore_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pm = init_process_mesh(GSPMD_DECODE["mesh"], GSPMD_AXES, backend="gloo",
+                           device=device)
+    out["decode"] = _placed_decode(pm, ref)
+    out["decode_s"] = time.perf_counter() - t0
+    dist.barrier()
+    return out
+
+
+def _gspmd_reference(device, tmp):
+    """The one-process port on the card from the weights the ranks draw:
+    phase 36's gradients (saved for the ranks' cosines), its timed steps;
+    phase 37's greedy decode."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import init_opt_state
+    cfg = _gspmd_cfg(GSPMD_TRAIN["layers"])
+    model = build_model(cfg, device=device).init(torch.Generator(
+        device=device).manual_seed(GSPMD_TRAIN["seed"])).trainable()
+    params = model.params()
+    state = init_opt_state(params, cfg.opt_state_dtype)
+    step = make_train_step(model, _gspmd_tcfg())
+    batches = [_gspmd_batch(cfg, k) for k in range(GSPMD_TRAIN["steps"] + 1)]
+    _peak(device, reset=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    g_loss, grads = step.gradients(params, batches[0])
+    _sync(device)
+    grad_s = time.perf_counter() - t0
+    launches = {n: LAUNCHES.get(n, 0) for n in ("rmsnorm",
+                                                 "flash_attention")}
+    path = str(tmp / "grads.pt")
+    torch.save({n: g.cpu() for n, g in grads.items()}, path)
+    t0 = time.perf_counter()
+    params, state, m = step.apply(params, state, g_loss, grads)
+    _sync(device)
+    ms = [(grad_s + time.perf_counter() - t0) * 1e3]
+    losses = [float(m["loss"])]
+    del grads
+    for k in range(1, GSPMD_TRAIN["steps"] + 1):
+        _sync(device)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[k])
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    ref = dict(grads_path=path, grad_loss=float(g_loss), losses=losses,
+               step_ms=ms, launches=launches,
+               weights=sum(p.numel() * p.element_size()
+                           for p in params.values()),
+               peak=_peak(device),
+               ckpt=str(tmp / "ckpt"))
+    del model, params, state, step
+    _free()
+    cfg = _gspmd_cfg(GSPMD_DECODE["layers"])
+    model = build_model(cfg, device=device).init(torch.Generator(
+        device=device).manual_seed(GSPMD_DECODE["seed"]))
+    B, S, steps = (GSPMD_DECODE["batch"], GSPMD_DECODE["prompt"],
+                   GSPMD_DECODE["steps"])
+    prompt = torch.randint(1, cfg.vocab_size, (B, S), generator=torch
+                           .Generator().manual_seed(38))
+    _sync(device)
+    t0 = time.perf_counter()
+    caches, logits = model.prefill(prompt.to(device), max_seq=S + steps)
+    _sync(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, toks, dms = [logits.float().cpu()], [], []
+    for t in range(steps):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks.append(tok.cpu())
+        _sync(device)
+        t0 = time.perf_counter()
+        caches, logits = model.decode(caches, tok, S + t)
+        _sync(device)
+        dms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    logits = torch.cat(out, 1)
+    toks = torch.cat(toks, 1)
+    # the float32 model of the same (bfloat16) weights, teacher-forced the
+    # same way: how far the one-process bfloat16 port's own roundings take
+    # its logits
+    f32 = build_model(cfg.replace(dtype="float32"), device=device)
+    f32.load_params({n: p.float() for n, p in model.params().items()})
+    del model, caches
+    _free()
+    caches, lg = f32.prefill(prompt.to(device), max_seq=S + steps)
+    out32 = [lg.float().cpu()]
+    for t in range(steps):
+        caches, lg = f32.decode(caches, toks[:, t:t + 1].to(device), S + t)
+        out32.append(lg.float().cpu())
+    logits32 = torch.cat(out32, 1)
+    ref.update(prompt=prompt.numpy(), tokens=toks.numpy(),
+               logits=logits.numpy(), logits_f32=logits32.numpy(),
+               prefill_ms=prefill_ms, decode_ms=dms,
+               logits_max=float(logits.abs().max()),
+               bf16_err=float((logits - logits32).abs().max()))
+    del f32, caches
+    _free()
+    return ref
+
+
+def phase_gspmd_nccl(device, ref):
+    """Phases 36 and 37 at one rank over NCCL in this process (``(1, 1)``:
+    every block the whole tensor, the same code with real NCCL calls):
+    the gradients' cosines and loss, and the decode logits, against the
+    one-process port."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        pm = init_process_mesh((1, 1), GSPMD_AXES, device=device, rank=0,
+                               world_size=1, store=dist.FileStore(
+                                   str(Path(tmp) / "store"), 1))
+        try:
+            cfg = _gspmd_cfg(GSPMD_TRAIN["layers"])
+            model = build_model(cfg, device=device, mesh=pm).init(
+                torch.Generator(device=device).manual_seed(
+                    GSPMD_TRAIN["seed"])).trainable()
+            step = make_train_step(model, _gspmd_tcfg())
+            reset_launches()
+            loss, grads = step.gradients(model.params(),
+                                         _gspmd_batch(cfg, 0))
+            launches = {n: LAUNCHES.get(n, 0) for n in ("rmsnorm",
+                                                         "flash_attention")}
+            cos = _grad_cosines(grads, model.placement, ref["grads_path"])
+            del model, grads, step
+            _free()
+            worst = min(cos, key=cos.get)
+            log(f"[gspmd_nccl] train step at (1, 1) over {pm.backend}: loss "
+                f"{float(loss):.6f} (one process {ref['grad_loss']:.6f}); "
+                f"worst gradient cosine {worst} {cos[worst]:.6f}; launches "
+                f"{launches} (one process {ref['launches']})")
+            if abs(float(loss) - ref["grad_loss"]) > MODEL_BF16_TOL or \
+                    cos[worst] < GRAD_COSINE_MIN or \
+                    launches != ref["launches"]:
+                raise AssertionError("[gspmd_nccl] the (1, 1) train step "
+                                     "differs from the one-process port")
+            cfg = _gspmd_cfg(GSPMD_DECODE["layers"])
+            model = build_model(cfg, device=device, mesh=pm).init(
+                torch.Generator(device=device).manual_seed(
+                    GSPMD_DECODE["seed"]))
+            prompt = torch.as_tensor(ref["prompt"]).to(device)
+            forced = torch.as_tensor(ref["tokens"]).to(device)
+            S = prompt.shape[1]
+            reset_launches()
+            caches, logits = model.prefill(prompt,
+                                           max_seq=S + forced.shape[1])
+            out = [logits.float().cpu()]
+            for t in range(forced.shape[1]):
+                caches, logits = model.decode(caches, forced[:, t:t + 1],
+                                              S + t)
+                out.append(logits.float().cpu())
+            k5p = LAUNCHES.get("decode_attention_partial", 0)
+            err = float((torch.cat(out, 1) - torch.as_tensor(ref["logits"]))
+                        .abs().max())
+            del model, caches
+            _free()
+            log(f"[gspmd_nccl] decode at (1, 1) over {pm.backend}: logits "
+                f"max_abs_err {err} against the one-process port; K5 "
+                f"partial launches {k5p}")
+            want = cfg.num_layers * forced.shape[1] * (device.type == "cuda")
+            if err > MODEL_BF16_TOL or k5p != want:
+                raise AssertionError("[gspmd_nccl] the (1, 1) decode differs "
+                                     "or K5's partial mode did not launch")
+        finally:
+            dist.destroy_process_group()
+    return {"train": launches, "decode_partial": k5p}
+
+
+def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name):
+    """K5's partial mode at the sequence-sharded decode's shape (a rank's
+    slice of ``Sl`` positions, rows of the given lengths, 0 included)
+    against its plain twin, timed beside its bound, its plain version and
+    the library call that returns the output and the log-sum-exp:
+    ``_scaled_dot_product_efficient_attention`` over the KV heads expanded
+    to every query head, the lengths as an additive mask (its output in
+    the model dtype, where K5's partial is float32)."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel, ref
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=device).manual_seed(41)
+    q = _randn((B, H, hd), dt, gen, device)
+    kc = _randn((B, K, Sl, hd), dt, gen, device)
+    vc = _randn((B, K, Sl, hd), dt, gen, device)
+    rows = torch.tensor([lengths[i % len(lengths)] for i in range(B * K)],
+                        dtype=torch.int32, device=device)
+    G = H // K
+    tag = (f"[kernel:decode_attention:partial B={B} H={H} K={K} hd={hd} "
+           f"Sl={Sl} {dtype_name} lengths={lengths}]")
+
+    def launch():
+        return kernel.decode_attention_kernel(q, kc.transpose(1, 2),
+                                              vc.transpose(1, 2), rows,
+                                              partial=True)
+
+    def plain():
+        return ref.decode_attention_partials_ref(
+            q.reshape(B * K, G, hd), kc.reshape(B * K, Sl, hd),
+            vc.reshape(B * K, Sl, hd), rows)
+
+    # the library call's operands: every query head's K/V, and the mask as
+    # a bias whose rows start 16-element aligned, as its kernel asks
+    ke = kc.repeat_interleave(G, dim=1)
+    ve = vc.repeat_interleave(G, dim=1)
+    pad = -(-Sl // 16) * 16
+    bias = torch.zeros((B, H, 1, pad), dtype=dt, device=device)[..., :Sl]
+    live = (torch.arange(Sl, device=device)
+            < rows.reshape(B, K).repeat_interleave(G, dim=1)[..., None])
+    bias[:, :, 0] = torch.where(live, 0.0, -math.inf).to(dt)
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q[:, :, None], ke, ve, bias, True)
+
+    o, lse = launch()
+    wo, wl = plain()
+    o, lse = o.reshape(B * K, G, hd), lse.reshape(B * K, G)
+    empty = (rows == 0)[:, None].expand_as(lse)
+    if not (bool((lse[empty] == -math.inf).all())
+            and bool((o[empty] == 0).all())):
+        raise AssertionError(f"{tag}: a row of length 0 is not (0, -inf)")
+    err = _hold(tag + " o", o, wo, dtype_name)
+    _hold(tag + " lse", lse[~empty], wl[~empty], "float32")
+    lo, ll = library()[:2]
+    lo, ll = lo.float().reshape(B * K, G, hd), ll[..., 0].reshape(B * K, G)
+    log(f"{tag} library call vs the kernel on rows with positions: o "
+        f"{float((lo - o)[~empty].abs().max())} lse "
+        f"{float((ll - lse)[~empty].abs().max())}")
+    es = q.element_size()
+    # the K/V rows up to each length, q, the float32 o and lse, lengths
+    n_bytes = (2 * hd * es * int(rows.sum()) + q.numel() * es
+               + 4 * (q.numel() + B * H) + 4 * B * K)
+    t = _timed(tag, launch, plain, library, n_bytes=n_bytes)
+    return dict(t, max_abs_err=err)
+
+
+def phase_gspmd(device, tmp):
+    """Phases 36-38: the GSPMD paths across processes (dense Llama-3-8B
+    widths, bfloat16), each rank of a 4-rank gloo world on cuda:0 held to
+    the one-process port on the card from the same weights (each rank
+    drawing every weight whole and keeping its block), and the same code
+    at (1, 1) over NCCL here.  36: the FSDP and tensor-parallel train step
+    (2 layers, 4 x 2,048 tokens; 2 steps over (2, 2), 1 over (4, 1)): loss
+    within 5e-2, each gradient's cosine at least 0.99, each rank's weights
+    a quarter of the whole (but for the replicated norm scales), step ms,
+    peak memory and K3/K4 launches a rank; 37: the sequence-sharded
+    decode (4 layers, 2 x 512-token prompt, 8 greedy steps) over (1, 4):
+    its largest |logit - float32 logit| at most ``GSPMD_F32_GAP`` times
+    the one-process bfloat16 port's (its distance to that port printed),
+    tokens identical where the one-process top-2 margin exceeds 5e-2, K5's
+    partial mode against its plain twin on each rank (rows of length 0
+    included), decode ms a step, K5 launches a rank;
+    38: the (2, 2) train state after 2 steps saved (gathered whole, rank 0
+    writes), restored onto (1, 4) and (4, 1): parameters and moments
+    bitwise (fingerprints of every whole tensor), one more step's loss
+    within 5e-2 of the unbroken (2, 2) run's.  Times are those of gloo's
+    host copies between 4 processes on one card, not NCCL's.  Returns the
+    K5 partial-mode kernel entry and the launches."""
+    import torch
+    from repro_torch.launch.procs import spawn
+    t0 = time.perf_counter()
+    ref = _gspmd_reference(device, tmp)
+    ref["device"] = device.type
+    ref_s = time.perf_counter() - t0
+    log(f"[gspmd_ref] one process on the card: train step (2 layers, 4 x "
+        f"2,048 tokens) ms {[round(x, 3) for x in ref['step_ms']]}, losses "
+        f"{ref['losses']}, launches {ref['launches']}, weights "
+        f"{ref['weights']} bytes, peak {ref['peak']}; decode (4 layers, "
+        f"2 x 512 prompt) prefill {ref['prefill_ms']:.3f} ms, step ms "
+        f"{[round(x, 3) for x in ref['decode_ms']]}; {ref_s:.1f} s")
+    t0 = time.perf_counter()
+    nccl = phase_gspmd_nccl(device, ref)
+    log(f"[gspmd_nccl] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    world = spawn(_rank_gspmd, 4, ref, timeout_s=900.0)
+    log(f"[gspmd] world of 4 ranks (gloo, cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s (train "
+        f"{world[0]['train_s']:.1f} s, restore {world[0]['restore_s']:.1f} "
+        f"s, decode {world[0]['decode_s']:.1f} s)")
+    launches = {"rmsnorm": {}, "flash_attention": {}}
+    # 36: the train step
+    for i, shape in enumerate(GSPMD_TRAIN_MESHES):
+        rs = [w["train"][i] for w in world]
+        for r in rs:
+            worst = min(r["cosines"], key=r["cosines"].get)
+            log(f"[gspmd_train {shape}] rank {r['rank']} {tuple(r['coords'])}"
+                f": gradients' loss {r['grad_loss']:.6f} (one process "
+                f"{ref['grad_loss']:.6f}); worst cosine {worst} "
+                f"{r['cosines'][worst]:.6f}; losses {r['losses']} (one "
+                f"process {ref['losses'][:len(r['losses'])]}); step ms "
+                f"{[round(x, 3) for x in r['step_ms']]} (one process "
+                f"{[round(x, 3) for x in ref['step_ms'][:len(r['step_ms'])]]}"
+                f"; gloo host "
+                f"copies); weights {r['weights']} bytes = "
+                f"{r['weights'] / ref['weights']:.6f} of the whole "
+                f"({r['replicated']} bytes of replicated norm scales); peak "
+                f"{r['peak']}; launches {r['launches']}")
+            bad = (abs(r["grad_loss"] - ref["grad_loss"]) > MODEL_BF16_TOL
+                   or any(abs(a - b) > MODEL_BF16_TOL for a, b in
+                          zip(r["losses"], ref["losses"]))
+                   or r["cosines"][worst] < GRAD_COSINE_MIN
+                   or r["launches"] != ref["launches"]
+                   or 4 * (r["weights"] - r["replicated"])
+                   != ref["weights"] - r["replicated"])
+            if bad:
+                raise AssertionError(f"[gspmd_train {shape}] rank "
+                                     f"{r['rank']} differs from the "
+                                     f"one-process port")
+        for n in launches:
+            launches[n][f"GSPMD train step gradients {shape}, gloo, per "
+                        f"rank"] = [r["launches"][n] for r in rs]
+    # 38: the elastic restart
+    saved = world[0]["train"][0]
+    log(f"[gspmd_restore] (2, 2) state saved in {saved['save_s']:.1f} s; "
+        f"the unbroken (2, 2) run's next loss {saved['next_loss']:.6f}")
+    for i, shape in enumerate(GSPMD_RESTORE_MESHES):
+        for w in world:
+            r = w["restore"][i]
+            same = r["fingerprints"] == saved["fingerprints"]
+            log(f"[gspmd_restore {shape}] rank {r['rank']}: restored step "
+                f"{r['step']} {r['extra']} in {r['restore_s']:.1f} s; "
+                f"parameters and moments bitwise (fingerprints) {same}; "
+                f"next loss {r['next_loss']:.6f}")
+            if not same or abs(r["next_loss"] - saved["next_loss"]) > \
+                    MODEL_BF16_TOL:
+                raise AssertionError(f"[gspmd_restore {shape}] rank "
+                                     f"{r['rank']}: the restored state or "
+                                     f"its next step differs")
+    # 37: the sequence-sharded decode
+    steps = GSPMD_DECODE["steps"]
+    layers = GSPMD_DECODE["layers"]
+    card = device.type == "cuda"        # no kernel launches off the card
+    # the sharded decode sums each row-parallel product's partials in
+    # another order than the one-process product, so its bfloat16
+    # roundings differ (its distance to the one-process port is printed):
+    # it is held as close to the float32 model of the same weights as the
+    # one-process bfloat16 port is, within GSPMD_F32_GAP times
+    f32_tol = GSPMD_F32_GAP * ref["bf16_err"]
+    log(f"[gspmd_decode] max |logit - float32 logit| held to {f32_tol} "
+        f"({GSPMD_F32_GAP} x the one-process bf16 port's "
+        f"{ref['bf16_err']})")
+    for w in world:
+        r = w["decode"]
+        log(f"[gspmd_decode (1, 4)] rank {r['rank']}: {r['cache_positions']}"
+            f" cache positions; prefill {r['prefill_ms']:.3f} ms (one "
+            f"process {ref['prefill_ms']:.3f}); decode ms a step "
+            f"{[round(x, 3) for x in r['step_ms']]} (one process "
+            f"{[round(x, 3) for x in ref['decode_ms']]}; gloo host copies); "
+            f"logits max_abs_err {r['max_abs_err']} (prefill, then each "
+            f"step: {['%.4f' % e for e in r['err_by_step']]}; |logit| up to "
+            f"{ref['logits_max']:.3f}); to the float32 model {r['f32_err']} "
+            f"(the one-process bfloat16 port's {ref['bf16_err']}); tokens "
+            f"same where the "
+            f"margin > {GSPMD_MARGIN} ({r['tokens_compared']} of "
+            f"{GSPMD_DECODE['batch'] * (steps + 1)}) {r['tokens_same']}; "
+            f"K5 partial mode vs its plain twin {r['partial_ok']} (err "
+            f"{r['partial_err']}); launches prefill {r['prefill_launches']}, "
+            f"{steps} steps {r['step_launches']}; weights {r['weights']}; "
+            f"peak {r['peak']}")
+        sl = r["step_launches"]
+        if (not r["finite"] or r["f32_err"] > f32_tol
+                or not r["tokens_same"] or not r["partial_ok"]
+                or sl["decode_attention_partial"] != layers * steps * card
+                or sl["decode_attention"] != 0
+                or r["prefill_launches"]["flash_attention"] != layers * card):
+            raise AssertionError(f"[gspmd_decode] rank {r['rank']} differs "
+                                 f"from the one-process port or its "
+                                 f"launches are off")
+    cfg = _gspmd_cfg(layers)
+    Sl = world[0]["decode"]["cache_positions"]
+    entry = _kernel_entry("decode_attention", _check_decode_partial(
+        device, GSPMD_DECODE["batch"], cfg.num_heads, cfg.num_kv_heads,
+        cfg.resolved_head_dim(), Sl, [Sl, Sl - 1, 0, 1], "bfloat16"),
+        path="partial")
+    entry["launches"] = world[0]["decode"]["step_launches"][
+        "decode_attention_partial"]
+    entry["process_launches"] = {
+        f"sequence-sharded decode (1, 4), {steps} steps, gloo, per rank":
+            [w["decode"]["step_launches"]["decode_attention_partial"]
+             for w in world],
+        f"sequence-sharded decode (1, 1), {steps} steps, NCCL":
+            nccl["decode_partial"]}
+    for n in launches:
+        launches[n]["GSPMD train step gradients (1, 1), NCCL"] = \
+            nccl["train"][n]
+    return entry, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-apps", type=int, default=1400,
@@ -3798,6 +4593,9 @@ def main() -> int:
     ap.add_argument("--sweep", choices=sorted(SWEEPS), default=None,
                     help="only print one sweep's times as a JSON line (the "
                          "package under --src)")
+    ap.add_argument("--only", choices=("gspmd",), default=None,
+                    help="build the kernels and run phases 36-38 only (the "
+                         "kernels line then lists K5's partial mode only)")
     ap.add_argument("--src", default=str(SRC), help=argparse.SUPPRESS)
     ap.add_argument("--spec", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3820,6 +4618,12 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     phase_build()
+    if args.only == "gspmd":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            kernels = [phase_gspmd(dev, Path(tmp))[0]]
+        return _finish(kernels, t0)
     main_res, launches, W, ov_width, rows = phase_main_path(dev,
                                                             args.sim_apps)
     launches_composed, phase_apps = phase_composed_path(dev, args.sim_apps,
@@ -3890,6 +4694,10 @@ def main() -> int:
     # across processes: NCCL at one rank here, then gloo worlds on cuda:0
     nccl = phase_process_nccl(dev, W)
     proc = phase_processes(W, min(300, args.sim_apps))
+    # the GSPMD paths: NCCL at one rank here, then a 4-rank gloo world
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        partial, gspmd = phase_gspmd(dev, Path(tmp))
+    kernels.append(partial)
     for k in kernels:
         if k["name"] == kernel.NAME:
             k["process_launches"] = {"mesh ticks, NCCL, 1 rank": nccl[1],
@@ -3902,6 +4710,9 @@ def main() -> int:
                 "EP layer (1, 1), NCCL, 1 rank": nccl[0],
                 **{f"EP prefill {shape}, gloo, per rank": v
                    for shape, v in proc["moe_gmm"].items()}}
+    for k in kernels:
+        if k["name"] in gspmd:
+            k["process_launches"] = gspmd[k["name"]]
     # each model kernel's launches on the train path beside its own path's:
     # K3 and K4 on phase 26's Llama-3-8B, K6 and K7 on phase 24's families
     for k in kernels:
@@ -3911,6 +4722,13 @@ def main() -> int:
         elif k["name"] in ("moe_gmm", "ssd_scan"):
             k["train_launches"] = train_tiny[k["name"]]
             k["train_path"] = "one training step of each tiny family"
+    return _finish(kernels, t0)
+
+
+def _finish(kernels, t0) -> int:
+    """The kernels line, the card's name and power limit, and the last
+    line."""
+    import torch
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

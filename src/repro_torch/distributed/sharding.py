@@ -14,13 +14,20 @@ resolves the model code's logical names to the axes of a mesh
   "seq"    -> "model"                  KV-cache sequence sharding (decode)
 
 A spec is a ``P``, a tuple of one entry per dim: ``None`` (replicated), an
-axis name, or a tuple of axis names.  Nothing is placed: ``shard()``
-resolves its names as the reference does (an unknown name raises
-``KeyError``) and returns its input, and the specs serve the dry run's
-per-device accounting (``launch/dryrun.py``) and the expert-parallel MoE's
-mesh shape (``distributed/ep_moe.py``).  Over a ``ProcessMesh`` (one
-process a position) the context also names this rank's data shard and
-model rank, and ``shard_params`` keeps a rank's share of the experts.
+axis name, or a tuple of axis names.  On one device nothing is placed:
+``shard()`` resolves its names as the reference does (an unknown name
+raises ``KeyError``) and returns its input, and the specs serve the dry
+run's per-device accounting (``launch/dryrun.py``) and the expert-parallel
+MoE's mesh shape (``distributed/ep_moe.py``).
+
+Over a ``ProcessMesh`` (one process a position) the specs place: a rank
+holds ``local_block`` of each tensor, the blocks laid as ``NamedSharding``
+lays them (a dim over several axes split row-major over them), and
+``gather_block`` puts a tensor back together on every rank
+(``gather_whole`` on one).  ``Placement`` is a dense model's map of every
+parameter to its spec (``named_shardings``), and ``shard_params`` cuts a
+full parameter set to this rank's blocks (the MoE family: its experts
+only, as before).
 """
 from __future__ import annotations
 
@@ -53,13 +60,29 @@ class P(tuple):
 class ShardCtx:
     """Resolved mesh context: which mesh axes implement each logical axis."""
 
-    def __init__(self, mesh, param_sharding: str = "fsdp"):
+    def __init__(self, mesh, param_sharding: str = "fsdp",
+                 seq_axes: Optional[Tuple[str, ...]] = None):
+        """``seq_axes``: the axes a decode cache's positions split over,
+        row-major (default the model axis; the reference's batch-1 cell
+        with a pod axis takes ``("pod", "model")``)."""
         self.mesh = mesh
         names = tuple(mesh.axis_names)
         self.batch_axes: Tuple[str, ...] = tuple(
             a for a in ("pod", "data") if a in names)
         self.model_axis: Optional[str] = "model" if "model" in names else None
         self.param_sharding = param_sharding
+        if seq_axes is None:
+            seq_axes = (self.model_axis,) if self.model_axis else ()
+        unknown = [a for a in seq_axes if a not in names]
+        if unknown:
+            raise ValueError(f"seq_axes {tuple(seq_axes)}: {unknown} not "
+                             f"axes of the mesh {names}")
+        self.seq_axes: Tuple[str, ...] = tuple(seq_axes)
+
+    @property
+    def sharded(self) -> bool:
+        """A process mesh with a data or model axis above 1."""
+        return self.process and any(s > 1 for s in self.mesh.shape.values())
 
     @property
     def process(self) -> bool:
@@ -275,12 +298,167 @@ def expert_rows(mesh, num_experts: int) -> Optional[slice]:
     return slice(ctx.model_rank * e, (ctx.model_rank + 1) * e)
 
 
-def shard_params(params: Dict[str, torch.Tensor], mesh
+# ---------------------------------------------------------------------------
+# Blocks over a process mesh
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec names."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def block_index(spec_entry, mesh, coords=None) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dim with
+    ``spec_entry``: row-major over its axes' coordinates (``coords``, one
+    an axis of ``mesh``: another rank's)."""
+    i, n = 0, 1
+    for a in _entry_axes(spec_entry):
+        c = mesh.index(a) if coords is None else \
+            coords[mesh.axis_names.index(a)]
+        i = i * mesh.shape[a] + c
+        n *= mesh.shape[a]
+    return i, n
+
+
+def block_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a tensor of ``shape`` (every
+    sharded dim divisible by its axes, as ``_fit`` leaves it)."""
+    out = []
+    for dim, size in enumerate(shape):
+        _, n = block_index(spec[dim] if dim < len(spec) else None, mesh)
+        if size % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"into {n} blocks ({spec})")
+        out.append(size // n)
+    return tuple(out)
+
+
+def block_slices(shape, spec, mesh, coords=None) -> Tuple[slice, ...]:
+    """This rank's block (or that of the rank at ``coords``) of a tensor
+    of ``shape`` as one slice a dim."""
+    size = block_shape(shape, spec, mesh)
+    out = []
+    for dim in range(len(shape)):
+        i, _ = block_index(spec[dim] if dim < len(spec) else None, mesh,
+                           coords)
+        out.append(slice(i * size[dim], (i + 1) * size[dim]))
+    return tuple(out)
+
+
+def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under a resolved spec
+    over the process ``mesh`` (a contiguous copy)."""
+    return t[block_slices(t.shape, spec, mesh)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_block(t: torch.Tensor, spec, mesh,
+                 axes: Optional[Tuple[str, ...]] = None) -> torch.Tensor:
+    """The inverse of ``local_block``: every dim whose axes are all in
+    ``axes`` (default: every sharded dim) gathered back over them, the
+    last axis first, so the blocks land row-major.  Through
+    ``collectives.gather_dim``, so a gradient flows back to the block
+    (summed over the ranks that gathered it)."""
+    from repro_torch.distributed.collectives import gather_dim
+    for dim, entry in enumerate(spec):
+        ax = _entry_axes(entry)
+        if not ax or (axes is not None and not set(ax) <= set(axes)):
+            continue
+        for a in reversed(ax):
+            t = gather_dim(t, mesh.group(a), dim)
+    return t
+
+
+def gather_whole(t: torch.Tensor, spec, mesh,
+                 root: int = 0) -> Optional[torch.Tensor]:
+    """The whole tensor of which ``t`` is this rank's block under
+    ``spec``, on rank ``root`` of the process ``mesh`` (``None`` on the
+    others): one gather of every rank's block (on the host over gloo),
+    each laid at its rank's coordinates.  No gradient; a quarter of the
+    traffic of ``gather_block`` on every rank of a 4-rank mesh."""
+    import numpy as np
+    import torch.distributed as dist
+    t = t.detach().contiguous()
+    if mesh.backend == "gloo":
+        t = t.cpu()
+    me = mesh.rank == root
+    blocks = [torch.empty_like(t) for _ in range(mesh.size)] if me else None
+    dist.gather(t, blocks, dst=root)
+    if not me:
+        return None
+    full = tuple(d * block_index(spec[i] if i < len(spec) else None,
+                                 mesh)[1] for i, d in enumerate(t.shape))
+    out = t.new_empty(full)
+    dims = tuple(mesh.shape[a] for a in mesh.axis_names)
+    for r, b in enumerate(blocks):
+        coords = tuple(int(c) for c in np.unravel_index(r, dims))
+        out[block_slices(full, spec, mesh, coords)] = b
+    return out
+
+
+class Placement:
+    """A model's parameters over a process mesh: each one's full shape and
+    spec (``named_shardings`` over ``ctx``), so this rank holds
+    ``local_block`` of each."""
+
+    def __init__(self, ctx: ShardCtx, full: Dict[str, Any], period: int):
+        self.ctx = ctx
+        self.mesh = ctx.mesh
+        self.full = {n: tuple(t.shape) for n, t in full.items()}
+        self.specs = named_shardings(ctx, full, period)
+
+    def block_shape(self, name: str) -> Tuple[int, ...]:
+        return block_shape(self.full[name], self.specs[name], self.mesh)
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return local_block(t, self.specs[name], self.mesh)
+
+    def gathered(self, name: str, t: torch.Tensor,
+                 axes: Optional[Tuple[str, ...]] = None) -> torch.Tensor:
+        return gather_block(t, self.specs[name], self.mesh, axes)
+
+    def replicated_axes(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes that do not split ``name``: every rank along
+        them holds the same block."""
+        used = spec_axes(self.specs[name])
+        return tuple(a for a in self.mesh.axis_names if a not in used)
+
+    def counted_here(self, name: str) -> bool:
+        """Whether this rank stands for its block in a sum over the whole
+        mesh: the first rank along every axis that replicates it."""
+        return all(self.mesh.index(a) == 0
+                   for a in self.replicated_axes(name))
+
+
+def not_ported(cfg, what: str):
+    """The error of a family whose sharded path is not ported."""
+    return NotImplementedError(
+        f"{cfg.name} ({cfg.family} family): {what} over a process mesh with "
+        f"a data or model axis above 1 is item 22b of the roadmap (only "
+        f"the dense family, and the MoE family's expert share, run there)")
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh, cfg=None
                  ) -> Dict[str, torch.Tensor]:
-    """This rank's share of a full parameter set over a process ``mesh``:
-    each MoE layer's ``wi``, ``wg`` and ``wo`` cut to the rank's experts
-    (a copy, so the full tensor can be freed), every other tensor as it
-    is (replicated)."""
+    """This rank's share of a full parameter set over a process ``mesh``
+    (or a ``ShardCtx`` over one).  A dense model (``cfg`` of the dense
+    family): every tensor's ``local_block`` under ``named_shardings``.
+    Otherwise (no ``cfg``, or the MoE family) each MoE layer's ``wi``,
+    ``wg`` and ``wo`` cut to the rank's experts, every other tensor as it
+    is (replicated).  Blocks are copies, so the full tensors can be
+    freed."""
+    ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
+    if cfg is not None and cfg.family == "dense":
+        place = Placement(ctx, params, 1)
+        return {n: place.local(n, t) for n, t in params.items()}
+    if cfg is not None and cfg.family != "moe" and ctx.sharded:
+        raise not_ported(cfg, "shard_params")
+    mesh = ctx.mesh
     out = {}
     for name, t in params.items():
         rows = (expert_rows(mesh, t.shape[0])

@@ -44,6 +44,15 @@
 //     and at G <= 8 rows the multiply-adds and shuffles stay below the time
 //     the bytes take;
 //   * positions past the row's length are never read (zero-filled copies).
+//
+// Partial mode (`lse` not null): the launch writes each (batch, head) row's
+// float32 partial instead of its output in the model's dtype: o = acc / l
+// (the row's own softmax output) and its natural-log log-sum-exp
+// lse = ln(sum exp(s)), both from the same merged (m, l, acc) the output
+// would be made of, so o carries the float32 output's bits.  A row of
+// length 0 (a sequence-sharded cache whose slice holds no valid position)
+// gives o = 0 and lse = -inf.  Merging the partials of the slices of a
+// sequence split across processes is the caller's (a few floats a row).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +84,7 @@ struct Args {
   const void* v;
   const int32_t* lengths;
   void* o;
+  float* lse;                    // partial mode: (B * H,) float32
   float* ws;                     // n_splits > 1: (m, l) then acc partials
   int32_t* counters;             // n_splits > 1: one per (row, group chunk)
   int K, G, Smax, split, n_splits, n_gc;
@@ -109,6 +119,23 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// Output element `i` of row `row` (element `d` of the head dim) from the
+// merged (m, l, acc): the value in the model's dtype, or in partial mode
+// the float32 o = acc / l, and the row's lse written by its element 0
+template <typename T>
+__device__ __forceinline__ void store_out(const Args& a, long long i,
+                                          long long row, int d, float acc,
+                                          float l, float m) {
+  if (a.lse != nullptr) {
+    static_cast<float*>(a.o)[i] = l > 0.0f ? acc / l : 0.0f;
+    if (d == 0) a.lse[row] = l > 0.0f ? (m + log2f(l)) * LN2 : -INFINITY;
+  } else {
+    static_cast<T*>(a.o)[i] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  }
 }
 
 // 16 bytes global -> shared, zero-filled when !valid (nothing is read)
@@ -307,8 +334,8 @@ decode_attention_kernel(const Args a) {
       }
       const int h = kvh * G + g0 + g;
       if (a.n_splits == 1) {
-        static_cast<T*>(a.o)[(static_cast<long long>(b) * a.K * G + h) * HD +
-                             d] = from_f32<T>(ab / fmaxf(lb, 1e-30f));
+        const long long orow = static_cast<long long>(b) * a.K * G + h;
+        store_out<T>(a, orow * HD + d, orow, d, ab, lb, mb);
       } else {
         const long long pi = (static_cast<long long>(row) * G + g0 + g) *
                                  a.n_splits + split;
@@ -322,9 +349,12 @@ decode_attention_kernel(const Args a) {
     if (a.n_splits == 1) return;
   } else {
     if (a.n_splits == 1) {                    // a row of length 0
-      for (int i = tid; i < gn * HD; i += THREADS)
-        static_cast<T*>(a.o)[(static_cast<long long>(b) * a.K * G + kvh * G +
-                              g0) * HD + i] = from_f32<T>(0.0f);
+      for (int i = tid; i < gn * HD; i += THREADS) {
+        const long long orow = static_cast<long long>(b) * a.K * G +
+                               kvh * G + g0 + i / HD;
+        store_out<T>(a, orow * HD + i % HD, orow, i % HD, 0.0f, 0.0f,
+                     -INFINITY);
+      }
       return;
     }
     for (int g = tid; g < gn; g += THREADS) {   // an empty partial
@@ -384,9 +414,9 @@ decode_attention_kernel(const Args a) {
         }
       }
     }
-    static_cast<T*>(a.o)[(static_cast<long long>(b) * a.K * G + kvh * G +
-                          g0 + g) * HD + d] =
-        from_f32<T>(at / fmaxf(lt, 1e-30f));
+    const long long orow = static_cast<long long>(b) * a.K * G + kvh * G +
+                           g0 + g;
+    store_out<T>(a, orow * HD + d, orow, d, at, lt, mt);
   }
   if (tid == 0) *counter = 0;                  // ready for the next call
 }
@@ -437,12 +467,15 @@ int launch_hd(const Args& a, int rows, int hd, cudaStream_t s) {
 extern "C" {
 
 // Launches the decode attention on `stream`: dtype 0 = float32,
-// 1 = bfloat16; strides in elements; `split` positions a block.  With
+// 1 = bfloat16; strides in elements; `split` positions a block.  `lse`
+// null: `o` (B, H, hd) in the inputs' dtype; otherwise partial mode, `o`
+// float32 (B, H, hd) and `lse` float32 (B, H) (see the top).  With
 // n_splits = ceil(Smax / split) > 1, `ws` holds B*K*G*n_splits*(2 + hd)
 // floats and `counters` B*K*G int32 zeros (left zero after the launch).
 // Returns a cudaError_t code (0 = launched).
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const int32_t* lengths, void* o, float* ws,
+                            const int32_t* lengths, void* o, float* lse,
+                            float* ws,
                             int32_t* counters, int B, int Smax, int H, int K,
                             int hd, int dtype, int split, long long q_sb,
                             long long q_sh, long long k_sb, long long k_ss,
@@ -454,8 +487,8 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   if (n_splits > 1 && (ws == nullptr || counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_gc = (G + group_chunk(G) - 1) / group_chunk(G);
-  Args a{q, k, v, lengths, o, ws, counters, K, G, Smax, split, n_splits,
-         n_gc, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+  Args a{q, k, v, lengths, o, lse, ws, counters, K, G, Smax, split,
+         n_splits, n_gc, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
          scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_hd<float>(a, B * K, hd, s);

@@ -12,6 +12,10 @@ each per (batch, KV head).  With more than one, the blocks' partials go to
 a float32 workspace and a per-row int32 counter picks the block that merges
 them; both are cached per (device, stream), the counters zeroed once when
 allocated and left zero by every launch.
+
+Partial mode (``partial=True``, the sequence-sharded decode across
+processes): the same launch writes each (batch, head) row's float32
+``(o, lse)`` instead of its output, counted under ``PARTIAL_NAME``.
 """
 from __future__ import annotations
 
@@ -30,10 +34,12 @@ from repro_torch.kernels.binding import (check_aligned16, check_hd,
                                          stream_of)
 
 NAME = "decode_attention"
+PARTIAL_NAME = "decode_attention_partial"
 SOURCE = Path(__file__).parent / "csrc" / "decode_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 SPLIT = 512                     # cache positions per block (tuned on an H100)
 LAUNCHES.setdefault(NAME, 0)
+LAUNCHES.setdefault(PARTIAL_NAME, 0)
 # (device index, stream) -> (counters int32, workspace float32)
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -44,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 7 + [I] * 7 + [L] * 8 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 8 + [I] * 7 + [L] * 8 + [ctypes.c_float, P]
         fn.restype = I
         lib.decode_attention_error_string.argtypes = [I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -66,12 +72,15 @@ def _scratch(dev: torch.device, stream: int, n_counters: int,
 
 
 def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            v_cache: torch.Tensor, lengths: torch.Tensor,
+                            partial: bool = False):
     """q (B, H, hd); caches (B, Smax, K, hd), any strides with the head dim
     contiguous and rows 16-byte aligned; one dtype (float32 or bfloat16);
-    lengths (B*K,) int32, the valid length of each (batch, KV head) row,
-    at least 1.  Returns (B, H, hd) contiguous."""
+    lengths (B*K,) int32, the valid length of each (batch, KV head) row
+    (0 allowed: the row's output is 0).  Returns (B, H, hd) contiguous;
+    with ``partial``, float32 ``(o (B, H, hd), lse (B, H))``: each row's
+    softmax output and natural-log log-sum-exp (-inf for a row of length
+    0, whose o is 0)."""
     dev = q.device
     check_operand(q, "q", device=dev, ndim=3)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -91,9 +100,13 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     if lengths.shape[0] != B * K or not lengths.is_contiguous():
         raise ValueError(f"{NAME}: lengths must be contiguous ({B * K},), got "
                          f"{tuple(lengths.shape)}")
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((B, H, hd), dtype=torch.float32 if partial
+                      else q.dtype, device=dev)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if partial else None)
     if B == 0 or Smax == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-math.inf)) if partial else out
     lib = _lib()
     stream = stream_of(dev)
     split = SPLIT
@@ -106,12 +119,13 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     with on_device(dev):
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), ws_ptr, counters_ptr, B,
+            lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), ws_ptr, counters_ptr, B,
             Smax, H, K, hd, code, split,
             q.stride(0), q.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             1.0 / math.sqrt(hd), stream)
     raise_on_error(rc, lib, "decode_attention_error_string", NAME)
-    LAUNCHES[NAME] += 1
-    return out
+    LAUNCHES[PARTIAL_NAME if partial else NAME] += 1
+    return (out, lse) if partial else out

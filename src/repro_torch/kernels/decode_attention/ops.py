@@ -1,15 +1,19 @@
 """Single-token decode attention in the model layout: the kernel for CUDA
 tensors, the plain version (through the kernel layout, as the JAX
-package's ``ops`` calls its Pallas kernel) for CPU tensors."""
+package's ``ops`` calls its Pallas kernel) for CPU tensors; its partial
+mode for a cache whose positions are split across processes, and the
+merge of the partials."""
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.decode_attention.kernel import \
     decode_attention_kernel
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_partials_ref, decode_attention_ref)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -35,3 +39,42 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kf = k_cache.permute(0, 2, 1, 3).reshape(B * K, Smax, hd)
     vf = v_cache.permute(0, 2, 1, 3).reshape(B * K, Smax, hd)
     return decode_attention_ref(qf, kf, vf, lengths).reshape(B, 1, H, hd)
+
+
+def decode_attention_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, lengths: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partial of one slice of a cache: q (B, 1, H, hd), caches (B,
+    Smax, K, hd) as :func:`decode_attention`, ``lengths`` (B*K,) int32 the
+    valid positions of each row in this slice (0 allowed).  Returns
+    float32 ``o`` (B, 1, H, hd) and ``lse`` (B, 1, H) (the kernel's
+    partial mode; its plain version for CPU tensors)."""
+    B, _, H, hd = q.shape
+    _, Smax, K, _ = k_cache.shape
+    if q.device.type != "cpu":
+        o, lse = decode_attention_kernel(q[:, 0], k_cache, v_cache, lengths,
+                                         partial=True)
+        return o.reshape(B, 1, H, hd), lse.reshape(B, 1, H)
+    G = H // K
+    kf = k_cache.permute(0, 2, 1, 3).reshape(B * K, Smax, hd)
+    vf = v_cache.permute(0, 2, 1, 3).reshape(B * K, Smax, hd)
+    o, lse = decode_attention_partials_ref(q.reshape(B * K, G, hd), kf, vf,
+                                           lengths)
+    return o.reshape(B, 1, H, hd), lse.reshape(B, 1, H)
+
+
+def merge_partials(parts: List[Tuple[torch.Tensor, torch.Tensor]],
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The attention over the whole cache from its slices' partials
+    ``(o (..., hd), lse (...))``, added in the order given (the slices'
+    rank order, so the result does not depend on timing), in float32,
+    cast to ``dtype``.  A slice with lse = -inf weighs nothing."""
+    lse_max = torch.stack([lse for _, lse in parts]).amax(0)
+    ref = torch.where(lse_max == -math.inf, 0.0, lse_max)
+    num = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(parts[0][1])
+    for o, lse in parts:
+        w = torch.exp(lse - ref)
+        num = num + o * w[..., None]
+        den = den + w
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(dtype)

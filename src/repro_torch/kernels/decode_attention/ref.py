@@ -21,6 +21,31 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bgs,bsh->bgh", p, v.float()).to(q.dtype)
 
 
+def decode_attention_partials_ref(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, lengths: torch.Tensor
+                                  ) -> tuple:
+    """The kernel's partial mode in plain PyTorch (one split of
+    :func:`decode_attention_split_ref`, normalised): float32 ``o`` (BK, G,
+    hd), each row's softmax output over its first ``lengths[row]``
+    positions, and ``lse`` (BK, G), the natural-log log-sum-exp of its
+    scores; a row of length 0 gives o = 0, lse = -inf.  Shapes as
+    :func:`decode_attention_ref`."""
+    hd = q.shape[-1]
+    Smax = k.shape[1]
+    sc = torch.einsum("bgh,bsh->bgs", q.float(), k.float()) / math.sqrt(hd)
+    pos = torch.arange(Smax, device=q.device)[None, None, :]
+    sc = torch.where(pos < lengths.to(q.device)[:, None, None], sc,
+                     torch.full_like(sc, -math.inf))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - torch.where(m == -math.inf, 0.0, m))
+    l_s = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bgs,bsh->bgh", p, v.float())
+    o = torch.where(l_s > 0, acc / torch.clamp(l_s, min=1e-30), 0.0)
+    lse = torch.where(l_s > 0, m + torch.log(torch.clamp(l_s, min=1e-30)),
+                      -math.inf)
+    return o, lse[..., 0]
+
+
 def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, lengths: torch.Tensor, *,
                                n_splits: int) -> torch.Tensor:

@@ -9,6 +9,15 @@ moments in place (``training.optimizer.adamw_update``).  The sharding
 trees are specs (``distributed.sharding.P``) over a ``ShardCtx``'s mesh,
 by name as the inputs: the dry run's per-device accounting reads them
 (``launch/dryrun.py``); on one device nothing is placed by them.
+
+A model placed over a process mesh (``build_model(cfg, mesh=)``) takes
+the same call with this rank's blocks as ``params`` and ``opt_state``
+and the global batch: the step splits it into microbatches first, then
+keeps this rank's data-shard rows of each (``batch_shardings``), so each
+microbatch pairs the rows the one-process step pairs.  Each rank's
+gradients are then its blocks' share of the global gradient (the FSDP
+gathers sum the data shards' in their backward), the replicated
+parameters' summed over the data axes here; the metrics are global.
 """
 from __future__ import annotations
 
@@ -17,8 +26,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.config import ShapeConfig, TrainConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (P, ShardCtx, _axis_size, _fit,
-                                              named_shardings)
+                                              block_index, named_shardings)
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import Model
@@ -34,10 +44,17 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     ``max(tcfg.microbatch or cfg.microbatch, 1)`` slices of its rows in
     float32, then divided by their count), int8-compressed when
     ``tcfg.grad_compression == "int8"``, then one AdamW update.  Metrics:
-    ``loss``, ``grad_norm``, ``lr`` (0-d tensors)."""
+    ``loss``, ``grad_norm``, ``lr`` (0-d tensors).  Its halves are
+    ``train_step.gradients(params, batch) -> (loss, grads)`` (before
+    compression; a placed model's blocks of the global gradient) and
+    ``train_step.apply(params, opt_state, loss, grads)``, the rest."""
     cfg = model.cfg
     n_mb = max(tcfg.microbatch or cfg.microbatch, 1)
     period = len(T.layer_plan(cfg))
+    place = model.placement
+    ctx = model.shard_ctx
+    if place is None:
+        model._in_context()     # raises for an unplaced model there
 
     def grad_fn(params: Params, batch: Dict[str, Any]):
         names = list(params)
@@ -49,8 +66,7 @@ def make_train_step(model: Model, tcfg: TrainConfig):
         return loss.detach(), {n: torch.zeros_like(params[n]) if g is None
                                else g for n, g in zip(names, grads)}
 
-    def train_step(params: Params, opt_state: AdamState,
-                   batch: Dict[str, Any]):
+    def gradients(params: Params, batch: Dict[str, Any]):
         not_trainable = [n for n, p in params.items() if not p.requires_grad]
         if not_trainable:
             raise ValueError(f"parameters {not_trainable[:3]} take no "
@@ -68,7 +84,8 @@ def make_train_step(model: Model, tcfg: TrainConfig):
                                     device=p.device)
                      for n, p in params.items()}
             for i in range(n_mb):
-                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                mb = _data_shard({k: v[i * per:(i + 1) * per]
+                                  for k, v in batch.items()})
                 mb_loss, g = grad_fn(params, mb)
                 for n, a in grads.items():
                     a += g[n].float()
@@ -78,14 +95,44 @@ def make_train_step(model: Model, tcfg: TrainConfig):
             for a in grads.values():
                 a.div_(n_mb)
         else:
-            loss, grads = grad_fn(params, batch)
+            loss, grads = grad_fn(params, _data_shard(batch))
+        if place is not None:
+            axes = ctx.batch_axes
+            loss = C.all_reduce_over(loss, ctx.mesh, axes)
+            grads = {n: C.all_reduce_over(g, ctx.mesh, [
+                a for a in axes if a in place.replicated_axes(n)])
+                for n, g in grads.items()}
+        return loss, grads
+
+    def apply(params: Params, opt_state: AdamState, loss: torch.Tensor,
+              grads: Params):
         if tcfg.grad_compression == "int8":
-            grads = compress_decompress(grads, period)
+            grads = compress_decompress(grads, period, place)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
-                                                  tcfg)
+                                                  tcfg, place)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    def train_step(params: Params, opt_state: AdamState,
+                   batch: Dict[str, Any]):
+        return apply(params, opt_state, *gradients(params, batch))
+
+    def _data_shard(batch):
+        """A placed model's rows of a (micro)batch: its data shard."""
+        if place is None:
+            return batch
+        out = {}
+        for k, spec in batch_shardings(ctx, batch).items():
+            i, n = block_index(spec[0], ctx.mesh)
+            rows = batch[k].shape[0]
+            if n == 1 and _axis_size(ctx, ctx.logical("batch")) > 1:
+                raise ValueError(f"{k}: {rows} rows do not split over the "
+                                 f"data axes {ctx.batch_axes}")
+            out[k] = batch[k][i * rows // n:(i + 1) * rows // n]
+        return out
+
+    train_step.gradients = gradients
+    train_step.apply = apply
     return train_step
 
 

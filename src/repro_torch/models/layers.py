@@ -12,9 +12,24 @@ tensors.  LayerNorm has no kernel in the JAX package and stays plain.
 Plain matrix products stay ``torch.matmul`` on weights kept in the JAX
 package's ``(in, out)`` orientation.  Dtype policy as there:
 storage and products in the model dtype, norms, RoPE angles and softmax in
-float32.  The port runs on one device, where the reference's ``shard()``
-constraints place nothing (``distributed/sharding.py``), so the layers do
-not call it.
+float32.  On one device the reference's ``shard()`` constraints place
+nothing (``distributed/sharding.py``), so the layers do not call it.
+
+Over a process mesh (a dense model built with ``mesh=``: each module's
+``placed`` names its ``sharding.Placement``) the projections are
+tensor-parallel over the model axis, Megatron's way: ``wq``, ``wk``,
+``wv``, ``mlp.wi`` and ``mlp.wg`` column-parallel behind
+``collectives.copy_to`` (their gradient of the replicated input is
+partial per rank), ``wo`` and ``mlp.wo`` row-parallel followed by
+``collectives.reduce_from``; each weight's FSDP dim gathered over the data
+axes first (``Placement.gathered``).  A rank holds query heads ``[r H/n,
+(r+1) H/n)`` and KV heads ``[r K/n, ...)``, so each GQA group stays on its
+rank; where ``n`` is a multiple of ``K`` the rank keeps the one KV head its
+query heads read (gathered whole over the model axis if ``_fit`` split its
+columns, replicated otherwise).  The sequence-sharded decode
+(``seq_decode_attention``) attends every head over this rank's slice of
+the cache through the decode kernel's partial mode and merges the slices'
+partials in rank order.
 """
 from __future__ import annotations
 
@@ -26,7 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import P, block_index, gather_block
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, decode_attention_partials, merge_partials)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
@@ -137,25 +155,216 @@ class Attention(nn.Module):
                          "wo": 1.0 / math.sqrt(H * hd)}
 
 
+# ------------------------------------------------ float32 products
+class _F32Product(torch.autograd.Function):
+    """The float32 product of bfloat16 operands on the card, with its
+    gradients as bfloat16 products of the cotangent rounded to bfloat16
+    (float32 accumulation in the products)."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        gx = g @ head.t() if ctx.needs_input_grad[0] else None
+        gh = x2.t() @ g if ctx.needs_input_grad[1] else None
+        return gx, gh
+
+
+def f32_product(x2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(T, D) @ (D, V) in float32 from model-dtype operands: a float32
+    product of the model-dtype values, as the JAX package's
+    ``preferred_element_type=float32`` gives."""
+    if x2.device.type == "cpu" or x2.dtype == torch.float32:
+        return x2.float() @ head.float()
+    return _F32Product.apply(x2, head)
+
+
+# ------------------------------------------------ tensor parallelism
+def model_group(ctx):
+    """(axis size n, this rank's coordinate r, its group or ``None``) of
+    the model axis of a process context."""
+    if ctx.model_axis is None:
+        return 1, 0, None
+    return (ctx.mesh.shape[ctx.model_axis], ctx.model_rank,
+            ctx.mesh.group(ctx.model_axis))
+
+
+def _copy_to(x, group):
+    return x if group is None else C.copy_to(x, group)
+
+
+def _reduce_from(x, group):
+    return x if group is None else C.reduce_from(x, group)
+
+
+def kv_heads(cfg: ModelConfig, n: int, r: int) -> Tuple[int, int]:
+    """The KV heads ``[k0, k1)`` rank ``r`` of ``n`` on the model axis
+    reads: its own ``K/n`` where ``n`` divides ``K``, else (``n`` a
+    multiple of ``K``) the one its ``H/n`` query heads share."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    if K % n == 0:
+        return r * K // n, (r + 1) * K // n
+    G, Hl = H // K, H // n
+    return r * Hl // G, ((r + 1) * Hl - 1) // G + 1
+
+
+def check_tensor_parallel(cfg: ModelConfig, n: int) -> None:
+    """The head and width splits the tensor-parallel layers take."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    if H % n or (K % n and n % K) or cfg.d_ff % n \
+            or padded_vocab(cfg.vocab_size) % n:
+        raise ValueError(
+            f"{cfg.name}: {H} heads, {K} KV heads, d_ff {cfg.d_ff} and the "
+            f"padded vocabulary {padded_vocab(cfg.vocab_size)} do not split "
+            f"over a model axis of {n} (heads and widths divisible by it, "
+            f"KV heads divisible by it or dividing it)")
+
+
+def _w(p: nn.Module, attr: str) -> torch.Tensor:
+    """A placed weight with its FSDP dim gathered over the data axes."""
+    place, prefix = p.placed
+    return place.gathered(f"{prefix}.{attr}", getattr(p, attr),
+                          place.ctx.batch_axes)
+
+
+def _kv_weight(p: nn.Module, attr: str, cfg: ModelConfig) -> torch.Tensor:
+    """``wk``/``wv``/``bk``/``bv`` restricted to this rank's KV heads (last
+    dim): its own block where the model axis splits whole heads; else
+    gathered whole over every axis that splits it (the backward sums the
+    ranks' partial gradients) or, replicated over the model axis, summed
+    there by ``copy_to``; then the rank's heads' columns."""
+    place, prefix = p.placed
+    name = f"{prefix}.{attr}"
+    n, r, group = model_group(place.ctx)
+    if cfg.num_kv_heads % n == 0:
+        return _w(p, attr)
+    if place.specs[name][-1] is not None:
+        full = place.gathered(name, getattr(p, attr))
+    else:
+        full = _copy_to(_w(p, attr), group)
+    hd = cfg.resolved_head_dim()
+    k0, k1 = kv_heads(cfg, n, r)
+    return full[..., k0 * hd:k1 * hd]
+
+
+def _group(p: nn.Module):
+    """The model axis's group of a placed module (``None`` unplaced or
+    for a model axis of 1)."""
+    placed = getattr(p, "placed", None)
+    return None if placed is None else model_group(placed[0].ctx)[2]
+
+
+def _weight(p: nn.Module, attr: str, cfg: Optional[ModelConfig] = None
+            ) -> torch.Tensor:
+    """``p.<attr>``; placed: its FSDP dim gathered over the data axes, and
+    ``wk``/``wv``/``bk``/``bv`` restricted to this rank's KV heads."""
+    if getattr(p, "placed", None) is None:
+        return getattr(p, attr)
+    if attr in ("wk", "wv", "bk", "bv"):
+        return _kv_weight(p, attr, cfg)
+    return _w(p, attr)
+
+
+def _col(p: nn.Module, x: torch.Tensor, attr: str,
+         cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """``x (..., D) @ p.<attr>``; placed: this rank's columns as a float32
+    product of the model-dtype operands rounded once, which accumulates as
+    the one-process product of all the columns does (a model-dtype product
+    of another width may take another kernel and another order)."""
+    w = _weight(p, attr, cfg)
+    if getattr(p, "placed", None) is None:
+        return x @ w
+    y = f32_product(x.reshape(-1, x.shape[-1]), w)
+    return y.to(x.dtype).reshape(x.shape[:-1] + (-1,))
+
+
 def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd); qk_norm and RoPE
-    applied."""
+    applied (placed: this rank's H/n query and its KV heads, column-
+    parallel behind ``copy_to``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
-    H, K = cfg.num_heads, cfg.num_kv_heads
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    group = _group(p)
+    x = _copy_to(x, group)
+    q = _col(p, x, "wq", cfg)
+    k = _col(p, x, "wk", cfg)
+    v = _col(p, x, "wv", cfg)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q, k, v = (q + _weight(p, "bq", cfg), k + _weight(p, "bk", cfg),
+                   v + _weight(p, "bv", cfg))
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if cfg.qk_norm:         # placed: replicated scales on this rank's heads
+        q = rms_norm(q, _copy_to(p.q_norm, group), cfg.norm_eps)
+        k = rms_norm(k, _copy_to(p.k_norm, group), cfg.norm_eps)
     return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def all_kv_heads(p: Attention, k: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """Every KV head of a placed layer's new keys or values (B, S, K, hd)
+    from each rank's (B, S, Kl, hd): gathered over the model axis, each
+    head taken from the first rank that holds it."""
+    n, _, group = model_group(p.placed[0].ctx)
+    if group is None:
+        return k
+    allk = C.gather_dim(k, group, 2)
+    K, Kl = cfg.num_kv_heads, k.shape[2]
+    first = {}
+    for j in range(n):
+        k0, _ = kv_heads(cfg, n, j)
+        for i in range(Kl):
+            first.setdefault(k0 + i, j * Kl + i)
+    idx = [first[h] for h in range(K)]
+    return allk if idx == list(range(n * Kl)) else allk[:, :, idx]
+
+
+def all_heads(p: Attention, q: torch.Tensor) -> torch.Tensor:
+    """Every query head (B, S, H, hd) from each rank's (B, S, H/n, hd)."""
+    _, _, group = model_group(p.placed[0].ctx)
+    return q if group is None else C.gather_dim(q, group, 2)
+
+
+def seq_slice(ctx, seq_local: int) -> Tuple[int, int]:
+    """(first position, count) of this rank's slice of a decode cache
+    whose ``seq_local`` positions a rank are split over ``ctx.seq_axes``
+    (row-major, so the slices lie in rank order)."""
+    i, _ = block_index(tuple(ctx.seq_axes) or None, ctx.mesh)
+    return i * seq_local, seq_local
+
+
+def seq_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: int, ctx
+                         ) -> torch.Tensor:
+    """One token's attention over a cache whose positions are split over
+    ``ctx.seq_axes`` of a process mesh: q (B, 1, H, hd) every head; the
+    caches this rank's slice (B, K, Sl, hd) of positions ``[s Sl, (s+1)
+    Sl)``; ``pos`` the position just written.  Each rank's slice gives
+    its float32 partial (the decode kernel's partial mode, lengths
+    clamped to the slice, 0 where it holds no valid position); the
+    partials are gathered over the seq axes and merged in rank order.
+    Returns (B, 1, H, hd) in ``q``'s dtype, the same on every rank."""
+    B, _, H, hd = q.shape
+    _, K, Sl, _ = k_cache.shape
+    s0, _ = seq_slice(ctx, Sl)
+    n_valid = min(max(int(pos) + 1 - s0, 0), Sl)
+    lengths = torch.full((B * K,), n_valid, dtype=torch.int32,
+                         device=q.device)
+    o, lse = decode_attention_partials(q, k_cache.transpose(1, 2),
+                                       v_cache.transpose(1, 2), lengths)
+    packed = torch.cat([o.reshape(B, H * hd), lse.reshape(B, H)], dim=-1)
+    axes = tuple(ctx.seq_axes)
+    allp = gather_block(packed[None], P(axes or None), ctx.mesh)
+    parts = [(a[:, :H * hd].reshape(B, 1, H, hd), a[:, H * hd:]
+              .reshape(B, 1, H)) for a in allp]
+    return merge_partials(parts, q.dtype)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor,
@@ -195,9 +404,24 @@ def cross_decode_attention(q: torch.Tensor, xk_cache: torch.Tensor,
     return decode_step_attention(q, xk_cache, xv_cache, lengths)
 
 
+def _row(p: nn.Module, h: torch.Tensor, attr: str) -> torch.Tensor:
+    """``h (..., F) @ p.<attr>``; placed: this rank's rows, summed over the
+    model axis: float32 products of the model-dtype operands, added in
+    float32 and rounded to the model dtype once, as the one-process
+    product's float32 accumulation rounds once."""
+    w = _weight(p, attr)
+    if getattr(p, "placed", None) is None:
+        return h @ w
+    y = f32_product(h.reshape(-1, h.shape[-1]), w)
+    return _reduce_from(y, _group(p)).to(h.dtype).reshape(
+        h.shape[:-1] + (-1,))
+
+
 def attn_out(p: Attention, attn: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, D); placed: this rank's heads through its
+    rows of ``wo``, summed over the model axis."""
     B, S, H, hd = attn.shape
-    return attn.reshape(B, S, H * hd) @ p.wo
+    return _row(p, attn.reshape(B, S, H * hd), "wo")
 
 
 # ---------------------------------------------------------------- MLP
@@ -216,9 +440,12 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = x @ p.wi
+    """Placed: ``wi``/``wg`` column-parallel, ``wo`` row-parallel over the
+    model axis."""
+    x = _copy_to(x, _group(p))
+    h = _col(p, x, "wi")
     if cfg.act == "silu":
-        h = F.silu(x @ p.wg) * h
+        h = F.silu(_col(p, x, "wg")) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p.wo
+    return _row(p, h, "wo")

@@ -30,6 +30,19 @@ prefill and decode)
 Caches are a dict by kind (``transformer.py``): ``k``/``v`` for the
 attention layers, ``ssm`` and ``conv_{x,b,c}`` for the Mamba layers, and
 the encoder-decoder's cross caches ``xk``/``xv`` (``encdec.py``).
+
+Over a process mesh (``build_model(cfg, mesh=ProcessMesh or ShardCtx)``)
+a dense model is placed: each rank holds ``local_block`` of every weight
+under ``named_shardings`` (``self.placement``), and ``init`` draws each
+weight whole and keeps the block, so the blocks are the one-process
+model's.  Its entry points then take this rank's rows of the batch (its
+data shard) and run tensor- and vocabulary-parallel over the model axis:
+``train_loss`` is this rank's rows' share of the global masked mean (the
+mask counted over every data shard), the logits of ``prefill`` and
+``decode`` cover the whole vocabulary, and the caches hold this rank's
+slice of the positions (``new_caches``).  Any other family there with a
+data or model axis above 1 raises ``NotImplementedError`` (roadmap item
+22b), the MoE family's expert share (``experts``) aside.
 """
 from __future__ import annotations
 
@@ -42,6 +55,9 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (Placement, ShardCtx,
+                                              current_ctx, not_ported)
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -51,12 +67,15 @@ Params = Dict[str, torch.Tensor]
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
-                 max_seq: int = 0, experts: Optional[slice] = None):
+                 max_seq: int = 0, experts: Optional[slice] = None,
+                 shard_ctx: Optional[ShardCtx] = None):
         """``max_seq``: rows of the learned position table of a model
         without RoPE (``rope_theta <= 0``: the encoder-decoder's decoder);
         0 means none, as the JAX package's ``init(max_seq=0)``.
         ``experts``: the padded experts each MoE layer holds (a process
-        rank's share, ``sharding.expert_rows``); all by default."""
+        rank's share, ``sharding.expert_rows``); all by default.
+        ``shard_ctx``: a context over a process mesh that places a dense
+        model (the module docstring)."""
         super().__init__()
         kinds = T.layer_kinds(cfg)  # raises for a config its family
                                     # cannot run
@@ -66,8 +85,13 @@ class Model(nn.Module):
                 "in float32 only (no configuration sets it)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.shard_ctx = shard_ctx
+        self.placement: Optional[Placement] = None
+        if shard_ctx is not None:
+            self._check_placeable(shard_ctx)
         dt = self.dtype
-        dev = self.device
+        # a placed model is laid out whole on ``meta``, then given blocks
+        dev = torch.device("meta") if shard_ctx is not None else self.device
         V, D = L.padded_vocab(cfg.vocab_size), cfg.d_model
         self.embed = L.new_param((V, D), dt, dev)
         self.final_norm = L.Norm(D, dev, with_bias=(cfg.act == "gelu"))
@@ -85,6 +109,8 @@ class Model(nn.Module):
             self.layers = T.build_layers(cfg, dt, dev, experts)
         self.n_attn = sum(m == "attn" for m, _ in kinds)
         self.n_mamba = len(kinds) - self.n_attn
+        if shard_ctx is not None:
+            self._place(shard_ctx)
         self._slots = {name: (mod, attr)
                        for mod_name, mod in self.named_modules()
                        for attr, _ in mod.named_parameters(recurse=False)
@@ -95,19 +121,63 @@ class Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return L.torch_dtype(self.cfg.dtype)
 
+    # ---------------------------------------------------------- placement
+    def _check_placeable(self, ctx: ShardCtx) -> None:
+        cfg = self.cfg
+        if not ctx.process or cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: only a dense model is placed over "
+                             f"a process mesh (got {cfg.family}, "
+                             f"{'a process' if ctx.process else 'a logical'}"
+                             f" mesh)")
+        if cfg.tie_embeddings:
+            raise not_ported(cfg, "tied embeddings")
+        L.check_tensor_parallel(
+            cfg, ctx.mesh.shape[ctx.model_axis] if ctx.model_axis else 1)
+
+    def _place(self, ctx: ShardCtx) -> None:
+        """Swap every ``meta`` weight for this rank's block on the model's
+        device (norm scales ones, biases zeros, as unplaced), and tell
+        each module where its weights are."""
+        full = self.params()
+        self.placement = Placement(ctx, full, len(T.layer_plan(self.cfg)))
+        drawn = self._draw_plan()[0]
+        for name, p in full.items():
+            mod_name, _, attr = name.rpartition(".")
+            mod = self.get_submodule(mod_name) if mod_name else self
+            fill = None if name in drawn else \
+                (0.0 if attr.startswith("b") else 1.0)
+            mod._parameters[attr] = L.new_param(
+                self.placement.block_shape(name), p.dtype, self.device, fill)
+        for mod_name, mod in self.named_modules():
+            if mod_name and any(True for _ in
+                                mod.named_parameters(recurse=False)):
+                mod.placed = (self.placement, mod_name)
+
+    def _in_context(self):
+        """The context this model's entry points run under: its own
+        placement's (a different current context raises), none for an
+        unplaced model; a process context with a data or model axis above
+        1 around an unplaced model raises (``NotImplementedError`` for the
+        families item 22b will place, ``ValueError`` for a dense model
+        built without ``mesh=``), the MoE family's expert share aside."""
+        ctx = current_ctx()
+        if self.placement is not None:
+            if ctx is not None and ctx.mesh is not self.shard_ctx.mesh:
+                raise ValueError("the model is placed over another mesh than "
+                                 "the current ShardCtx's")
+            return self.shard_ctx
+        if ctx is not None and ctx.sharded and self.cfg.family != "moe":
+            if self.cfg.family == "dense":
+                raise ValueError(
+                    f"{self.cfg.name}: a dense model under a process mesh "
+                    f"holds its blocks only: build it with mesh=")
+            raise not_ported(self.cfg, "the model")
+        return None
+
     # ------------------------------------------------------------- params
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "Model":
-        """Draw every weight from ``generator`` (on the model's device) with
-        the JAX package's scales: normal in float32 times the scale, cast to
-        the model dtype, one tensor at a time (so the largest float32
-        temporary is one weight, the embedding; ``pos_emb`` std 0.02, the
-        VLM ``projector`` 1/sqrt(D)); a module's ``init_fn``
-        leaves (the Mamba ``dt_bias`` and ``a_log``) as that function
-        draws them; norms ones, biases zeros.  A layer holding a share of
-        its experts draws each expert tensor whole and keeps its rows (one
-        layer's full tensor at a time), so the share equals those rows of
-        the whole model's."""
+    def _draw_plan(self):
+        """(std by name, ``init_fn`` by name, (full shape, rows) of an
+        expert share by name) of the weights ``init`` draws."""
         stds = {"embed": 0.02, "pos_emb": 0.02,
                 "projector": 1.0 / np.sqrt(self.cfg.d_model)}
         fns, full = {}, {}
@@ -120,6 +190,23 @@ class Model(nn.Module):
                 fns[f"{mod_name}.{name}"] = fn
             for name, shape in getattr(mod, "init_full", {}).items():
                 full[f"{mod_name}.{name}"] = (shape, mod.experts)
+        return stds, fns, full
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "Model":
+        """Draw every weight from ``generator`` (on the model's device) with
+        the JAX package's scales: normal in float32 times the scale, cast to
+        the model dtype, one tensor at a time (so the largest float32
+        temporary is one weight, the embedding; ``pos_emb`` std 0.02, the
+        VLM ``projector`` 1/sqrt(D)); a module's ``init_fn``
+        leaves (the Mamba ``dt_bias`` and ``a_log``) as that function
+        draws them; norms ones, biases zeros.  A layer holding a share of
+        its experts draws each expert tensor whole and keeps its rows (one
+        layer's full tensor at a time), so the share equals those rows of
+        the whole model's; a placed model likewise keeps each tensor's
+        ``local_block``."""
+        stds, fns, full = self._draw_plan()
+        place = self.placement
         for name, p in self.named_parameters():
             if name in fns:
                 p.copy_(fns[name](p.shape, generator, p.device))
@@ -128,9 +215,12 @@ class Model(nn.Module):
                 p.fill_(0.0 if name.split(".")[-1].startswith("b") else 1.0)
                 continue
             shape, rows = full.get(name, (p.shape, slice(None)))
+            if place is not None:
+                shape = place.full[name]
             tmp = torch.empty(shape, dtype=torch.float32, device=p.device)
             tmp.normal_(generator=generator).mul_(stds[name])
-            p.copy_(tmp[rows])
+            p.copy_(place.local(name, tmp) if place is not None
+                    else tmp[rows])
             del tmp
         return self
 
@@ -196,8 +286,17 @@ class Model(nn.Module):
     def new_caches(self, batch: int, seq: int) -> T.Caches:
         """Zeroed caches for ``batch`` rows of ``seq`` positions (the JAX
         package's ``cache_spec``, stacked by kind; the encoder-decoder's
-        cross caches hold ``enc_frames`` positions)."""
+        cross caches hold ``enc_frames`` positions).  Placed: ``batch`` is
+        this rank's rows, and the caches hold its slice of the ``seq``
+        positions (``seq`` divided over ``shard_ctx.seq_axes``)."""
         cfg = self.cfg
+        ctx = self._in_context()
+        if ctx is not None:
+            n = int(np.prod([ctx.mesh.shape[a] for a in ctx.seq_axes]))
+            if seq % n:
+                raise ValueError(f"{seq} cache positions do not split over "
+                                 f"the {n} ranks of {ctx.seq_axes}")
+            seq //= n
         z = lambda *s, dtype=self.dtype: torch.zeros(  # noqa: E731
             s, dtype=dtype, device=self.device)
         caches = {}
@@ -286,7 +385,9 @@ class Model(nn.Module):
         package's names: ``tokens``, ``labels``, ``loss_mask``, with
         ``frames`` for the encoder-decoder and ``patch_embeds`` for the
         VLM), a float32 scalar on the model's device, with gradients
-        enabled: the masked mean next-token cross-entropy (``lm_loss``)."""
+        enabled: the masked mean next-token cross-entropy (``lm_loss``).
+        Placed: this rank's rows, its share of the global mean (the module
+        docstring)."""
         cfg = self.cfg
         b = {k: torch.as_tensor(v, device=self.device)
              for k, v in batch.items()}
@@ -297,8 +398,11 @@ class Model(nn.Module):
                                   cfg.enc_frames)
         patches = self._side_input(b.get("patch_embeds"), "patch_embeds",
                                    want, B, None)
+        ctx = self._in_context()
+        count = None if ctx is None else C.all_reduce_over(
+            b["loss_mask"].float().sum(), ctx.mesh, ctx.batch_axes)
         with torch.enable_grad(), self._using(params):
-            x = T.embed_tokens(self.embed, tokens)
+            x = T.embed_tokens(self.embed, tokens, self.placement)
             if patches is not None:
                 x = torch.cat([patches @ self.projector, x], dim=1)
             x = T.add_positions(self.pos_emb, x, 0)
@@ -312,30 +416,34 @@ class Model(nn.Module):
                 if patches is not None:     # the loss covers the text only
                     x = x[:, patches.shape[1]:]
             return T.lm_loss(self.final_norm, self._head(), x, b["labels"],
-                             b["loss_mask"], cfg)
+                             b["loss_mask"], cfg, place=self.placement,
+                             count=count)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, params: Optional[Params] = None,
                 *, frames: Optional[torch.Tensor] = None,
-                patch_embeds: Optional[torch.Tensor] = None
+                patch_embeds: Optional[torch.Tensor] = None,
+                max_seq: Optional[int] = None
                 ) -> Tuple[T.Caches, torch.Tensor]:
         """tokens (B, S), with ``frames`` (B, enc_frames, D) for the
         encoder-decoder and ``patch_embeds`` (B, P, D) for the VLM (a
         missing one raises ``ValueError``) -> (caches, last-position
-        logits (B, 1, V) float32)."""
+        logits (B, 1, V) float32).  The self caches hold ``max_seq``
+        positions (default: the prompt's), the prompt's written first."""
         cfg = self.cfg
         tokens = tokens.to(self.device)
         B, S = tokens.shape
+        self._in_context()
         want = {"encdec": "frames", "vlm": "patch_embeds"}.get(cfg.family)
         frames = self._side_input(frames, "frames", want, B, cfg.enc_frames)
         patches = self._side_input(patch_embeds, "patch_embeds", want, B,
                                    None)
         with self._using(params):
-            x = T.embed_tokens(self.embed, tokens)
+            x = T.embed_tokens(self.embed, tokens, self.placement)
             if patches is not None:
                 x = torch.cat([patches @ self.projector, x], dim=1)
             x = T.add_positions(self.pos_emb, x, 0)
-            caches = self.new_caches(B, x.shape[1])
+            caches = self.new_caches(B, max(max_seq or 0, x.shape[1]))
             if frames is not None:
                 enc_out = E.run_encoder(self.encoder, self.enc_final_norm,
                                         frames, cfg)
@@ -345,7 +453,8 @@ class Model(nn.Module):
                 positions = torch.arange(x.shape[1], device=self.device)
                 x = T.run_stack(self.layers, x, cfg, "prefill", positions,
                                 caches)
-            logits = T.unembed(self.final_norm, self._head(), x[:, -1:], cfg)
+            logits = T.unembed(self.final_norm, self._head(), x[:, -1:], cfg,
+                               self.placement)
         return caches, logits
 
     @torch.no_grad()
@@ -355,14 +464,18 @@ class Model(nn.Module):
         """token (B, 1) at position ``pos`` (the current length): writes its
         keys and values into ``caches`` at ``pos`` and advances the Mamba
         states, in place, and returns ``(caches, logits (B, 1, V)
-        float32)``."""
+        float32)``.  Placed: this rank's rows; ``pos`` is the position in
+        the whole sequence, written by the rank whose slice holds it."""
         pos = int(pos)
-        if "k" in caches and not 0 <= pos < caches["k"].shape[3]:
+        ctx = self._in_context()
+        n_seq = 1 if ctx is None else int(np.prod(
+            [ctx.mesh.shape[a] for a in ctx.seq_axes]))
+        if "k" in caches and not 0 <= pos < caches["k"].shape[3] * n_seq:
             raise ValueError(f"decode position {pos} outside the caches' "
-                             f"{caches['k'].shape[3]} positions")
+                             f"{caches['k'].shape[3] * n_seq} positions")
         token = token.to(self.device)
         with self._using(params):
-            x = T.embed_tokens(self.embed, token)
+            x = T.embed_tokens(self.embed, token, self.placement)
             x = T.add_positions(self.pos_emb, x, pos)
             if self.cfg.family == "encdec":
                 x = E.run_decoder(self.layers, x, None, self.cfg, "decode",
@@ -371,7 +484,8 @@ class Model(nn.Module):
                 positions = torch.arange(pos, pos + 1, device=self.device)
                 x = T.run_stack(self.layers, x, self.cfg, "decode",
                                 positions, caches, pos)
-            logits = T.unembed(self.final_norm, self._head(), x, self.cfg)
+            logits = T.unembed(self.final_norm, self._head(), x, self.cfg,
+                               self.placement)
         return caches, logits
 
 
@@ -379,10 +493,20 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
                 max_seq: int = 0, mesh=None) -> Model:
     """The model with uninitialised weights: call ``init`` or
     ``load_params``.  ``max_seq``: the learned position table's rows
-    (``Model``).  ``mesh``: a ``ProcessMesh`` whose model axis splits the
-    experts; the model then holds this rank's share
-    (``sharding.expert_rows``), the rest replicated."""
-    experts = None
+    (``Model``).  ``mesh``: a ``ProcessMesh`` (or a ``ShardCtx`` over one,
+    for another ``param_sharding`` or ``seq_axes``).  A dense model is
+    then placed (the module docstring; ``fsdp`` by default); an MoE model
+    holds this rank's share of the experts (``sharding.expert_rows``), the
+    rest replicated; any other family there with a data or model axis
+    above 1 raises ``NotImplementedError``."""
+    experts = ctx = None
+    if mesh is not None:
+        ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
+        mesh = ctx.mesh
+    if ctx is not None and ctx.process and cfg.family == "dense":
+        return Model(cfg, device, max_seq, shard_ctx=ctx)
+    if ctx is not None and ctx.sharded and cfg.family != "moe":
+        raise not_ported(cfg, "build_model")
     if mesh is not None and cfg.num_experts:
         from repro_torch.distributed.sharding import expert_rows
         experts = expert_rows(mesh, L.padded_experts(cfg.num_experts))

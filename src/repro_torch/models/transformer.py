@@ -21,6 +21,16 @@ Caches are a dict by kind, each stacked over the layers of that kind:
 head so the decode-attention kernel reads each head's positions
 contiguously; ``ssm`` ``(n_mamba, B, H, N, P)`` float32 and ``conv_x``/
 ``conv_b``/``conv_c`` ``(n_mamba, B, k - 1, dim)`` in the model dtype.
+
+Over a process mesh (a dense model built with ``mesh=``) the layers are
+tensor-parallel (``layers.py``), the embedding, the loss and the
+unembedding vocabulary-parallel over the model axis, and a decode cache
+holds this rank's slice of the positions of every KV head
+(``cache_shardings``): prefill and decode gather the step's new keys and
+values over the model axis and the rank that owns a position writes it;
+decode gathers q and attends every head over its own positions
+(``layers.seq_decode_attention``), then keeps its heads for the
+row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import current_ctx, use_shard_ctx
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -116,18 +127,7 @@ class DecoderLayer(nn.Module):
         i = self.cache_index
         h = L.apply_norm(x, self.mixer_norm, cfg)
         if self.mixer == "attn":
-            q, k, v = L.qkv_project(self.attn, h, cfg, rope)
-            if mode == "decode":
-                k_cache, v_cache = caches["k"][i], caches["v"][i]
-                k_cache[:, :, pos] = k[:, 0]
-                v_cache[:, :, pos] = v[:, 0]
-                a = L.decode_step_attention(q, k_cache, v_cache, lengths)
-            else:
-                a = L.prefill_attention(q, k, v)
-                if caches is not None:
-                    caches["k"][i].copy_(k.transpose(1, 2))
-                    caches["v"][i].copy_(v.transpose(1, 2))
-            x = x + L.attn_out(self.attn, a)
+            x = x + self._attention(h, cfg, mode, rope, caches, pos, lengths)
         else:
             cache = (None if caches is None
                      else {n: caches[n][i] for n in MAMBA_CACHES})
@@ -145,6 +145,45 @@ class DecoderLayer(nn.Module):
         small = mode == "decode" and h.shape[0] * h.shape[1] <= 16
         apply = X.moe_apply_dense if small else X.moe_apply
         return x + apply(self.moe, h, cfg)
+
+    def _attention(self, h: torch.Tensor, cfg: ModelConfig, mode: str,
+                   rope, caches: Optional[Caches], pos: Optional[int],
+                   lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        """The attention block.  A placed layer's caches hold this rank's
+        slice of the positions of every KV head: the step's new keys and
+        values are gathered over the model axis, the rank that owns a
+        position writes it, and a decode step attends every head over the
+        slice (``seq_decode_attention``), keeping this rank's heads."""
+        p, i = self.attn, self.cache_index
+        placed = getattr(p, "placed", None)
+        ctx = None if placed is None else placed[0].ctx
+        q, k, v = L.qkv_project(p, h, cfg, rope)
+        if caches is not None:
+            kc, vc = caches["k"][i], caches["v"][i]
+            s0, Sl = (0, kc.shape[2]) if ctx is None else \
+                L.seq_slice(ctx, kc.shape[2])
+            kf, vf = (k, v) if ctx is None else \
+                (L.all_kv_heads(p, k, cfg), L.all_kv_heads(p, v, cfg))
+            if mode == "decode":
+                if ctx is None or s0 <= pos < s0 + Sl:
+                    kc[:, :, pos - s0] = kf[:, 0]
+                    vc[:, :, pos - s0] = vf[:, 0]
+            else:
+                w = min(kf.shape[1], s0 + Sl) - s0 if ctx is not None \
+                    else kf.shape[1]
+                if w > 0:
+                    kc[:, :, :w].copy_(kf[:, s0:s0 + w].transpose(1, 2))
+                    vc[:, :, :w].copy_(vf[:, s0:s0 + w].transpose(1, 2))
+        if mode != "decode":
+            a = L.prefill_attention(q, k, v)
+        elif ctx is None:
+            a = L.decode_step_attention(q, kc, vc, lengths)
+        else:
+            _, r, _ = L.model_group(ctx)
+            Hl = q.shape[2]
+            a = L.seq_decode_attention(L.all_heads(p, q), kc, vc, pos, ctx)
+            a = a[:, :, r * Hl:(r + 1) * Hl]
+        return L.attn_out(p, a)
 
 
 def build_layers(cfg: ModelConfig, dtype, device,
@@ -261,8 +300,37 @@ def run_stack(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 place=None) -> torch.Tensor:
+    """``table[tokens]``; ``place`` (a ``Placement``): vocabulary-parallel,
+    each rank looking up the tokens in its rows of the vocabulary (its
+    FSDP columns gathered first), zero elsewhere, summed over the model
+    axis."""
+    if place is None:
+        return table[tokens]
+    ctx = place.ctx
+    t = place.gathered("embed", table, ctx.batch_axes)
+    if place.specs["embed"][0] is None:     # the vocabulary replicated
+        return t[tokens]
+    _, r, group = L.model_group(ctx)
+    Vl = t.shape[0]
+    local = tokens - r * Vl
+    ok = (local >= 0) & (local < Vl)
+    x = torch.where(ok[..., None], t[local.clamp(0, Vl - 1)],
+                    torch.zeros((), dtype=t.dtype, device=t.device))
+    return C.reduce_from(x, group)
+
+
+def _vocab_block(place, head: torch.Tensor):
+    """A placed head (D, V/n) with its FSDP rows gathered, its first
+    vocabulary row and the model group (``None`` if the vocabulary is
+    replicated)."""
+    ctx = place.ctx
+    h = place.gathered("lm_head", head, ctx.batch_axes)
+    if place.specs["lm_head"][1] is None:
+        return h, 0, None
+    _, r, group = L.model_group(ctx)
+    return h, r * h.shape[1], group
 
 
 def add_positions(pos_emb: Optional[torch.Tensor], x: torch.Tensor,
@@ -280,75 +348,75 @@ def add_positions(pos_emb: Optional[torch.Tensor], x: torch.Tensor,
 
 
 def unembed(final_norm: L.Norm, head: torch.Tensor, x: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, place=None) -> torch.Tensor:
     """Float32 logits (B, S, V) for a few positions, from model-dtype
     operands: a float32 product of the model-dtype values, as the JAX
     package's ``preferred_element_type=float32`` gives (a bfloat16 product
     would round the logits and tie their argmax over a large vocabulary).
-    ``head`` is (D, V)."""
+    ``head`` is (D, V); placed (``place``): this rank's (D, V/n) block,
+    the logits gathered over the model axis."""
     x = L.apply_norm(x, final_norm, cfg)
     B, S, D = x.shape
-    logits = logits_f32(x.reshape(B * S, D), head).reshape(B, S, -1)
+    group = None
+    if place is not None:       # this rank's vocabulary, then all of it
+        head, _, group = _vocab_block(place, head)
+    logits = L.f32_product(x.reshape(B * S, D), head).reshape(B, S, -1)
+    if group is not None:
+        logits = C.gather_dim(logits, group, 2)
     V = L.padded_vocab(cfg.vocab_size)
     if V != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
 
 
-class _Logits32(torch.autograd.Function):
-    """The float32 product of bfloat16 operands on the card, with its
-    gradients as bfloat16 products of the cotangent rounded to bfloat16
-    (float32 accumulation in the products)."""
-
-    @staticmethod
-    def forward(ctx, x2, head):
-        ctx.save_for_backward(x2, head)
-        return torch.mm(x2, head, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, head = ctx.saved_tensors
-        g = g.to(x2.dtype)
-        gx = g @ head.t() if ctx.needs_input_grad[0] else None
-        gh = x2.t() @ g if ctx.needs_input_grad[1] else None
-        return gx, gh
-
-
-def logits_f32(x2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """(T, D) @ (D, V) in float32 from model-dtype operands: a float32
-    product of the model-dtype values, as the JAX package's
-    ``preferred_element_type=float32`` gives."""
-    if x2.device.type == "cpu" or x2.dtype == torch.float32:
-        return x2.float() @ head.float()
-    return _Logits32.apply(x2, head)
-
-
 def lm_loss(final_norm: L.Norm, head: torch.Tensor, x: torch.Tensor,
             labels: torch.Tensor, loss_mask: torch.Tensor, cfg: ModelConfig,
-            chunk: int = 0) -> torch.Tensor:
+            chunk: int = 0, place=None,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked cross-entropy, the logits of ``chunk`` positions (default
     ``cfg.loss_chunk``; all of them where S is not a multiple) at a time,
     so (B, S, V) never materialises at once.  x: (B, S, D) pre-final-norm
     hidden states; labels / loss_mask: (B, S).  Float32 logits, the padded
-    vocabulary masked to -1e30; the masked mean over max(count, 1)."""
+    vocabulary masked to -1e30; the masked mean over max(count, 1).
+
+    Placed (``place``, a ``Placement``): vocabulary-parallel on ``lm_head``
+    (``("fsdp", "vocab")``), the max, the sum of exponentials and the
+    label's logit each reduced over the model axis; ``count`` is the mask's
+    count over the whole batch (every data shard), so a rank's loss is its
+    rows' share of the global mean."""
     x = L.apply_norm(x, final_norm, cfg)
     B, S, D = x.shape
+    v0, group = 0, None
+    if place is not None:       # this rank's vocabulary rows
+        head, v0, group = _vocab_block(place, head)
     V = head.shape[-1]
+    labels = labels.long()
+    if group is not None:
+        x = C.copy_to(x, group)
+        labels = labels - v0
+        own = (labels >= 0) & (labels < V)
+        labels = labels.clamp(0, V - 1)
     chunk = min(chunk or cfg.loss_chunk, S)
     if S % chunk:
         chunk = S       # the reference's fallback (tiny configs)
-    vocab_ok = torch.arange(V, device=x.device) < cfg.vocab_size
-    labels = labels.long()
+    vocab_ok = torch.arange(v0, v0 + V, device=x.device) < cfg.vocab_size
     loss_mask = loss_mask.float()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
         xc = x[:, c0:c0 + chunk].reshape(-1, D)
-        logits = logits_f32(xc, head).reshape(B, -1, V)
+        logits = L.f32_product(xc, head).reshape(B, -1, V)
         logits = torch.where(vocab_ok, logits, -1e30)
-        lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+        if group is None:
+            lse = torch.logsumexp(logits, dim=-1)
+        else:
+            m = C.all_reduce(logits.detach().amax(-1), group, "max")
+            lse = m + torch.log(C.reduce_from(
+                torch.exp(logits - m[..., None]).sum(-1), group))
+            ll = C.reduce_from(torch.where(own[:, c0:c0 + chunk], ll, 0.0),
+                               group)
         mc = loss_mask[:, c0:c0 + chunk]
         tot = tot + ((lse - ll) * mc).sum()
         cnt = cnt + mc.sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(cnt if count is None else count, min=1.0)

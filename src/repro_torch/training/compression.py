@@ -10,6 +10,10 @@ so here the tensors of one reference leaf (``models.model.reference_leaf``)
 share one scale: the same bits.  Leaves of fewer than two dims in the
 reference (``final_norm``, ``enc_final_norm``) pass through.  ``period``:
 the layers of one period of the model's plan (``len(layer_plan(cfg))``).
+Over a process mesh (``place``, a ``sharding.Placement``) the gradients
+are this rank's blocks, and each leaf's scale takes its largest magnitude
+over every block of the leaf (one max over the mesh for all leaves), so
+the bits are the one-process step's.
 """
 from __future__ import annotations
 
@@ -30,9 +34,24 @@ def _leaves(grads: Tensors, period: int) -> List[List[str]]:
     return list(groups.values())
 
 
-def _scale(gfs: List[torch.Tensor]) -> torch.Tensor:
-    amax = torch.stack([g.abs().max() for g in gfs]).max()
+def _amax(gs: List[torch.Tensor]) -> torch.Tensor:
+    """The largest magnitude of a leaf's tensors, float32."""
+    return torch.stack([g.abs().max().float() for g in gs]).max()
+
+
+def _scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.clamp(amax, min=1e-12) / 127.0
+
+
+def _amaxes(leaves: List[List[torch.Tensor]], place
+            ) -> List[torch.Tensor]:
+    """Each leaf's largest magnitude (over the whole mesh with ``place``:
+    a max over every axis, which replicas do not change)."""
+    amax = [_amax(gfs) for gfs in leaves]
+    if place is None or not amax:
+        return amax
+    from repro_torch.distributed.collectives import all_reduce_over
+    return list(all_reduce_over(torch.stack(amax), place.mesh, op="max"))
 
 
 def _q(gf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -43,17 +62,18 @@ def _dq(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
 
 
-def compress_decompress(grads: Tensors, period: int = 1) -> Tensors:
+def compress_decompress(grads: Tensors, period: int = 1,
+                        place=None) -> Tensors:
     """Quantise then dequantise every gradient leaf of two or more dims
     (smaller leaves pass)."""
     out = dict(grads)
-    for names in _leaves(grads, period):
-        if reference_ndim(names[0], grads[names[0]]) < 2:
-            continue
-        gfs = [grads[n].float() for n in names]
-        s = _scale(gfs)
-        for n, gf in zip(names, gfs):
-            out[n] = _dq(_q(gf, s), s, grads[n].dtype)
+    groups = [names for names in _leaves(grads, period)
+              if reference_ndim(names[0], grads[names[0]]) >= 2]
+    amaxes = _amaxes([[grads[n] for n in names] for names in groups], place)
+    for names, amax in zip(groups, amaxes):
+        s = _scale(amax)
+        for n in names:
+            out[n] = _dq(_q(grads[n].float(), s), s, grads[n].dtype)
     return out
 
 
@@ -67,7 +87,7 @@ def compress_with_feedback(grads: Tensors, residual: Tensors,
                 res[n] = torch.zeros_like(grads[n], dtype=torch.float32)
             continue
         gfs = [grads[n].float() + residual[n] for n in names]
-        s = _scale(gfs)
+        s = _scale(_amax(gfs))
         for n, gf in zip(names, gfs):
             dq = _dq(_q(gf, s), s, torch.float32)
             out[n] = dq.to(grads[n].dtype)

@@ -14,6 +14,10 @@ and casts back to each weight's dtype, as there.  Two differences:
   parameters are stacked over the periods, so every per-layer norm scale,
   bias and Mamba vector is decayed there and here; only ``final_norm``
   and ``enc_final_norm`` are not (``models.model.reference_ndim``).
+
+Over a process mesh (``place``, a ``sharding.Placement``) the tensors are
+this rank's blocks: the update is elementwise on them, and the global norm
+sums every block once over the whole mesh (``global_norm``).
 """
 from __future__ import annotations
 
@@ -59,9 +63,20 @@ def lr_schedule(tcfg: TrainConfig, step: torch.Tensor,
     return tcfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree: Tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tree.values()))
+def global_norm(tree: Tensors, place=None) -> torch.Tensor:
+    """The square root of every tensor's sum of squares; ``place``: of
+    the blocks over the mesh, each block counted by one rank (the first
+    along the axes that replicate it) and the sums added over every
+    axis."""
+    if place is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in tree.values()))
+    from repro_torch.distributed.collectives import all_reduce_over
+    dev = next(iter(tree.values())).device
+    sq = sum((torch.sum(torch.square(t.float())) for n, t in tree.items()
+              if place.counted_here(n)),
+             torch.zeros((), dtype=torch.float32, device=dev))
+    return torch.sqrt(all_reduce_over(sq, place.mesh))
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float
@@ -73,13 +88,14 @@ def clip_by_global_norm(grads: Tensors, max_norm: float
 
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: AdamState, params: Tensors,
-                 tcfg: TrainConfig
+                 tcfg: TrainConfig, place=None
                  ) -> Tuple[Tensors, AdamState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place: returns (params, state, metrics) with the
     new weights written into ``params`` and the new moments into
     ``state.m`` / ``state.v``; ``state.step`` is replaced.  Metrics:
-    ``grad_norm`` (before clipping) and ``lr``."""
-    gn = global_norm(grads)
+    ``grad_norm`` (before clipping, over the whole mesh with ``place``)
+    and ``lr``."""
+    gn = global_norm(grads, place)
     # clip_by_global_norm's scale, applied leaf by leaf (no second copy of
     # the gradients)
     clip = (torch.clamp(tcfg.grad_clip / (gn + 1e-9), max=1.0)

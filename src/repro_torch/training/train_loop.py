@@ -9,7 +9,10 @@ it restores the latest checkpoint if there is one, then steps until
 weights are drawn from ``torch.Generator(device).manual_seed(dcfg.seed)``
 (the reference draws from ``PRNGKey(dcfg.seed)``; the two differ), so a
 run matches the reference step by step from the same weights, not from
-the same seed.
+the same seed.  Over a process mesh (``mesh=``, a ``ProcessMesh`` or a
+``ShardCtx`` over one; a dense model) every rank runs the loop on its
+blocks: the same global batches, checkpoints gathered whole (rank 0
+writes them) and restored onto whatever mesh the restart has.
 """
 from __future__ import annotations
 
@@ -23,11 +26,12 @@ from repro_torch.checkpoint.checkpointing import CheckpointManager, latest_step
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import P, not_ported
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build_model
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                  StragglerWatchdog)
-from repro_torch.training.optimizer import init_opt_state
+from repro_torch.training.optimizer import AdamState, init_opt_state
 
 
 @dataclass
@@ -46,21 +50,30 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
                  log_every: int = 10,
                  report: Optional[TrainReport] = None,
                  verbose: bool = True,
-                 device: DeviceLike = None) -> TrainReport:
+                 device: DeviceLike = None, mesh=None) -> TrainReport:
     """Train ``cfg`` on ``dcfg``'s stream on ``device`` (``cuda`` unless
-    the caller asks for the CPU).  A step's time runs from its batch to
-    its loss on the host (which waits for the device)."""
+    the caller asks for the CPU; over ``mesh``, this rank's device).  A
+    step's time runs from its batch to its loss on the host (which waits
+    for the device)."""
     report = report or TrainReport()
     dev = resolve_device(device)
     t0 = time.time()
-    model = build_model(cfg, device=dev).init(
+    if mesh is not None and cfg.family != "dense":
+        raise not_ported(cfg, "run_training")
+    model = build_model(cfg, device=dev, mesh=mesh).init(
         torch.Generator(device=dev).manual_seed(dcfg.seed)).trainable()
     params = model.params()
     opt_state = init_opt_state(params, cfg.opt_state_dtype)
+    place = model.placement
+    ckw = {}
+    if place is not None:
+        ckw = dict(mesh=place.mesh, shardings=(
+            place.specs, AdamState(P(), place.specs, place.specs)))
     start = 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     if mgr is not None and latest_step(ckpt_dir) is not None:
-        (saved, opt_state), extra = mgr.restore_latest((params, opt_state))
+        (saved, opt_state), extra = mgr.restore_latest((params, opt_state),
+                                                       **ckw)
         model.load_params(saved)
         start = int(extra["step"]) + 1
         report.restarts += 1
@@ -85,7 +98,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
             if watchdog.record(dt):
                 report.straggler_steps.append(step)
             if mgr is not None and (step + 1) % tcfg.checkpoint_every == 0:
-                mgr.save(step, (params, opt_state), {"step": step})
+                mgr.save(step, (params, opt_state), {"step": step}, **ckw)
             if verbose and step % log_every == 0:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
                       f"({dt*1000:.0f} ms)", flush=True)
@@ -97,7 +110,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
             mgr.wait()
     if mgr is not None:
         mgr.save(total_steps - 1, (params, opt_state),
-                 {"step": total_steps - 1}, blocking=True)
+                 {"step": total_steps - 1}, blocking=True, **ckw)
     report.wall_s = time.time() - t0
     return report
 

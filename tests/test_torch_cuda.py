@@ -355,7 +355,8 @@ def test_phase_kernel_launch_shapes_bitwise(dev, case, arrivals):
 from repro_torch.kernels.decode_attention import kernel as dec_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_ref, decode_attention_split_ref)
+    decode_attention_partials_ref, decode_attention_ref,
+    decode_attention_split_ref)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
@@ -548,6 +549,71 @@ def test_decode_attention_merge_is_fixed(dev, monkeypatch, split, dtype):
     want = decode_attention_split_ref(q.reshape(B * K, G, hd), kf, vf, rows,
                                       n_splits=-(-Smax // split))
     _close(outs[0].reshape(B * K, G, hd), want, dtype)
+
+
+@pytest.mark.parametrize("Smax", [256, 1024])     # one split, two splits
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_partial_mode(dev, Smax, dtype):
+    """K5's partial mode against ``decode_attention_partials_ref``: rows of
+    length 0 (o = 0, lse = -inf), 1, either side of a split boundary and
+    full; its o carries the merged output's float32 bits (rounded to the
+    output dtype, the normal launch's output); counted apart."""
+    rng = np.random.default_rng(Smax)
+    B, H, K, hd = 2, 32, 8, 128
+    q = _normal(rng, (B, H, hd), dtype, dev)
+    kc = _normal(rng, (B, K, Smax, hd), dtype, dev).transpose(1, 2)
+    vc = _normal(rng, (B, K, Smax, hd), dtype, dev).transpose(1, 2)
+    split = dec_kernel.SPLIT
+    lens = [0, 1, min(split, Smax), min(split + 1, Smax), Smax]
+    rows = torch.as_tensor([lens[i % len(lens)] for i in range(B * K)],
+                           dtype=torch.int32, device=dev)
+    before = (LAUNCHES[dec_kernel.NAME], LAUNCHES[dec_kernel.PARTIAL_NAME])
+    o, lse = dec_kernel.decode_attention_kernel(q, kc, vc, rows,
+                                                partial=True)
+    out = dec_kernel.decode_attention_kernel(q, kc, vc, rows)
+    torch.cuda.synchronize()
+    assert (LAUNCHES[dec_kernel.NAME], LAUNCHES[dec_kernel.PARTIAL_NAME]) \
+        == (before[0] + 1, before[1] + 1)
+    assert o.dtype == lse.dtype == torch.float32
+    G = H // K
+    kf = kc.permute(0, 2, 1, 3).reshape(B * K, Smax, hd).cpu()
+    vf = vc.permute(0, 2, 1, 3).reshape(B * K, Smax, hd).cpu()
+    want_o, want_lse = decode_attention_partials_ref(
+        q.reshape(B * K, G, hd).cpu(), kf, vf, rows.cpu())
+    o, lse = o.reshape(B * K, G, hd).cpu(), lse.reshape(B * K, G).cpu()
+    empty = rows.cpu() == 0
+    assert bool((lse[empty] == -float("inf")).all())
+    assert bool((o[empty] == 0).all())
+    _close(o, want_o, dtype)
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=2e-5,
+                               atol=2e-5)
+    out = out.reshape(B * K, G, hd).cpu()
+    assert torch.equal(o[~empty].to(dtype), out[~empty])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_partials_merge_to_the_whole(dev, dtype):
+    """A cache's positions split in four slices, each through the partial
+    mode (two slices holding no valid position), merged in slice order:
+    the whole cache's attention at the kernel tolerance."""
+    rng = np.random.default_rng(4)
+    B, H, K, hd, Smax, n = 2, 32, 8, 128, 2048, 4
+    q = _normal(rng, (B, 1, H, hd), dtype, dev)
+    kc = _normal(rng, (B, K, Smax, hd), dtype, dev)
+    vc = _normal(rng, (B, K, Smax, hd), dtype, dev)
+    pos = 700
+    Sl = Smax // n
+    parts = []
+    for s in range(n):
+        ln = min(max(pos + 1 - s * Sl, 0), Sl)
+        lengths = torch.full((B * K,), ln, dtype=torch.int32, device=dev)
+        parts.append(dec_ops.decode_attention_partials(
+            q, kc[:, :, s * Sl:(s + 1) * Sl].transpose(1, 2),
+            vc[:, :, s * Sl:(s + 1) * Sl].transpose(1, 2), lengths))
+    got = dec_ops.merge_partials(parts, dtype)
+    want = dec_ops.decode_attention(q, kc.transpose(1, 2),
+                                    vc.transpose(1, 2), pos)
+    _close(got, want, dtype)
 
 
 def test_attention_kernels_refuse_misaligned_rows(dev):

@@ -231,7 +231,14 @@ Phases (any failure raises and the script exits non-zero):
    one-process port on the card from the same draw: losses within 5e-2, each gradient's cosine at least
    0.99, each rank's weights a quarter of the whole but for the
    replicated norm scales; step ms a rank beside one process's (gloo's
-   host copies), peak memory and K3/K4 launches a rank;
+   host copies), peak memory and K3/K4 launches a rank.  The same step
+   for the MoE, SSM and hybrid families (``GSPMD_FAMILIES``): Qwen1.5-MoE
+   (sort dispatch) and Mamba2-1.3B at full width cut to 2 layers,
+   bfloat16, one step of 4 x 2,048 tokens over (2, 2); the tiny Jamba,
+   float32, 4 x 256 tokens: loss within 5e-2 (f32: 1e-4), cosines at
+   least 0.99, each rank's bytes its ``named_shardings`` blocks', tokens
+   whose top-k experts differ from one process's printed, K3/K4/K6/K7
+   launches a rank, and the same at (1, 1) over NCCL;
 37. the sequence-sharded decode: Llama-3-8B widths cut to 4 layers,
    bfloat16, a 2 x 512-token prompt and 8 greedy steps over (1, 4) (and
    (1, 1) over NCCL), each rank's caches its quarter of the positions,
@@ -242,7 +249,18 @@ Phases (any failure raises and the script exits non-zero):
    top-2 margin exceeds 5e-2, K5's partial mode against its plain twin on
    each rank (rows of length 0 included, timed beside
    ``_scaled_dot_product_efficient_attention`` with the log-sum-exp),
-   decode ms a step a rank, K5 launches a rank;
+   decode ms a step a rank, K5 launches a rank.  The families' decode
+   over (1, 4): Qwen1.5-MoE and Mamba2-1.3B a 2 x 512-token prompt and 8
+   steps (the MoE's steps through the dense dispatch, a rank's 16
+   experts), the tiny Jamba 2 x 64 and 4 steps: the same float32 gap
+   and token checks (Jamba: logits within 1e-4), Qwen1.5-MoE's largest
+   |logit - one-process logit| at most ``GSPMD_MOE_LOGIT_TOL`` (its
+   float32 twin routes otherwise, so the gap alone would let a dropped
+   expert pass), a limit the one-process decode with one expert dropped
+   must exceed, each rank's caches its
+   ``cache_shardings`` blocks (the Mamba state by heads, the conv windows
+   by channels, the attention caches by positions), K3-K7 launches a
+   rank, and the same at (1, 1) over NCCL;
 38. the elastic restart: phase 36's (2, 2) state after 2 steps saved
    (gathered whole onto rank 0, which writes), restored onto (1, 4) and
    (4, 1): parameters and moments bitwise (a 64-bit fingerprint of every
@@ -257,8 +275,9 @@ for K6 and K7; K1 and K2 with their launches on the mesh path: phase 28's
 ``cuda`` run for K1, its 8-shard K2 ticks for K2; K6 also at the EP
 buffer shape, ``moe_gmm:ep``, with its launches in phase 29's full-depth
 EP prefill; K1, K2 and K6 also with ``process_launches``, each rank's
-launches in phases 32-35, K3 and K4 with theirs in phase 36; K5's partial
-mode, ``decode_attention:partial``, with its launches in phase 37), the
+launches in phases 32-35, K3, K4, K6 and K7 with theirs in phases 36-37
+(the families' train steps and decode prefills); K5's partial mode,
+``decode_attention:partial``, with its launches in phase 37), the
 card's name and
 power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a
@@ -4161,6 +4180,417 @@ def _placed_decode(pm, ref):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-37 for the MoE, SSM and hybrid families (roadmap item 22b)
+
+# Qwen1.5-MoE and Mamba2-1.3B at full width cut to 2 layers, bfloat16: a
+# train step of 4 x 2,048 tokens over (2, 2), a 2 x 512-token prompt and 8
+# greedy steps over (1, 4); the tiny Jamba, float32, whose plan puts
+# attention, Mamba2 and MoE layers in one model: 4 x 256 tokens, a 2 x
+# 64-token prompt and 4 steps
+GSPMD_FAMILIES = {
+    "qwen2-moe-a2.7b": dict(layers=2, batch=4, seq=2048, prompt=512,
+                            steps=8),
+    "mamba2-1.3b": dict(layers=2, batch=4, seq=2048, prompt=512, steps=8),
+    "jamba-1.5-large-398b": dict(layers=None, batch=4, seq=256, prompt=64,
+                                 steps=4),
+}
+GSPMD_FAMILY_SEED = 43
+# Qwen1.5-MoE's sharded decode: its largest |logit - one-process bf16
+# logit| (0.0654 in sound runs on an H100: the row-parallel sums' rounding
+# and 17 of 2,080 routings that differ); the control, one process with one
+# expert dropped, must read above it
+GSPMD_MOE_LOGIT_TOL = 0.15
+GSPMD_FAMILY_TRAIN_MESH = (2, 2)
+GSPMD_FAMILY_DECODE_MESH = (1, 4)
+# the kernels these paths launch, by launch counter
+GSPMD_FAMILY_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+                        "decode_attention_partial", "moe_gmm", "ssd_scan")
+
+
+def _family_cfg(name):
+    """Full width cut to the family's layers (bfloat16), or the tiny
+    configuration (float32)."""
+    from repro_torch.config import get_config
+    from repro_torch.testing import tiny_config
+    layers = GSPMD_FAMILIES[name]["layers"]
+    if layers is None:
+        return tiny_config(name, dtype="float32")
+    return get_config(name).replace(num_layers=layers)
+
+
+def _family_batch(cfg, name):
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    spec = GSPMD_FAMILIES[name]
+    return batch_at(DataConfig(vocab_size=cfg.vocab_size,
+                               seq_len=spec["seq"],
+                               global_batch=spec["batch"]), 0)
+
+
+def _family_tols(cfg):
+    """(loss and logits tolerance, whether the model is float32)."""
+    f32 = cfg.dtype == "float32"
+    return (MODEL_F32_TOL if f32 else MODEL_BF16_TOL), f32
+
+
+def _gated_norms(cfg, remat):
+    """The RMSNorm kernel launches of one pass's gated norms (one a Mamba
+    layer, twice under remat): a placed model over a model axis above 1
+    runs them in plain PyTorch, each row's sum of squares summed over the
+    axis."""
+    from repro_torch.models.transformer import layer_kinds
+    n = sum(m == "mamba" for m, _ in layer_kinds(cfg))
+    return n * (2 if remat and cfg.remat else 1)
+
+
+class _Routes:
+    """Every MoE routing's expert ids (``moe.route``) while active."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as X
+        self.calls, self._orig = [], X.route
+
+        def recording(p, xf, cfg):
+            w, idx = self._orig(p, xf, cfg)
+            self.calls.append(idx.detach().cpu())
+            return w, idx
+        X.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as X
+        X.route = self._orig
+
+
+def _rerouted(calls, ref_calls):
+    """(tokens whose top-k expert set differs from the reference's,
+    tokens routed), over every routing call."""
+    diff = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+               for a, b in zip(calls, ref_calls))
+    return diff, sum(a.shape[0] for a in calls)
+
+
+def _launch_counts():
+    from repro_torch.kernels import LAUNCHES
+    return {n: LAUNCHES.get(n, 0) for n in GSPMD_FAMILY_KERNELS}
+
+
+def _forced_logits(model, prompt, toks):
+    """The float32 logits of ``prompt``'s prefill, then of each of the
+    teacher-forced ``toks`` (B, steps) decoded in turn."""
+    import torch
+    S, steps = prompt.shape[1], toks.shape[1]
+    dev = model.device
+    caches, lg = model.prefill(prompt.to(dev), max_seq=S + steps)
+    out = [lg.float().cpu()]
+    for t in range(steps):
+        caches, lg = model.decode(caches, toks[:, t:t + 1].to(dev), S + t)
+        out.append(lg.float().cpu())
+    return torch.cat(out, 1)
+
+
+def _dropped_expert(model, prompt, toks, step_routes, logits):
+    """The control of ``GSPMD_MOE_LOGIT_TOL``: the one-process decode,
+    teacher-forced as the sound run, with the expert its steps route most
+    copies to dropped (its ``wo`` zeroed in every MoE layer, then put
+    back): (that expert, its largest |logit - the sound run's logit|)."""
+    import torch
+    e = int(torch.cat([c.reshape(-1) for c in step_routes]).bincount()
+            .argmax())
+    wos = [layer.moe.wo for layer in model.layers
+           if getattr(layer, "moe", None) is not None]
+    with torch.no_grad():
+        kept = [w[e].clone() for w in wos]
+        for w in wos:
+            w[e].zero_()
+        got = _forced_logits(model, prompt, toks)
+        for w, k in zip(wos, kept):
+            w[e].copy_(k)
+    return e, float((got - logits).abs().max())
+
+
+def _family_reference(device, tmp, name):
+    """The one-process port on the card from the weights the ranks draw:
+    the train step's gradients (saved for the ranks' cosines), loss,
+    launches and routing; the greedy decode, its routing and launches,
+    and (bfloat16) the logits of the float32 model of the same weights,
+    teacher-forced the same way; a bfloat16 MoE model's control
+    (``_dropped_expert``)."""
+    import torch
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import global_norm
+    cfg = _family_cfg(name)
+    spec = GSPMD_FAMILIES[name]
+    model = build_model(cfg, device=device).init(torch.Generator(
+        device=device).manual_seed(GSPMD_FAMILY_SEED)).trainable()
+    params = model.params()
+    step = make_train_step(model, _gspmd_tcfg())
+    batch = _family_batch(cfg, name)
+    _sync(device)
+    reset_launches()
+    with _Routes() as routes:
+        t0 = time.perf_counter()
+        loss, grads = step.gradients(params, batch)
+        _sync(device)
+        grad_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    path = str(tmp / f"{name}-grads.pt")
+    torch.save({n: g.cpu() for n, g in grads.items()}, path)
+    ref = dict(grads_path=path, grad_loss=float(loss),
+               grad_norm=float(global_norm(grads)), grad_ms=grad_ms,
+               launches=launches, routes=routes.calls,
+               weights=sum(p.numel() * p.element_size()
+                           for p in params.values()))
+    del params, step, grads     # the weights stay as drawn: no update
+    _free()
+    B, S, steps = 2, spec["prompt"], spec["steps"]
+    prompt = torch.randint(1, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(38))
+    reset_launches()
+    with _Routes() as routes:
+        _sync(device)
+        t0 = time.perf_counter()
+        caches, logits = model.prefill(prompt.to(device), max_seq=S + steps)
+        _sync(device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = _launch_counts()
+        n_prefill = len(routes.calls)
+        reset_launches()
+        out, toks, dms = [logits.float().cpu()], [], []
+        for t in range(steps):
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok.cpu())
+            _sync(device)
+            t0 = time.perf_counter()
+            caches, logits = model.decode(caches, tok, S + t)
+            _sync(device)
+            dms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float().cpu())
+    step_launches = _launch_counts()
+    logits = torch.cat(out, 1)
+    toks = torch.cat(toks, 1)
+    del caches
+    logits32 = logits
+    control = None
+    if cfg.dtype != "float32":
+        if cfg.num_experts:
+            control = _dropped_expert(model, prompt, toks,
+                                      routes.calls[n_prefill:], logits)
+        f32 = build_model(cfg.replace(dtype="float32"), device=device)
+        f32.load_params({n: p.float() for n, p in model.params().items()})
+        del model
+        _free()
+        logits32 = _forced_logits(f32, prompt, toks)
+        model = f32
+    ref.update(prompt=prompt.numpy(), tokens=toks.numpy(),
+               logits=logits.numpy(), logits_f32=logits32.numpy(),
+               prefill_ms=prefill_ms, decode_ms=dms,
+               prefill_launches=prefill_launches,
+               step_launches=step_launches, decode_routes=routes.calls,
+               control=control,
+               bf16_err=float((logits - logits32).abs().max()),
+               logits_max=float(logits[..., :cfg.vocab_size].abs().max()))
+    del model
+    _free()
+    return ref
+
+
+def _placed_bytes(place, params):
+    """(this rank's bytes, the bytes ``named_shardings`` gives it, the
+    bytes of its blocks of tensors split over every axis, the whole of
+    those tensors' bytes)."""
+    import numpy as np
+    from repro_torch.distributed.sharding import block_index
+    mine = want = split = whole_split = 0
+    for n, p in params.items():
+        b = p.numel() * p.element_size()
+        whole = int(np.prod(place.full[n])) * p.element_size()
+        blocks = int(np.prod([block_index(e, place.mesh)[1]
+                              for e in place.specs[n]]))
+        mine += b
+        want += whole // blocks
+        if blocks == place.mesh.size:
+            split += b
+            whole_split += whole
+    return mine, want, split, whole_split
+
+
+def _draw_family(cfg, pm):
+    """The model placed over the process mesh ``pm``, each weight drawn
+    whole (the one-process model's draw) and cut to this rank's block,
+    every rank at once (a draw's largest float32 temporary, Qwen1.5-MoE's
+    embedding, is 1.2 GB)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, device=pm.device, mesh=pm).init(
+        torch.Generator(device=pm.device).manual_seed(GSPMD_FAMILY_SEED))
+    _sync(pm.device)
+    dist.barrier()
+    return model
+
+
+def _family_train(pm, ref, name):
+    """Phase 36 for one family in one rank: the gradients of the batch
+    (launches and routing recorded), their cosines to the one-process
+    port's, then the update; the rank's bytes beside its blocks'."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.optimizer import init_opt_state
+    cfg = _family_cfg(name)
+    model = _draw_family(cfg, pm).trainable()
+    place = model.placement
+    params = model.params()
+    mine, want, split, whole_split = _placed_bytes(place, params)
+    step = make_train_step(model, _gspmd_tcfg())
+    batch = _family_batch(cfg, name)
+    _peak(pm.device, reset=True)
+    dist.barrier()
+    _sync(pm.device)
+    reset_launches()
+    with _Routes() as routes:
+        t0 = time.perf_counter()
+        loss, grads = step.gradients(params, batch)
+        _sync(pm.device)
+        grad_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    cos = _grad_cosines(grads, place, ref["grads_path"])
+    state = init_opt_state(params, cfg.opt_state_dtype)
+    params, state, m = step.apply(params, state, loss, grads)
+    out = dict(rank=pm.rank, coords=list(pm.coords), grad_loss=float(loss),
+               grad_norm=float(m["grad_norm"]), grad_ms=grad_ms,
+               launches=launches,
+               cosines=cos, weights=mine, expected=want, split=split,
+               whole_split=whole_split,
+               rerouted=_rerouted(routes.calls, ref["routes"]),
+               peak=_peak(pm.device))
+    del model, params, state, step, grads
+    _free()
+    return out
+
+
+def _family_decode(pm, ref, name):
+    """Phase 37 for one family in one rank: the model placed over ``pm``,
+    the prompt prefilled into caches of prompt + steps positions (this
+    rank's blocks of them), then the one-process port's greedy tokens
+    decoded (teacher-forced, so every step's logits are comparable)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import block_shape
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import cache_shardings
+    cfg = _family_cfg(name)
+    model = _draw_family(cfg, pm)
+    prompt = torch.as_tensor(ref["prompt"]).to(pm.device)
+    forced = torch.as_tensor(ref["tokens"]).to(pm.device)
+    S, steps = prompt.shape[1], forced.shape[1]
+    _peak(pm.device, reset=True)
+    dist.barrier()
+    _sync(pm.device)
+    reset_launches()
+    ms = []
+    with _Routes() as routes:
+        t0 = time.perf_counter()
+        caches, logits = model.prefill(prompt, max_seq=S + steps)
+        _sync(pm.device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = _launch_counts()
+        reset_launches()
+        out = [logits.float().cpu()]
+        for t in range(steps):
+            _sync(pm.device)
+            t0 = time.perf_counter()
+            caches, logits = model.decode(caches, forced[:, t:t + 1], S + t)
+            _sync(pm.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float().cpu())
+    step_launches = _launch_counts()
+    got = torch.cat(out, dim=1)
+    want = torch.as_tensor(ref["logits"])
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > GSPMD_MARGIN
+    same = got.argmax(-1) == want.argmax(-1)
+    full = model.cache_spec(prompt.shape[0], S + steps)
+    specs = cache_shardings(model.shard_ctx, full,
+                            seq_axes=model.shard_ctx.seq_axes)
+    res = dict(rank=pm.rank, prefill_ms=prefill_ms, step_ms=ms,
+               prefill_launches=prefill_launches,
+               step_launches=step_launches,
+               caches={k: tuple(c.shape) for k, c in caches.items()},
+               caches_ok=all(tuple(c.shape) == block_shape(
+                   full[k].shape, specs[k], pm) for k, c in caches.items()),
+               max_abs_err=float((got - want).abs().max()),
+               f32_err=float((got - torch.as_tensor(ref["logits_f32"]))
+                             .abs().max()),
+               finite=bool(torch.isfinite(got).all()),
+               tokens_compared=int(sure.sum()),
+               tokens_same=bool(same[sure].all()),
+               rerouted=_rerouted(routes.calls, ref["decode_routes"]),
+               weights=sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+               peak=_peak(pm.device))
+    del model, caches
+    _free()
+    return res
+
+
+def _family_nccl(device, pm, ref, name):
+    """One family at (1, 1) over NCCL in this process: the gradients'
+    loss, cosines and launches, and the teacher-forced decode's logits,
+    against the one-process port."""
+    import torch
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import layer_kinds
+    cfg = _family_cfg(name)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, mesh=pm).init(torch.Generator(
+        device=device).manual_seed(GSPMD_FAMILY_SEED)).trainable()
+    step = make_train_step(model, _gspmd_tcfg())
+    reset_launches()
+    loss, grads = step.gradients(model.params(), _family_batch(cfg, name))
+    launches = _launch_counts()
+    cos = _grad_cosines(grads, model.placement, ref["grads_path"])
+    del grads, step             # the weights stay as drawn: no update
+    _free()
+    prompt = torch.as_tensor(ref["prompt"]).to(device)
+    forced = torch.as_tensor(ref["tokens"]).to(device)
+    S, steps = prompt.shape[1], forced.shape[1]
+    caches, logits = model.prefill(prompt, max_seq=S + steps)
+    reset_launches()
+    out = [logits.float().cpu()]
+    for t in range(steps):
+        caches, logits = model.decode(caches, forced[:, t:t + 1], S + t)
+        out.append(logits.float().cpu())
+    step_launches = _launch_counts()
+    err = float((torch.cat(out, 1) - torch.as_tensor(ref["logits"]))
+                .abs().max())
+    del model, caches
+    _free()
+    worst = min(cos, key=cos.get)
+    tol, _ = _family_tols(cfg)
+    log(f"[gspmd_nccl {name}] (1, 1) over {pm.backend}: gradients' loss "
+        f"{float(loss):.6f} (one process {ref['grad_loss']:.6f}); worst "
+        f"gradient cosine {worst} {cos[worst]:.6f}; launches {launches} "
+        f"(one process {ref['launches']}); decode logits max_abs_err "
+        f"{err} (tolerance {tol}); {steps} steps' launches {step_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_attn = sum(m == "attn" for m, _ in layer_kinds(cfg))
+    card = device.type == "cuda"
+    if (abs(float(loss) - ref["grad_loss"]) > tol
+            or cos[worst] < GRAD_COSINE_MIN or launches != ref["launches"]
+            or err > tol or step_launches["decode_attention_partial"]
+            != n_attn * steps * card):
+        raise AssertionError(f"[gspmd_nccl {name}] the (1, 1) step or "
+                             "decode differs from the one-process port")
+    return {"train": launches, "decode": step_launches}
+
+
 def _rank_gspmd(ref):
     """Everything a rank of phases 36-38's 4-rank world runs (gloo, every
     rank on cuda:0)."""
@@ -4192,6 +4622,21 @@ def _rank_gspmd(ref):
                            device=device)
     out["decode"] = _placed_decode(pm, ref)
     out["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = init_process_mesh(GSPMD_FAMILY_TRAIN_MESH, GSPMD_AXES,
+                              backend="gloo", device=device)
+    decode = init_process_mesh(GSPMD_FAMILY_DECODE_MESH, GSPMD_AXES,
+                               backend="gloo", device=device)
+    out["families"] = {}
+    for name in GSPMD_FAMILIES:
+        fref = ref["families"][name]
+        t1 = time.perf_counter()
+        fam = out["families"][name] = {"train": _family_train(train, fref,
+                                                              name)}
+        t2 = time.perf_counter()
+        fam["decode"] = _family_decode(decode, fref, name)
+        fam["s"] = (t2 - t1, time.perf_counter() - t2)
+    out["families_s"] = time.perf_counter() - t0
     dist.barrier()
     return out
 
@@ -4287,6 +4732,11 @@ def _gspmd_reference(device, tmp):
                bf16_err=float((logits - logits32).abs().max()))
     del f32, caches
     _free()
+    ref["families"] = {}
+    for name in GSPMD_FAMILIES:
+        t0 = time.perf_counter()
+        ref["families"][name] = _family_reference(device, tmp, name)
+        ref["families"][name]["ref_s"] = time.perf_counter() - t0
     return ref
 
 
@@ -4356,9 +4806,12 @@ def phase_gspmd_nccl(device, ref):
             if err > MODEL_BF16_TOL or k5p != want:
                 raise AssertionError("[gspmd_nccl] the (1, 1) decode differs "
                                      "or K5's partial mode did not launch")
+            families = {name: _family_nccl(device, pm, ref["families"][name],
+                                           name)
+                        for name in GSPMD_FAMILIES}
         finally:
             dist.destroy_process_group()
-    return {"train": launches, "decode_partial": k5p}
+    return {"train": launches, "decode_partial": k5p, "families": families}
 
 
 def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name):
@@ -4426,6 +4879,137 @@ def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name):
                + 4 * (q.numel() + B * H) + 4 * B * K)
     t = _timed(tag, launch, plain, library, n_bytes=n_bytes)
     return dict(t, max_abs_err=err)
+
+
+def _check_gspmd_families(world, ref, nccl, launches, card):
+    """Phases 36 and 37 for the MoE, SSM and hybrid families: each rank's
+    train step at ``GSPMD_FAMILY_TRAIN_MESH`` and decode at
+    ``GSPMD_FAMILY_DECODE_MESH`` held to the one-process port (bfloat16:
+    loss within 5e-2, gradient cosines at least 0.99, the decode's
+    largest |logit - float32 logit| at most ``GSPMD_F32_GAP`` times the
+    one-process port's, tokens identical where the top-2 margin exceeds
+    5e-2, and an MoE model's largest |logit - one-process logit| at most
+    ``GSPMD_MOE_LOGIT_TOL``, which its control must exceed; float32: loss
+    and logits within 1e-4), each rank's weights and
+    caches its blocks under ``named_shardings`` and ``cache_shardings``,
+    and each kernel's launches a rank; adds those launches to
+    ``launches`` and returns K5's partial-mode launches."""
+    from repro_torch.models.transformer import layer_kinds
+    partial = {}
+    for n in ("moe_gmm", "ssd_scan"):
+        launches[n] = {}
+    log(f"[gspmd_families] world {world[0]['families_s']:.1f} s: " + ", ".join(
+        f"{name} train {world[0]['families'][name]['s'][0]:.1f} s, decode "
+        f"{world[0]['families'][name]['s'][1]:.1f} s"
+        for name in GSPMD_FAMILIES))
+    for name, spec in GSPMD_FAMILIES.items():
+        fref = ref["families"][name]
+        cfg = _family_cfg(name)
+        tol, f32 = _family_tols(cfg)
+        n_attn = sum(m == "attn" for m, _ in layer_kinds(cfg))
+        split = GSPMD_FAMILY_TRAIN_MESH[1] > 1
+        want = dict(fref["launches"])
+        want["rmsnorm"] -= _gated_norms(cfg, True) * split * card
+        log(f"[gspmd_ref {name}] one process: gradients {fref['grad_ms']:.3f}"
+            f" ms, loss {fref['grad_loss']:.6f}, launches "
+            f"{fref['launches']}; prefill {fref['prefill_ms']:.3f} ms, "
+            f"decode ms {[round(x, 3) for x in fref['decode_ms']]}, "
+            f"launches {fref['prefill_launches']} then "
+            f"{fref['step_launches']}; |logit - float32 logit| "
+            f"{fref['bf16_err']}; {fref['ref_s']:.1f} s")
+        for w in world:
+            r = w["families"][name]["train"]
+            worst = min(r["cosines"], key=r["cosines"].get)
+            log(f"[gspmd_train {name} {GSPMD_FAMILY_TRAIN_MESH}] rank "
+                f"{r['rank']} {tuple(r['coords'])}: gradients' loss "
+                f"{r['grad_loss']:.6f} (one process {fref['grad_loss']:.6f})"
+                f", the update's gradient norm {r['grad_norm']:.6f} (one "
+                f"process {fref['grad_norm']:.6f}); worst cosine {worst} "
+                f"{r['cosines'][worst]:.6f}; gradients "
+                f"{r['grad_ms']:.3f} ms (one process {fref['grad_ms']:.3f};"
+                f" gloo host copies); weights {r['weights']} bytes "
+                f"(named_shardings' blocks {r['expected']}), "
+                f"{r['weights'] / fref['weights']:.6f} of the whole, its "
+                f"blocks of the tensors split over both axes "
+                f"{r['split']} of {r['whole_split']}; tokens rerouted "
+                f"{r['rerouted'][0]} of {r['rerouted'][1]}; launches "
+                f"{r['launches']} (want {want}); peak {r['peak']}")
+            if (abs(r["grad_loss"] - fref["grad_loss"]) > tol
+                    or r["cosines"][worst] < GRAD_COSINE_MIN
+                    or r["weights"] != r["expected"]
+                    or 4 * r["split"] != r["whole_split"]
+                    or r["launches"] != want):
+                raise AssertionError(f"[gspmd_train {name}] rank "
+                                     f"{r['rank']} differs from the "
+                                     f"one-process port")
+        for n in launches:
+            launches[n][f"GSPMD {name} train step gradients "
+                        f"{GSPMD_FAMILY_TRAIN_MESH}, gloo, per rank"] = [
+                w["families"][name]["train"]["launches"][n] for w in world]
+        steps = spec["steps"]
+        f32_tol = tol if f32 else GSPMD_F32_GAP * fref["bf16_err"]
+        port_tol = math.inf
+        if fref["control"] is not None:
+            port_tol = GSPMD_MOE_LOGIT_TOL
+            expert, control = fref["control"]
+            log(f"[gspmd_ref {name}] control: one process with expert "
+                f"{expert} dropped in every MoE layer: |logit - one-process "
+                f"logit| {control} (the sharded decode's limit {port_tol})")
+            if control <= port_tol:
+                raise AssertionError(f"[gspmd_ref {name}] the decode's limit "
+                                     f"does not see one expert dropped")
+        split = GSPMD_FAMILY_DECODE_MESH[1] > 1
+        want_prefill = dict(fref["prefill_launches"])
+        want_prefill["rmsnorm"] -= _gated_norms(cfg, False) * split * card
+        want_steps = dict(fref["step_launches"])
+        want_steps["rmsnorm"] -= (_gated_norms(cfg, False) * steps * split
+                                  * card)
+        want_steps["decode_attention_partial"] = n_attn * steps * card
+        want_steps["decode_attention"] = 0
+        for w in world:
+            r = w["families"][name]["decode"]
+            log(f"[gspmd_decode {name} {GSPMD_FAMILY_DECODE_MESH}] rank "
+                f"{r['rank']}: caches {r['caches']} (cache_shardings' "
+                f"blocks {r['caches_ok']}); prefill {r['prefill_ms']:.3f} ms"
+                f" (one process {fref['prefill_ms']:.3f}); decode ms a step "
+                f"{[round(x, 3) for x in r['step_ms']]} (one process "
+                f"{[round(x, 3) for x in fref['decode_ms']]}; gloo host "
+                f"copies); logits max_abs_err {r['max_abs_err']} (held to "
+                f"{port_tol}; |logit| up to {fref['logits_max']:.3f}); to the "
+                f"float32 model "
+                f"{r['f32_err']} (held to {f32_tol}); tokens same where the "
+                f"margin > {GSPMD_MARGIN} ({r['tokens_compared']} of "
+                f"{2 * (steps + 1)}) {r['tokens_same']}; tokens rerouted "
+                f"{r['rerouted'][0]} of {r['rerouted'][1]}; launches prefill "
+                f"{r['prefill_launches']} (want {want_prefill}), {steps} "
+                f"steps {r['step_launches']} (want {want_steps}); peak "
+                f"{r['peak']}")
+            bad = (r["f32_err"] > f32_tol or not r["tokens_same"]
+                   or r["max_abs_err"] > port_tol)
+            if (bad or not r["finite"] or not r["caches_ok"]
+                    or r["step_launches"] != want_steps
+                    or r["prefill_launches"] != want_prefill):
+                raise AssertionError(f"[gspmd_decode {name}] rank "
+                                     f"{r['rank']} differs from the "
+                                     f"one-process port or its launches "
+                                     f"are off")
+        for n in launches:
+            launches[n][f"GSPMD {name} decode {GSPMD_FAMILY_DECODE_MESH}, "
+                        f"prefill and {steps} steps, gloo, per rank"] = [
+                w["families"][name]["decode"]["prefill_launches"][n]
+                + w["families"][name]["decode"]["step_launches"][n]
+                for w in world]
+        partial[f"GSPMD {name} decode {GSPMD_FAMILY_DECODE_MESH}, {steps} "
+                f"steps, gloo, per rank"] = [
+            w["families"][name]["decode"]["step_launches"][
+                "decode_attention_partial"] for w in world]
+        fam = nccl["families"][name]
+        for n in launches:
+            launches[n][f"GSPMD {name} train step gradients (1, 1), "
+                        f"NCCL"] = fam["train"][n]
+        partial[f"GSPMD {name} decode (1, 1), {steps} steps, NCCL"] = \
+            fam["decode"]["decode_attention_partial"]
+    return partial
 
 
 def phase_gspmd(device, tmp):
@@ -4560,6 +5144,8 @@ def phase_gspmd(device, tmp):
             raise AssertionError(f"[gspmd_decode] rank {r['rank']} differs "
                                  f"from the one-process port or its "
                                  f"launches are off")
+    partial_launches = _check_gspmd_families(world, ref, nccl, launches,
+                                             card)
     cfg = _gspmd_cfg(layers)
     Sl = world[0]["decode"]["cache_positions"]
     entry = _kernel_entry("decode_attention", _check_decode_partial(
@@ -4573,8 +5159,8 @@ def phase_gspmd(device, tmp):
             [w["decode"]["step_launches"]["decode_attention_partial"]
              for w in world],
         f"sequence-sharded decode (1, 1), {steps} steps, NCCL":
-            nccl["decode_partial"]}
-    for n in launches:
+            nccl["decode_partial"], **partial_launches}
+    for n in nccl["train"]:
         launches[n]["GSPMD train step gradients (1, 1), NCCL"] = \
             nccl["train"][n]
     return entry, launches

@@ -30,6 +30,12 @@ The sharded model's collectives carry gradients (``torch.autograd``):
   identity (a row-parallel product's partial sums, or a vocabulary-
   parallel lookup, after which every rank computes the same function).
 
+``all_to_all`` and ``all_gather`` carry gradients too (the EP dispatch
+of a trained model): the tiled ``all_to_all`` is its own adjoint, and the
+``all_gather``'s result is used alike on every rank after it (as a
+``reduce_from``'s is), so its backward keeps this rank's block of the
+gradient, unsummed.
+
 ``all_reduce(x, group, op)`` (sum or max, no gradient) serves counts,
 norms and metrics; ``all_reduce_over(x, mesh, axes, op)`` reduces over
 several axes of a ``ProcessMesh``, one after the other (over every axis:
@@ -169,13 +175,36 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return all_gather_in(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = _dist().get_rank(ctx.group)
+        return g[r * ctx.rows:(r + 1) * ctx.rows], None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all_in(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_in(g, ctx.group), None
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=0, tiled=True)`` over ``mesh``'s
-    ``axis`` (a ``ProcessMesh``)."""
-    return all_gather_in(x, mesh.group(axis))
+    ``axis`` (a ``ProcessMesh``); its backward keeps this rank's block."""
+    return _AllGather.apply(x, mesh.group(axis))
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``jax.lax.all_to_all(x, axis, 0, 0, tiled=True)`` over ``mesh``'s
-    ``axis`` (a ``ProcessMesh``)."""
-    return all_to_all_in(x, mesh.group(axis))
+    ``axis`` (a ``ProcessMesh``); its backward is the same exchange."""
+    return _AllToAll.apply(x, mesh.group(axis))

@@ -34,7 +34,11 @@ model's share, ``sharding.shard_params``) in one ``(E_local, C2, D)``
 buffer, and the ``all_to_all``s and the ``all_gather`` as collectives
 between the processes (``distributed/collectives.py``).  Every step is
 per position, so its output equals the one-process body's rows of that
-data shard bit for bit.
+data shard bit for bit.  A placed model (``build_model(cfg, mesh=pm,
+expert_share=False)``) runs the same body on its placed expert share: the
+experts' FSDP dim gathered over the data axes first (the reference's
+``w_expert = P(model, None, None)`` inside the ``shard_map``), the router
+gathered too, and the whole layer under its own context.
 
 A copy that overflows its destination's capacity is dropped, and only it
 (the reference's documented contract).  The reference's own body writes
@@ -51,6 +55,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import current_ctx
+from repro_torch.models import layers as L
 from repro_torch.models import moe as X
 from repro_torch.models.layers import padded_experts
 
@@ -86,7 +91,8 @@ def moe_apply_ep(p: X.MoE, x: torch.Tensor, cfg: ModelConfig
     context or a model axis, with ``E % n`` or ``(B * S) % (n * nd)``, it
     runs ``moe_apply_sort``, as the reference does.  Over a process mesh
     ``x`` is this rank's data shard and the result is too."""
-    ctx = current_ctx()
+    placed = getattr(p, "placed", None)
+    ctx = current_ctx() if placed is None else placed[0].ctx
     if ctx is None or ctx.model_axis is None:
         return X.moe_apply_sort(p, x, cfg)
     mesh = ctx.mesh
@@ -138,7 +144,9 @@ def _rank_body(p: X.MoE, x: torch.Tensor, cfg: ModelConfig, ctx, n: int,
     mesh, ax = ctx.mesh, ctx.model_axis
     Tc = B * S // n
     r = ctx.model_rank
-    xc = x.reshape(B * S, D)[r * Tc:(r + 1) * Tc].unsqueeze(0)
+    # placed: each rank's gradient covers its own tokens, summed here
+    xr = L.copy_to(x, L.tp_group(p))
+    xc = xr.reshape(B * S, D)[r * Tc:(r + 1) * Tc].unsqueeze(0)
 
     def exchange(t):
         return all_to_all(t.reshape((-1,) + t.shape[3:]), mesh, ax

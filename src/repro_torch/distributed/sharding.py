@@ -24,10 +24,13 @@ Over a ``ProcessMesh`` (one process a position) the specs place: a rank
 holds ``local_block`` of each tensor, the blocks laid as ``NamedSharding``
 lays them (a dim over several axes split row-major over them), and
 ``gather_block`` puts a tensor back together on every rank
-(``gather_whole`` on one).  ``Placement`` is a dense model's map of every
-parameter to its spec (``named_shardings``), and ``shard_params`` cuts a
-full parameter set to this rank's blocks (the MoE family: its experts
-only, as before).
+(``gather_whole`` on one).  ``Placement`` is a model's map of every
+parameter to its spec (``named_shardings``; the dense, MoE, SSM and
+hybrid families, ``places``), and ``shard_params`` cuts a full parameter
+set to this rank's blocks.  An MoE model that keeps the expert share
+(``expert_share``, by default with ``moe_impl="ep"``) holds instead its
+experts cut to the rank's (``expert_rows``), every other tensor
+replicated.
 """
 from __future__ import annotations
 
@@ -280,6 +283,34 @@ def named_shardings(ctx: ShardCtx, params: Dict[str, Any], period: int
     return out
 
 
+def cache_shardings(ctx: ShardCtx, cache_spec: Dict[str, Any],
+                    seq_axes=None) -> Dict[str, P]:
+    """Decode caches (``Model.cache_spec``'s layout): batch -> (pod, data);
+    the attention KV's sequence dim -> model (+ pod where the batch cannot
+    use it, e.g. long_500k's B = 1); Mamba heads and channels -> model.
+    The reference's rules; its KV caches are ``(n, B, S, K, hd)``, the
+    port's ``(n, B, K, S, hd)``, so the sequence entry sits one dim later
+    here."""
+    b = ctx.logical("batch")
+    m = ctx.logical("model")
+    seq = seq_axes if seq_axes is not None else m
+    out = {}
+    for name, leaf in cache_spec.items():
+        nd = leaf.dim()
+        if name in ("k", "v"):            # (n, B, K, S, hd)
+            spec = [None] * (nd - 4) + [b, None, seq, None]
+        elif name in ("xk", "xv"):        # (n, B, K, F, hd): cross KV, small
+            spec = [None] * (nd - 4) + [b, None, None, None]
+        elif name == "ssm":               # (n, B, H, N, P)
+            spec = [None] * (nd - 4) + [b, m, None, None]
+        elif name.startswith("conv"):     # (n, B, k - 1, C)
+            spec = [None] * (nd - 3) + [b, None, m]
+        else:
+            spec = [None] * nd
+        out[name] = _fit(ctx, spec, leaf.shape)
+    return out
+
+
 _EXPERT_WEIGHT = re.compile(r"(^|\.)moe\.w[igo]$")
 
 
@@ -435,26 +466,47 @@ class Placement:
                    for a in self.replicated_axes(name))
 
 
+# the families whose models a process mesh places (roadmap item 22b adds
+# the encoder-decoder and the VLM)
+PLACED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def not_ported(cfg, what: str):
     """The error of a family whose sharded path is not ported."""
     return NotImplementedError(
         f"{cfg.name} ({cfg.family} family): {what} over a process mesh with "
-        f"a data or model axis above 1 is item 22b of the roadmap (only "
-        f"the dense family, and the MoE family's expert share, run there)")
+        f"a data or model axis above 1 is item 22b of the roadmap (the "
+        f"{', '.join(PLACED_FAMILIES)} families run there)")
 
 
-def shard_params(params: Dict[str, torch.Tensor], mesh, cfg=None
+def places(cfg, mesh, expert_share: Optional[bool] = None) -> bool:
+    """Whether ``mesh`` (a ``ProcessMesh``, or a ``ShardCtx`` over any
+    mesh) places ``cfg``'s model by ``named_shardings``: a process mesh
+    and a family of ``PLACED_FAMILIES``, but not an MoE model that keeps
+    the expert share (``expert_share``; by default, ``None``, the models
+    with ``moe_impl="ep"``)."""
+    ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
+    if not ctx.process or cfg.family not in PLACED_FAMILIES:
+        return False
+    if expert_share is None:
+        expert_share = cfg.moe_impl == "ep"
+    return not (cfg.family == "moe" and expert_share)
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh, cfg=None,
+                 expert_share: Optional[bool] = None
                  ) -> Dict[str, torch.Tensor]:
     """This rank's share of a full parameter set over a process ``mesh``
-    (or a ``ShardCtx`` over one).  A dense model (``cfg`` of the dense
-    family): every tensor's ``local_block`` under ``named_shardings``.
-    Otherwise (no ``cfg``, or the MoE family) each MoE layer's ``wi``,
-    ``wg`` and ``wo`` cut to the rank's experts, every other tensor as it
-    is (replicated).  Blocks are copies, so the full tensors can be
-    freed."""
+    (or a ``ShardCtx`` over one).  With a ``cfg`` that ``mesh`` places
+    (``places(cfg, mesh, expert_share)``): every tensor's ``local_block``
+    under ``named_shardings``.  Otherwise (no ``cfg``, or the expert
+    share) each MoE layer's ``wi``, ``wg`` and ``wo`` cut to the rank's
+    experts, every other tensor as it is (replicated).  Blocks are
+    copies, so the full tensors can be freed."""
     ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
-    if cfg is not None and cfg.family == "dense":
-        place = Placement(ctx, params, 1)
+    if cfg is not None and places(cfg, mesh, expert_share):
+        from repro_torch.models.transformer import layer_plan
+        place = Placement(ctx, params, len(layer_plan(cfg)))
         return {n: place.local(n, t) for n, t in params.items()}
     if cfg is not None and cfg.family != "moe" and ctx.sharded:
         raise not_ported(cfg, "shard_params")

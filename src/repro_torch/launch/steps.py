@@ -27,8 +27,9 @@ import torch
 
 from repro_torch.config import ShapeConfig, TrainConfig
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (P, ShardCtx, _axis_size, _fit,
-                                              block_index, named_shardings)
+from repro_torch.distributed.sharding import (P, ShardCtx, _axis_size,
+                                              block_index, cache_shardings,
+                                              named_shardings)
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.model import Model
@@ -171,34 +172,6 @@ def batch_shardings(ctx: ShardCtx, batch_spec: Dict[str, Any]
         if leaf.shape[0] % _axis_size(ctx, b) != 0:
             spec[0] = None
         out[name] = P(*spec)
-    return out
-
-
-def cache_shardings(ctx: ShardCtx, cache_spec: Dict[str, Any],
-                    seq_axes=None) -> Dict[str, P]:
-    """Decode caches (``Model.cache_spec``'s layout): batch -> (pod, data);
-    the attention KV's sequence dim -> model (+ pod where the batch cannot
-    use it, e.g. long_500k's B = 1); Mamba heads and channels -> model.
-    The reference's rules; its KV caches are ``(n, B, S, K, hd)``, the
-    port's ``(n, B, K, S, hd)``, so the sequence entry sits one dim later
-    here."""
-    b = ctx.logical("batch")
-    m = ctx.logical("model")
-    seq = seq_axes if seq_axes is not None else m
-    out = {}
-    for name, leaf in cache_spec.items():
-        nd = leaf.dim()
-        if name in ("k", "v"):            # (n, B, K, S, hd)
-            spec = [None] * (nd - 4) + [b, None, seq, None]
-        elif name in ("xk", "xv"):        # (n, B, K, F, hd): cross KV, small
-            spec = [None] * (nd - 4) + [b, None, None, None]
-        elif name == "ssm":               # (n, B, H, N, P)
-            spec = [None] * (nd - 4) + [b, m, None, None]
-        elif name.startswith("conv"):     # (n, B, k - 1, C)
-            spec = [None] * (nd - 3) + [b, None, m]
-        else:
-            spec = [None] * nd
-        out[name] = _fit(ctx, spec, leaf.shape)
     return out
 
 

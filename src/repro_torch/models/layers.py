@@ -15,10 +15,11 @@ storage and products in the model dtype, norms, RoPE angles and softmax in
 float32.  On one device the reference's ``shard()`` constraints place
 nothing (``distributed/sharding.py``), so the layers do not call it.
 
-Over a process mesh (a dense model built with ``mesh=``: each module's
+Over a process mesh (a model built with ``mesh=``: each module's
 ``placed`` names its ``sharding.Placement``) the projections are
-tensor-parallel over the model axis, Megatron's way: ``wq``, ``wk``,
-``wv``, ``mlp.wi`` and ``mlp.wg`` column-parallel behind
+tensor-parallel over the model axis, Megatron's way (``col``, ``row``,
+``copy_to`` and ``reduce_from`` serve the MoE and Mamba layers too):
+``wq``, ``wk``, ``wv``, ``mlp.wi`` and ``mlp.wg`` column-parallel behind
 ``collectives.copy_to`` (their gradient of the replicated input is
 partial per rank), ``wo`` and ``mlp.wo`` row-parallel followed by
 ``collectives.reduce_from``; each weight's FSDP dim gathered over the data
@@ -194,11 +195,11 @@ def model_group(ctx):
             ctx.mesh.group(ctx.model_axis))
 
 
-def _copy_to(x, group):
+def copy_to(x, group):
     return x if group is None else C.copy_to(x, group)
 
 
-def _reduce_from(x, group):
+def reduce_from(x, group):
     return x if group is None else C.reduce_from(x, group)
 
 
@@ -214,15 +215,27 @@ def kv_heads(cfg: ModelConfig, n: int, r: int) -> Tuple[int, int]:
 
 
 def check_tensor_parallel(cfg: ModelConfig, n: int) -> None:
-    """The head and width splits the tensor-parallel layers take."""
+    """The head and width splits the tensor-parallel layers take: the
+    attention heads, ``d_ff`` and the padded vocabulary; the MoE family's
+    padded experts and shared-expert width; the Mamba heads and state
+    width (``in_proj_x`` splits whole heads, ``conv_b``/``conv_c`` the
+    state columns).  A split that does not divide raises (the reference
+    replicates such a dim: roadmap item 22b)."""
     H, K = cfg.num_heads, cfg.num_kv_heads
+    E = padded_experts(cfg.num_experts) if cfg.num_experts else 0
+    Fs = cfg.num_shared_experts * (cfg.d_ff_expert or cfg.d_ff)
+    Hs = cfg.ssm_heads if cfg.ssm_state else 0
+    N = cfg.ssm_state
     if H % n or (K % n and n % K) or cfg.d_ff % n \
-            or padded_vocab(cfg.vocab_size) % n:
+            or padded_vocab(cfg.vocab_size) % n or E % n or Fs % n \
+            or Hs % n or N % n:
         raise ValueError(
-            f"{cfg.name}: {H} heads, {K} KV heads, d_ff {cfg.d_ff} and the "
-            f"padded vocabulary {padded_vocab(cfg.vocab_size)} do not split "
-            f"over a model axis of {n} (heads and widths divisible by it, "
-            f"KV heads divisible by it or dividing it)")
+            f"{cfg.name}: {H} heads, {K} KV heads, d_ff {cfg.d_ff}, the "
+            f"padded vocabulary {padded_vocab(cfg.vocab_size)}, {E} padded "
+            f"experts, shared width {Fs}, {Hs} Mamba heads and state {N} do "
+            f"not split over a model axis of {n} (heads and widths "
+            f"divisible by it, KV heads divisible by it or dividing it; the "
+            f"replicated fallback is item 22b of the roadmap)")
 
 
 def _w(p: nn.Module, attr: str) -> torch.Tensor:
@@ -246,21 +259,21 @@ def _kv_weight(p: nn.Module, attr: str, cfg: ModelConfig) -> torch.Tensor:
     if place.specs[name][-1] is not None:
         full = place.gathered(name, getattr(p, attr))
     else:
-        full = _copy_to(_w(p, attr), group)
+        full = copy_to(_w(p, attr), group)
     hd = cfg.resolved_head_dim()
     k0, k1 = kv_heads(cfg, n, r)
     return full[..., k0 * hd:k1 * hd]
 
 
-def _group(p: nn.Module):
+def tp_group(p: nn.Module):
     """The model axis's group of a placed module (``None`` unplaced or
     for a model axis of 1)."""
     placed = getattr(p, "placed", None)
     return None if placed is None else model_group(placed[0].ctx)[2]
 
 
-def _weight(p: nn.Module, attr: str, cfg: Optional[ModelConfig] = None
-            ) -> torch.Tensor:
+def weight(p: nn.Module, attr: str, cfg: Optional[ModelConfig] = None
+           ) -> torch.Tensor:
     """``p.<attr>``; placed: its FSDP dim gathered over the data axes, and
     ``wk``/``wv``/``bk``/``bv`` restricted to this rank's KV heads."""
     if getattr(p, "placed", None) is None:
@@ -270,17 +283,23 @@ def _weight(p: nn.Module, attr: str, cfg: Optional[ModelConfig] = None
     return _w(p, attr)
 
 
-def _col(p: nn.Module, x: torch.Tensor, attr: str,
-         cfg: Optional[ModelConfig] = None) -> torch.Tensor:
-    """``x (..., D) @ p.<attr>``; placed: this rank's columns as a float32
-    product of the model-dtype operands rounded once, which accumulates as
-    the one-process product of all the columns does (a model-dtype product
-    of another width may take another kernel and another order)."""
-    w = _weight(p, attr, cfg)
-    if getattr(p, "placed", None) is None:
+def linear(x: torch.Tensor, w: torch.Tensor, placed: bool) -> torch.Tensor:
+    """``x (..., D) @ w``; ``placed``: a float32 product of the model-dtype
+    operands rounded once, which accumulates as the one-process product of
+    all the columns does (a model-dtype product of another width may take
+    another kernel and another order)."""
+    if not placed:
         return x @ w
     y = f32_product(x.reshape(-1, x.shape[-1]), w)
     return y.to(x.dtype).reshape(x.shape[:-1] + (-1,))
+
+
+def col(p: nn.Module, x: torch.Tensor, attr: str,
+        cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """``x (..., D) @ p.<attr>``; placed: this rank's columns
+    (``linear``)."""
+    return linear(x, weight(p, attr, cfg),
+                  getattr(p, "placed", None) is not None)
 
 
 def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
@@ -290,20 +309,20 @@ def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
     parallel behind ``copy_to``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
-    group = _group(p)
-    x = _copy_to(x, group)
-    q = _col(p, x, "wq", cfg)
-    k = _col(p, x, "wk", cfg)
-    v = _col(p, x, "wv", cfg)
+    group = tp_group(p)
+    x = copy_to(x, group)
+    q = col(p, x, "wq", cfg)
+    k = col(p, x, "wk", cfg)
+    v = col(p, x, "wv", cfg)
     if cfg.qkv_bias:
-        q, k, v = (q + _weight(p, "bq", cfg), k + _weight(p, "bk", cfg),
-                   v + _weight(p, "bv", cfg))
+        q, k, v = (q + weight(p, "bq", cfg), k + weight(p, "bk", cfg),
+                   v + weight(p, "bv", cfg))
     q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, -1, hd)
     v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:         # placed: replicated scales on this rank's heads
-        q = rms_norm(q, _copy_to(p.q_norm, group), cfg.norm_eps)
-        k = rms_norm(k, _copy_to(p.k_norm, group), cfg.norm_eps)
+        q = rms_norm(q, copy_to(p.q_norm, group), cfg.norm_eps)
+        k = rms_norm(k, copy_to(p.k_norm, group), cfg.norm_eps)
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
@@ -404,16 +423,16 @@ def cross_decode_attention(q: torch.Tensor, xk_cache: torch.Tensor,
     return decode_step_attention(q, xk_cache, xv_cache, lengths)
 
 
-def _row(p: nn.Module, h: torch.Tensor, attr: str) -> torch.Tensor:
+def row(p: nn.Module, h: torch.Tensor, attr: str) -> torch.Tensor:
     """``h (..., F) @ p.<attr>``; placed: this rank's rows, summed over the
     model axis: float32 products of the model-dtype operands, added in
     float32 and rounded to the model dtype once, as the one-process
     product's float32 accumulation rounds once."""
-    w = _weight(p, attr)
+    w = weight(p, attr)
     if getattr(p, "placed", None) is None:
         return h @ w
     y = f32_product(h.reshape(-1, h.shape[-1]), w)
-    return _reduce_from(y, _group(p)).to(h.dtype).reshape(
+    return reduce_from(y, tp_group(p)).to(h.dtype).reshape(
         h.shape[:-1] + (-1,))
 
 
@@ -421,7 +440,7 @@ def attn_out(p: Attention, attn: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) -> (B, S, D); placed: this rank's heads through its
     rows of ``wo``, summed over the model axis."""
     B, S, H, hd = attn.shape
-    return _row(p, attn.reshape(B, S, H * hd), "wo")
+    return row(p, attn.reshape(B, S, H * hd), "wo")
 
 
 # ---------------------------------------------------------------- MLP
@@ -442,10 +461,10 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Placed: ``wi``/``wg`` column-parallel, ``wo`` row-parallel over the
     model axis."""
-    x = _copy_to(x, _group(p))
-    h = _col(p, x, "wi")
+    x = copy_to(x, tp_group(p))
+    h = col(p, x, "wi")
     if cfg.act == "silu":
-        h = F.silu(_col(p, x, "wg")) * h
+        h = F.silu(col(p, x, "wg")) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return _row(p, h, "wo")
+    return row(p, h, "wo")

@@ -20,6 +20,23 @@ The decode caches of one layer are ``ssm`` (B, H, N, P) float32 and
 ``conv_{x,b,c}`` (B, k - 1, dim): the last k - 1 activated inputs of each
 convolution, before the convolution.  ``mamba_decode`` updates them in
 place.
+
+Over a process mesh (a model built with ``mesh=``: ``placed`` names the
+layer's ``sharding.Placement``) the block is tensor-parallel over the
+model axis of ``n`` ranks, each holding ``H / n`` heads: ``in_proj_{z,x}``
+and ``in_proj_dt`` column-parallel, ``dt_bias``, ``a_log``, ``d``,
+``conv_x`` and ``norm_scale`` split by heads or channels, ``out_proj``
+row-parallel, every FSDP dim gathered over the data axes.
+``in_proj_{b,c}`` are replicated over ``model``, but ``conv_{b,c}`` split
+the state columns (the reference's specs): a rank projects and convolves
+its ``N / n`` columns (the conv is depthwise, so exactly) and gathers b
+and c over ``model`` for the scan, which every head reads whole.  The
+scan runs on the rank's heads.  The gated RMSNorm normalises over all of
+``d_inner``: each row's float32 sum of squares is summed over ``model``
+(plain PyTorch; the RMSNorm kernel where the model axis is 1).  The
+caches hold the rank's heads of ``ssm``, its channels of ``conv_x`` and
+its state columns of ``conv_{b,c}``.  On an unplaced block every
+collective is the identity, which keeps the one-process bits.
 """
 from __future__ import annotations
 
@@ -31,7 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models import layers as L
 from repro_torch.models.layers import new_param, rms_norm
 
 Cache = Dict[str, torch.Tensor]
@@ -131,57 +150,99 @@ def _window(a: torch.Tensor, k: int) -> torch.Tensor:
     return a[:, a.shape[1] - (k - 1):, :]
 
 
+def _tp(p: Mamba):
+    """(model axis size n, this rank's coordinate, its group) of a placed
+    block; (1, 0, None) unplaced."""
+    placed = getattr(p, "placed", None)
+    return (1, 0, None) if placed is None else L.model_group(placed[0].ctx)
+
+
+def _state_proj(p: Mamba, u: torch.Tensor, attr: str) -> torch.Tensor:
+    """silu(u @ in_proj_b|c) on this rank's state columns (placed: of the
+    weight replicated over ``model``, whose gradient is summed there)."""
+    n, r, group = _tp(p)
+    w = L.copy_to(L.weight(p, attr), group)
+    Nl = w.shape[1] // n
+    return F.silu(L.linear(u, w[:, r * Nl:(r + 1) * Nl],
+                           getattr(p, "placed", None) is not None))
+
+
+def _all_columns(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's state columns (last dim) of b or c, in rank order."""
+    return t if group is None else C.gather_dim(t, group, -1)
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               cfg: ModelConfig, n: int, group) -> torch.Tensor:
+    """rms_norm(y * silu(z)) over all of ``d_inner``; split over a model
+    axis of ``n > 1``, each row's float32 sum of squares summed over it
+    (forward and backward) before the local scaling."""
+    g = y * F.silu(z)
+    if n == 1:
+        return rms_norm(g, scale, cfg.norm_eps)
+    gf = g.float()
+    ss = C.copy_to(C.reduce_from(torch.sum(gf * gf, dim=-1, keepdim=True),
+                                 group), group)
+    var = ss / cfg.d_inner
+    return (gf * torch.rsqrt(var + cfg.norm_eps) * scale.float()).to(g.dtype)
+
+
 def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Cache] = None) -> torch.Tensor:
     """Full sequence (train or prefill).  u: (B, S, D) -> (B, S, D); a
     prefill writes the decode caches (``ssm``, ``conv_{x,b,c}``) into
-    ``cache`` in place (training passes none)."""
+    ``cache`` in place (training passes none).  Placed: this rank's heads
+    (the module docstring)."""
     Bsz, S, _ = u.shape
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
-    z = u @ p.in_proj_z
-    xa = F.silu(u @ p.in_proj_x)
-    ba = F.silu(u @ p.in_proj_b)
-    ca = F.silu(u @ p.in_proj_c)
-    dt = (u @ p.in_proj_dt).float()
-    x = _causal_conv(xa, p.conv_x).reshape(Bsz, S, H, P)
-    b = _causal_conv(ba, p.conv_b)
-    c = _causal_conv(ca, p.conv_c)
+    n, _, group = _tp(p)
+    H, P = cfg.ssm_heads // n, cfg.ssm_head_dim
+    u = L.copy_to(u, group)
+    z = L.col(p, u, "in_proj_z")
+    xa = F.silu(L.col(p, u, "in_proj_x"))
+    ba = _state_proj(p, u, "in_proj_b")
+    ca = _state_proj(p, u, "in_proj_c")
+    dt = L.col(p, u, "in_proj_dt").float()
+    x = _causal_conv(xa, L.weight(p, "conv_x")).reshape(Bsz, S, H, P)
+    b = _all_columns(_causal_conv(ba, L.weight(p, "conv_b")), group)
+    c = _all_columns(_causal_conv(ca, L.weight(p, "conv_c")), group)
     dt = softplus(dt + p.dt_bias[None, None, :])
     A = -torch.exp(p.a_log)
     y, final = ssd_scan(x, dt, A, b, c, chunk=cfg.ssm_chunk)
     y = y + x * p.d[None, None, :, None].to(x.dtype)
-    y = y.reshape(Bsz, S, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
-    if cache is None:
-        return y @ p.out_proj
-    k = cfg.ssm_conv
-    cache["ssm"].copy_(final)
-    cache["conv_x"].copy_(_window(xa, k))
-    cache["conv_b"].copy_(_window(ba, k))
-    cache["conv_c"].copy_(_window(ca, k))
-    return y @ p.out_proj
+    y = y.reshape(Bsz, S, H * P)
+    y = gated_norm(y, z, p.norm_scale, cfg, n, group)
+    if cache is not None:
+        k = cfg.ssm_conv
+        cache["ssm"].copy_(final)
+        cache["conv_x"].copy_(_window(xa, k))
+        cache["conv_b"].copy_(_window(ba, k))
+        cache["conv_c"].copy_(_window(ca, k))
+    return L.row(p, y, "out_proj")
 
 
 def mamba_decode(p: Mamba, cache: Cache, u: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """One token.  u: (B, 1, D) -> (B, 1, D); ``cache`` updated in
-    place."""
+    place (placed: this rank's heads, channels and state columns)."""
     Bsz = u.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
-    ut = u[:, 0, :]
-    z = ut @ p.in_proj_z
-    x = F.silu(ut @ p.in_proj_x)
-    b = F.silu(ut @ p.in_proj_b)
-    c = F.silu(ut @ p.in_proj_c)
-    dt = (ut @ p.in_proj_dt).float()
-    x = _conv_step(cache["conv_x"], x, p.conv_x)
-    b = _conv_step(cache["conv_b"], b, p.conv_b)
-    c = _conv_step(cache["conv_c"], c, p.conv_c)
+    n, _, group = _tp(p)
+    H, P = cfg.ssm_heads // n, cfg.ssm_head_dim
+    ut = L.copy_to(u[:, 0, :], group)
+    z = L.col(p, ut, "in_proj_z")
+    x = F.silu(L.col(p, ut, "in_proj_x"))
+    b = _state_proj(p, ut, "in_proj_b")
+    c = _state_proj(p, ut, "in_proj_c")
+    dt = L.col(p, ut, "in_proj_dt").float()
+    x = _conv_step(cache["conv_x"], x, L.weight(p, "conv_x"))
+    b = _all_columns(_conv_step(cache["conv_b"], b, L.weight(p, "conv_b")),
+                     group)
+    c = _all_columns(_conv_step(cache["conv_c"], c, L.weight(p, "conv_c")),
+                     group)
     dt = softplus(dt + p.dt_bias[None, :])
     A = -torch.exp(p.a_log)
     xh = x.reshape(Bsz, H, P)
     y = ssd_step(cache["ssm"], xh, dt, A, b, c)
     y = y + xh * p.d[None, :, None].to(xh.dtype)
-    y = y.reshape(Bsz, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
-    return (y @ p.out_proj)[:, None, :]
+    y = y.reshape(Bsz, H * P)
+    y = gated_norm(y, z, p.norm_scale, cfg, n, group)
+    return L.row(p, y, "out_proj")[:, None, :]

@@ -32,17 +32,22 @@ attention layers, ``ssm`` and ``conv_{x,b,c}`` for the Mamba layers, and
 the encoder-decoder's cross caches ``xk``/``xv`` (``encdec.py``).
 
 Over a process mesh (``build_model(cfg, mesh=ProcessMesh or ShardCtx)``)
-a dense model is placed: each rank holds ``local_block`` of every weight
-under ``named_shardings`` (``self.placement``), and ``init`` draws each
-weight whole and keeps the block, so the blocks are the one-process
-model's.  Its entry points then take this rank's rows of the batch (its
-data shard) and run tensor- and vocabulary-parallel over the model axis:
-``train_loss`` is this rank's rows' share of the global masked mean (the
-mask counted over every data shard), the logits of ``prefill`` and
-``decode`` cover the whole vocabulary, and the caches hold this rank's
-slice of the positions (``new_caches``).  Any other family there with a
-data or model axis above 1 raises ``NotImplementedError`` (roadmap item
-22b), the MoE family's expert share (``experts``) aside.
+a dense, MoE, SSM or hybrid model is placed (``sharding.places``): each
+rank holds ``local_block`` of every weight under ``named_shardings``
+(``self.placement``), and ``init`` draws each weight whole and keeps the
+block, so the blocks are the one-process model's.  Its entry points then
+take this rank's rows of the batch (its data shard; the MoE sort
+dispatch reads every data shard's rows as one batch, so the rows must be
+split, not replicated) and run tensor- and vocabulary-parallel over the
+model axis: ``train_loss`` is this rank's rows' share of the global
+masked mean (the mask counted over every data shard), the logits of
+``prefill`` and ``decode`` cover the whole vocabulary, and the caches
+hold this rank's blocks under ``cache_shardings`` (``new_caches``).  An
+MoE model that keeps the expert share (``build_model``'s
+``expert_share``, by default with ``moe_impl="ep"``) holds instead its
+experts only (``experts``), the rest replicated.  The encoder-decoder
+and VLM families there with a data or model axis above 1 raise
+``NotImplementedError`` (roadmap item 22b).
 """
 from __future__ import annotations
 
@@ -56,8 +61,10 @@ from torch import nn
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (Placement, ShardCtx,
-                                              current_ctx, not_ported)
+from repro_torch.distributed.sharding import (PLACED_FAMILIES, Placement,
+                                              ShardCtx, block_shape,
+                                              cache_shardings, current_ctx,
+                                              not_ported, places)
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -74,7 +81,7 @@ class Model(nn.Module):
         0 means none, as the JAX package's ``init(max_seq=0)``.
         ``experts``: the padded experts each MoE layer holds (a process
         rank's share, ``sharding.expert_rows``); all by default.
-        ``shard_ctx``: a context over a process mesh that places a dense
+        ``shard_ctx``: a context over a process mesh that places the
         model (the module docstring)."""
         super().__init__()
         kinds = T.layer_kinds(cfg)  # raises for a config its family
@@ -124,13 +131,11 @@ class Model(nn.Module):
     # ---------------------------------------------------------- placement
     def _check_placeable(self, ctx: ShardCtx) -> None:
         cfg = self.cfg
-        if not ctx.process or cfg.family != "dense":
-            raise ValueError(f"{cfg.name}: only a dense model is placed over "
-                             f"a process mesh (got {cfg.family}, "
-                             f"{'a process' if ctx.process else 'a logical'}"
-                             f" mesh)")
-        if cfg.tie_embeddings:
-            raise not_ported(cfg, "tied embeddings")
+        if cfg.family not in PLACED_FAMILIES:
+            raise not_ported(cfg, "placing the model")
+        if not ctx.process:
+            raise ValueError(f"{cfg.name}: a model is placed over a process "
+                             f"mesh only (got a logical mesh)")
         L.check_tensor_parallel(
             cfg, ctx.mesh.shape[ctx.model_axis] if ctx.model_axis else 1)
 
@@ -140,11 +145,11 @@ class Model(nn.Module):
         each module where its weights are."""
         full = self.params()
         self.placement = Placement(ctx, full, len(T.layer_plan(self.cfg)))
-        drawn = self._draw_plan()[0]
+        stds, fns, _ = self._draw_plan()
         for name, p in full.items():
             mod_name, _, attr = name.rpartition(".")
             mod = self.get_submodule(mod_name) if mod_name else self
-            fill = None if name in drawn else \
+            fill = None if name in stds or name in fns else \
                 (0.0 if attr.startswith("b") else 1.0)
             mod._parameters[attr] = L.new_param(
                 self.placement.block_shape(name), p.dtype, self.device, fill)
@@ -158,8 +163,9 @@ class Model(nn.Module):
         placement's (a different current context raises), none for an
         unplaced model; a process context with a data or model axis above
         1 around an unplaced model raises (``NotImplementedError`` for the
-        families item 22b will place, ``ValueError`` for a dense model
-        built without ``mesh=``), the MoE family's expert share aside."""
+        families item 22b will place, ``ValueError`` for a family a
+        process mesh places, built without ``mesh=``), the MoE family's
+        expert share aside."""
         ctx = current_ctx()
         if self.placement is not None:
             if ctx is not None and ctx.mesh is not self.shard_ctx.mesh:
@@ -167,10 +173,11 @@ class Model(nn.Module):
                                  "the current ShardCtx's")
             return self.shard_ctx
         if ctx is not None and ctx.sharded and self.cfg.family != "moe":
-            if self.cfg.family == "dense":
+            if self.cfg.family in PLACED_FAMILIES:
                 raise ValueError(
-                    f"{self.cfg.name}: a dense model under a process mesh "
-                    f"holds its blocks only: build it with mesh=")
+                    f"{self.cfg.name}: a {self.cfg.family} model under a "
+                    f"process mesh holds its blocks only: build it with "
+                    f"mesh=")
             raise not_ported(self.cfg, "the model")
         return None
 
@@ -209,7 +216,9 @@ class Model(nn.Module):
         place = self.placement
         for name, p in self.named_parameters():
             if name in fns:
-                p.copy_(fns[name](p.shape, generator, p.device))
+                shape = p.shape if place is None else place.full[name]
+                t = fns[name](shape, generator, p.device)
+                p.copy_(t if place is None else place.local(name, t))
                 continue
             if name not in stds:        # norm scales, biases
                 p.fill_(0.0 if name.split(".")[-1].startswith("b") else 1.0)
@@ -287,8 +296,10 @@ class Model(nn.Module):
         """Zeroed caches for ``batch`` rows of ``seq`` positions (the JAX
         package's ``cache_spec``, stacked by kind; the encoder-decoder's
         cross caches hold ``enc_frames`` positions).  Placed: ``batch`` is
-        this rank's rows, and the caches hold its slice of the ``seq``
-        positions (``seq`` divided over ``shard_ctx.seq_axes``)."""
+        this rank's rows, and each cache is this rank's block under
+        ``cache_shardings`` of the caches of every data shard's rows: its
+        slice of the ``seq`` positions (over ``shard_ctx.seq_axes``), its
+        Mamba heads (``ssm``) and channels (``conv_*``) over ``model``."""
         cfg = self.cfg
         ctx = self._in_context()
         if ctx is not None:
@@ -296,7 +307,12 @@ class Model(nn.Module):
             if seq % n:
                 raise ValueError(f"{seq} cache positions do not split over "
                                  f"the {n} ranks of {ctx.seq_axes}")
-            seq //= n
+            nd = int(np.prod([ctx.mesh.shape[a] for a in ctx.batch_axes]))
+            full = self.cache_spec(batch * nd, seq)
+            specs = cache_shardings(ctx, full, seq_axes=ctx.seq_axes)
+            return {k: torch.zeros(block_shape(t.shape, specs[k], ctx.mesh),
+                                   dtype=t.dtype, device=self.device)
+                    for k, t in full.items()}
         z = lambda *s, dtype=self.dtype: torch.zeros(  # noqa: E731
             s, dtype=dtype, device=self.device)
         caches = {}
@@ -490,26 +506,29 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
-                max_seq: int = 0, mesh=None) -> Model:
+                max_seq: int = 0, mesh=None,
+                expert_share: Optional[bool] = None) -> Model:
     """The model with uninitialised weights: call ``init`` or
     ``load_params``.  ``max_seq``: the learned position table's rows
     (``Model``).  ``mesh``: a ``ProcessMesh`` (or a ``ShardCtx`` over one,
-    for another ``param_sharding`` or ``seq_axes``).  A dense model is
-    then placed (the module docstring; ``fsdp`` by default); an MoE model
-    holds this rank's share of the experts (``sharding.expert_rows``), the
-    rest replicated; any other family there with a data or model axis
-    above 1 raises ``NotImplementedError``."""
-    experts = ctx = None
+    for another ``param_sharding`` or ``seq_axes``).  A dense, MoE, SSM or
+    hybrid model is then placed (the module docstring; ``fsdp`` by
+    default), but for an MoE model that keeps the expert share
+    (``expert_share``; by default, ``None``, one with ``moe_impl="ep"``):
+    it holds this rank's share of the experts (``sharding.expert_rows``),
+    the rest replicated.  The encoder-decoder and VLM families there with
+    a data or model axis above 1 raise ``NotImplementedError``."""
+    experts = None
     if mesh is not None:
         ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
-        mesh = ctx.mesh
-    if ctx is not None and ctx.process and cfg.family == "dense":
-        return Model(cfg, device, max_seq, shard_ctx=ctx)
-    if ctx is not None and ctx.sharded and cfg.family != "moe":
-        raise not_ported(cfg, "build_model")
-    if mesh is not None and cfg.num_experts:
-        from repro_torch.distributed.sharding import expert_rows
-        experts = expert_rows(mesh, L.padded_experts(cfg.num_experts))
+        if places(cfg, mesh, expert_share):
+            return Model(cfg, device, max_seq, shard_ctx=ctx)
+        if ctx.sharded and cfg.family != "moe":
+            raise not_ported(cfg, "build_model")
+        if cfg.num_experts:
+            from repro_torch.distributed.sharding import expert_rows
+            experts = expert_rows(ctx.mesh,
+                                  L.padded_experts(cfg.num_experts))
     return Model(cfg, device, max_seq, experts)
 
 

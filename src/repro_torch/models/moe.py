@@ -22,10 +22,28 @@ products through the same kernel; without one, or where the mesh does not
 divide the experts or the tokens, it runs the sort path, as the reference
 does.
 
-Over a ``ProcessMesh`` (one process a position) a rank holds only its
-share of the experts (``MoE(experts=rows)``, the rows of the padded expert
-dim it owns): the EP dispatch runs its own position, and the sort and
-dense dispatches, which need every expert, raise.
+Over a process mesh the layer is placed (``build_model(cfg, mesh=)``:
+``placed`` names its ``sharding.Placement``), as the reference's GSPMD
+places it: the experts ``("expert", "fsdp", None)``, so a rank holds
+``E / n`` of them (``n`` the model axis) with their FSDP dim gathered over
+the data axes before use; the router and the shared gate gathered over
+the data axes and replicated over ``model``; the shared expert column-
+(``shared_w(i|g)``) and row-parallel (``shared_wo``) over ``model``.  The
+sort dispatch keeps the reference's global meaning: the tokens of every
+data shard are gathered, routed and sorted as one batch (one capacity
+``C`` from the global token count), a rank fills and runs only its
+experts' rows of the ``(E, C, D)`` buffer, and each copy's contribution,
+owned by one model rank, is summed over ``model`` (the others add exact
+zeros) for this data shard's tokens, whose k terms are then added in
+ascending expert id as one process adds them.  The dense dispatch takes
+this rank's experts' columns of the routing weights and sums the float32
+partials over ``model`` before its one rounding.  The EP dispatch runs
+the process body on the rank's experts.  Every collective is the
+identity on an unplaced layer, which keeps the one-process bits.
+
+The expert share (``MoE(experts=rows)``, an unplaced layer holding the
+rows of the padded expert dim its process owns, the rest replicated)
+serves the EP dispatch only; the sort and dense dispatches raise on it.
 """
 from __future__ import annotations
 
@@ -37,7 +55,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import P, block_index, gather_block
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
+from repro_torch.models import layers as L
 from repro_torch.models.layers import new_param, padded_experts
 
 
@@ -79,21 +99,61 @@ class MoE(nn.Module):
                                  shared_gate=s_in)
 
 
+def _share(p: MoE) -> Tuple[int, int]:
+    """(first padded expert, count) of the experts ``p`` holds."""
+    El = p.wi.shape[0]
+    if p.experts is not None:
+        return p.experts.start, El
+    placed = getattr(p, "placed", None)
+    if placed is None:
+        return 0, El
+    place, prefix = placed
+    i, _ = block_index(place.specs[f"{prefix}.wi"][0], place.mesh)
+    return i * El, El
+
+
+def _data(p: MoE):
+    """(context, data axes) of a placed layer; (None, ()) otherwise."""
+    placed = getattr(p, "placed", None)
+    if placed is None:
+        return None, ()
+    return placed[0].ctx, placed[0].ctx.batch_axes
+
+
+def dispatch_tokens(p: MoE, x: torch.Tensor) -> int:
+    """The tokens the dispatch sees: ``x``'s (B * S), times the data
+    shards of a placed layer (the reference's GSPMD sees the global
+    batch), which decide the dense dispatch of a small decode step."""
+    ctx, axes = _data(p)
+    n = 1
+    for a in axes:
+        n *= ctx.mesh.shape[a]
+    return x.shape[0] * x.shape[1] * n
+
+
 def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xf: (T, D) -> (weights (T, k) float32, expert ids (T, k) int64), the
     renormalised top k of the float32 softmax.  A stable descending sort
-    puts equal probabilities in index order, as ``jax.lax.top_k`` does."""
-    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    puts equal probabilities in index order, as ``jax.lax.top_k`` does.
+    Placed: the router gathered over the data axes; a rank combines only
+    its experts' copies, so its gradient is summed over ``model``."""
+    router = L.copy_to(L.weight(p, "router"), L.tp_group(p))
+    probs = torch.softmax(xf.float() @ router, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]
     return top_p / top_p.sum(dim=-1, keepdim=True), top_i
 
 
 def shared_expert(p: MoE, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p.shared_wg) * (x @ p.shared_wi)
-    out = h @ p.shared_wo
-    gate = torch.sigmoid(x.float() @ p.shared_gate)[..., None]
+    """The shared expert; placed: column-parallel ``shared_w(i|g)`` and
+    row-parallel ``shared_wo`` over ``model``.  The gate reads the
+    replicated input and scales the summed output, so every model rank
+    holds the gate's whole gradient."""
+    xr = L.copy_to(x, L.tp_group(p))
+    h = F.silu(L.col(p, xr, "shared_wg")) * L.col(p, xr, "shared_wi")
+    out = L.row(p, h, "shared_wo")
+    gate = torch.sigmoid(x.float() @ L.weight(p, "shared_gate"))[..., None]
     return (out.float() * gate).to(x.dtype)
 
 
@@ -104,10 +164,11 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
 
 
 def _experts(p: MoE, buf: torch.Tensor) -> torch.Tensor:
-    """The experts' SwiGLU on (E, C, D) buffers: three grouped matmuls."""
-    h = moe_gmm(buf, p.wi)
-    g = moe_gmm(buf, p.wg)
-    return moe_gmm(F.silu(g) * h, p.wo)
+    """The experts' SwiGLU on (E, C, D) buffers: three grouped matmuls
+    (placed: the rank's experts, their FSDP dim gathered)."""
+    h = moe_gmm(buf, L.weight(p, "wi"))
+    g = moe_gmm(buf, L.weight(p, "wg"))
+    return moe_gmm(F.silu(g) * h, L.weight(p, "wo"))
 
 
 def _every_expert(p: MoE, how: str) -> None:
@@ -118,40 +179,61 @@ def _every_expert(p: MoE, how: str) -> None:
             f"dispatch over its process mesh)")
 
 
-def moe_apply_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Sort/capacity dispatch.  x: (B, S, D)."""
-    _every_expert(p, "sort")
-    B, S, D = x.shape
-    T, k = B * S, cfg.top_k
-    E = padded_experts(cfg.num_experts)
-    C = capacity(cfg, T)
-    xf = x.reshape(T, D)
-    w, idx = route(p, xf, cfg)                              # (T, k)
+def pack_copies(idx: torch.Tensor, E: int, C: int):
+    """The sort dispatch's packing of the token copies ``idx`` (T, k):
+    ``(order, e_sorted, pos, keep)``, the copies sorted stably by expert,
+    each one's slot in its expert and whether it is within the capacity
+    ``C``, as the reference computes them."""
     flat_e = idx.reshape(-1)                                # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
-    t_sorted = order // k                                   # token of each
     counts = torch.bincount(flat_e, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(T * k, device=x.device) - starts[e_sorted]
-    keep = pos < C                                          # capacity drops
-    # dispatch: a dropped copy goes to a spare row C, which no product
-    # reads (no boolean indexing, so no device-to-host sync)
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
-    buf[e_sorted, torch.where(keep, pos, C)] = xf[t_sorted]
-    out_e = _experts(p, buf[:, :C])                         # (E, C, D)
+    pos = torch.arange(flat_e.numel(), device=idx.device) - starts[e_sorted]
+    return order, e_sorted, pos, pos < C
+
+
+def moe_apply_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Sort/capacity dispatch.  x: (B, S, D); placed: this rank's data
+    shard (the module docstring)."""
+    _every_expert(p, "sort")
+    B, S, D = x.shape
+    k = cfg.top_k
+    E = padded_experts(cfg.num_experts)
+    group = L.tp_group(p)
+    ctx, axes = _data(p)
+    xf = L.copy_to(x, group).reshape(B * S, D)
+    if axes:        # every data shard's tokens, in order
+        xf = gather_block(xf, P(axes), ctx.mesh)
+    T, Tl = xf.shape[0], B * S
+    t0 = Tl * (ctx.data_shard if axes else 0)
+    C = capacity(cfg, T)
+    w, idx = route(p, xf, cfg)                              # (T, k)
+    order, e_sorted, pos, keep = pack_copies(idx, E, C)
+    t_sorted = order // k                                   # token of each
+    e0, El = _share(p)
+    mine = keep & (e_sorted >= e0) & (e_sorted < e0 + El)
+    le = torch.where(mine, e_sorted - e0, 0)
+    # dispatch: a copy dropped (or another rank's) goes to a spare row C,
+    # which no product reads (no boolean indexing, so no device-to-host
+    # sync)
+    buf = torch.zeros((El, C + 1, D), dtype=x.dtype, device=x.device)
+    buf[le, torch.where(mine, pos, C)] = xf[t_sorted]
+    out_e = _experts(p, buf[:, :C])                         # (El, C, D)
     # combine: the reference scatter-adds the sorted contributions into a
     # model-dtype y, so each token's k terms are added in ascending expert
     # id with a rounding after each add; here the same adds, in that
-    # order, as k deterministic steps
-    gathered = out_e[e_sorted, torch.where(keep, pos, 0)]   # (T*k, D)
-    w_sorted = w.reshape(-1)[order] * keep
+    # order, as k deterministic steps (placed: each copy's term summed
+    # over the model ranks, one of which owns it, for this data shard)
+    gathered = out_e[le, torch.where(mine, pos, 0)]         # (T*k, D)
+    w_sorted = w.reshape(-1)[order] * mine
     contrib = torch.empty_like(gathered)
     contrib[order] = gathered * w_sorted[:, None].to(x.dtype)
-    by_id = torch.argsort(idx, dim=-1)                      # (T, k)
-    contrib = torch.gather(contrib.reshape(T, k, D), 1,
-                           by_id[..., None].expand(T, k, D))
-    y = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+    contrib = L.reduce_from(contrib[t0 * k:(t0 + Tl) * k], group)
+    by_id = torch.argsort(idx[t0:t0 + Tl], dim=-1)          # (Tl, k)
+    contrib = torch.gather(contrib.reshape(Tl, k, D), 1,
+                           by_id[..., None].expand(Tl, k, D))
+    y = torch.zeros((Tl, D), dtype=x.dtype, device=x.device)
     for j in range(k):
         y = y + contrib[:, j]
     y = y.reshape(B, S, D)
@@ -163,18 +245,21 @@ def moe_apply_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Every expert on every token (the tokens repeated across the experts
     as a stride-0 view), combined in float32 with the one-hot routing
-    weights."""
+    weights (placed: this rank's experts, the partials summed over
+    ``model``, then one rounding)."""
     _every_expert(p, "dense")
     B, S, D = x.shape
     T = B * S
     E = padded_experts(cfg.num_experts)
-    xf = x.reshape(T, D)
+    group = L.tp_group(p)
+    xf = L.copy_to(x, group).reshape(T, D)
     w, idx = route(p, xf, cfg)
+    e0, El = _share(p)
     comb = torch.zeros((T, E), dtype=torch.float32, device=x.device)
     comb.scatter_add_(1, idx, w)                            # (T, E)
-    out_e = _experts(p, xf.unsqueeze(0).expand(E, T, D))    # (E, T, D)
-    y = torch.einsum("etd,te->td", out_e.float(), comb).to(x.dtype)
-    y = y.reshape(B, S, D)
+    out_e = _experts(p, xf.unsqueeze(0).expand(El, T, D))   # (El, T, D)
+    y = torch.einsum("etd,te->td", out_e.float(), comb[:, e0:e0 + El])
+    y = L.reduce_from(y, group).to(x.dtype).reshape(B, S, D)
     if cfg.num_shared_experts:
         y = y + shared_expert(p, x)
     return y

@@ -22,15 +22,16 @@ head so the decode-attention kernel reads each head's positions
 contiguously; ``ssm`` ``(n_mamba, B, H, N, P)`` float32 and ``conv_x``/
 ``conv_b``/``conv_c`` ``(n_mamba, B, k - 1, dim)`` in the model dtype.
 
-Over a process mesh (a dense model built with ``mesh=``) the layers are
-tensor-parallel (``layers.py``), the embedding, the loss and the
-unembedding vocabulary-parallel over the model axis, and a decode cache
-holds this rank's slice of the positions of every KV head
-(``cache_shardings``): prefill and decode gather the step's new keys and
-values over the model axis and the rank that owns a position writes it;
-decode gathers q and attends every head over its own positions
-(``layers.seq_decode_attention``), then keeps its heads for the
-row-parallel ``wo``.
+Over a process mesh (a model built with ``mesh=``) the layers are
+tensor-parallel (``layers.py``, ``mamba.py``, ``moe.py``), the embedding,
+the loss and the unembedding vocabulary-parallel over the model axis (a
+tied model's head is its embedding's block), a Mamba cache holds this
+rank's heads and channels, and an attention cache this rank's slice of
+the positions of every KV head (``cache_shardings``): prefill and
+decode gather the step's new keys and values over the model axis and
+the rank that owns a position writes it; decode gathers q and attends
+every head over its own positions (``layers.seq_decode_attention``),
+then keeps its heads for the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import current_ctx, use_shard_ctx
+from repro_torch.distributed.sharding import (P, current_ctx, gather_block,
+                                              use_shard_ctx)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as X
@@ -141,8 +143,9 @@ class DecoderLayer(nn.Module):
         if self.ffn == "dense":
             return x + L.mlp_apply(self.mlp, h, cfg)
         # the reference's rule: every expert on the token of a small decode
-        # step, the configured dispatch otherwise (training included)
-        small = mode == "decode" and h.shape[0] * h.shape[1] <= 16
+        # step (of the global batch), the configured dispatch otherwise
+        # (training included)
+        small = mode == "decode" and X.dispatch_tokens(self.moe, h) <= 16
         apply = X.moe_apply_dense if small else X.moe_apply
         return x + apply(self.moe, h, cfg)
 
@@ -324,10 +327,16 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
 def _vocab_block(place, head: torch.Tensor):
     """A placed head (D, V/n) with its FSDP rows gathered, its first
     vocabulary row and the model group (``None`` if the vocabulary is
-    replicated)."""
+    replicated).  A tied model's head is its embedding block transposed,
+    ``("fsdp", "vocab")`` of the table's ``("vocab", "fsdp")``: the
+    lookup's and the head's gradients add into the table's one block."""
     ctx = place.ctx
-    h = place.gathered("lm_head", head, ctx.batch_axes)
-    if place.specs["lm_head"][1] is None:
+    if "lm_head" in place.specs:
+        spec = place.specs["lm_head"]
+    else:
+        spec = P(place.specs["embed"][1], place.specs["embed"][0])
+    h = gather_block(head, spec, place.mesh, ctx.batch_axes)
+    if spec[1] is None:
         return h, 0, None
     _, r, group = L.model_group(ctx)
     return h, r * h.shape[1], group
@@ -380,10 +389,10 @@ def lm_loss(final_norm: L.Norm, head: torch.Tensor, x: torch.Tensor,
     vocabulary masked to -1e30; the masked mean over max(count, 1).
 
     Placed (``place``, a ``Placement``): vocabulary-parallel on ``lm_head``
-    (``("fsdp", "vocab")``), the max, the sum of exponentials and the
-    label's logit each reduced over the model axis; ``count`` is the mask's
-    count over the whole batch (every data shard), so a rank's loss is its
-    rows' share of the global mean."""
+    (``("fsdp", "vocab")``; a tied model's embedding rows), the max, the
+    sum of exponentials and the label's logit each reduced over the model
+    axis; ``count`` is the mask's count over the whole batch (every data
+    shard), so a rank's loss is its rows' share of the global mean."""
     x = L.apply_norm(x, final_norm, cfg)
     B, S, D = x.shape
     v0, group = 0, None

@@ -10,9 +10,10 @@ weights are drawn from ``torch.Generator(device).manual_seed(dcfg.seed)``
 (the reference draws from ``PRNGKey(dcfg.seed)``; the two differ), so a
 run matches the reference step by step from the same weights, not from
 the same seed.  Over a process mesh (``mesh=``, a ``ProcessMesh`` or a
-``ShardCtx`` over one; a dense model) every rank runs the loop on its
-blocks: the same global batches, checkpoints gathered whole (rank 0
-writes them) and restored onto whatever mesh the restart has.
+``ShardCtx`` over one, that places the model: ``sharding.places``) every
+rank runs the loop on its blocks: the same global batches, checkpoints
+gathered whole (rank 0 writes them) and restored onto whatever mesh the
+restart has.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.checkpoint.checkpointing import CheckpointManager, latest_step
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import P, not_ported
+from repro_torch.distributed.sharding import P, not_ported, places
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build_model
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
@@ -58,7 +59,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
     report = report or TrainReport()
     dev = resolve_device(device)
     t0 = time.time()
-    if mesh is not None and cfg.family != "dense":
+    if mesh is not None and not places(cfg, mesh):
         raise not_ported(cfg, "run_training")
     model = build_model(cfg, device=dev, mesh=mesh).init(
         torch.Generator(device=dev).manual_seed(dcfg.seed)).trainable()

@@ -38,8 +38,11 @@ None)``, restored onto (2, 2) under ``P(None, "model")``) bitwise; a
 checkpoint the JAX package wrote restored onto (2, 2) bitwise;
 ``run_training`` restarted from a (2, 2) checkpoint at (1, 4) and (4, 1),
 its losses within 1e-5 relative of the one-process run's.
-(iv) The guards: another family over a process mesh with a data or model
-axis above 1 raises ``NotImplementedError`` naming item 22b.
+(iv) The guards: the encoder-decoder and VLM families over a process
+mesh with a data or model axis above 1 raise ``NotImplementedError``
+naming item 22b, and a model axis the widths do not divide raises; the
+SSM and hybrid families are placed there and decode as one process does
+(``test_torch_gspmd_families.py`` holds every placed family whole).
 """
 import subprocess
 import sys
@@ -434,9 +437,43 @@ def _fake_mesh(shape):
 
 @pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-1.5-large-398b",
                                   "whisper-large-v3", "internvl2-26b"])
-def test_other_families_raise_over_a_process_mesh(name):
+def test_other_families_raise_over_a_process_mesh(request, name):
+    """The encoder-decoder and VLM families raise there, naming item 22b;
+    the SSM and hybrid families are placed (each rank its blocks) and
+    decode as one process does (the world's (2, 2) decode, weights drawn
+    by the placed ``init``)."""
     cfg = tiny_config(name, dtype="float32")
     pm = _fake_mesh((2, 2))
+    if cfg.family in ("ssm", "hybrid"):
+        model = build_model(cfg, device="cpu", mesh=pm)
+        place = model.placement
+        assert place is not None
+        assert all(tuple(p.shape) == place.block_shape(n)
+                   for n, p in model.params().items())
+        assert model.layers[1].mamba.in_proj_x.shape == (
+            cfg.d_model // 2, cfg.d_inner // 2)
+        with use_shard_ctx(ShardCtx(pm)):
+            with pytest.raises(ValueError, match="mesh="):
+                build_model(cfg, device="cpu").decode(
+                    {}, torch.zeros((1, 1), dtype=torch.long), 0)
+        prompt = torch.tensor(request.getfixturevalue("runs")["prompt"])
+        one = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(ranks.VARIANT_SEED))
+        caches, logits = one.prefill(prompt, max_seq=ranks.DECODE_MAX_SEQ)
+        out, toks = [logits], []
+        for t in range(ranks.DECODE_STEPS):
+            toks.append(out[-1][:, -1].argmax(-1, keepdim=True))
+            caches, logits = one.decode(caches, toks[-1],
+                                        prompt.shape[1] + t)
+            out.append(logits)
+        logits, toks = torch.cat(out, 1).numpy(), torch.cat(toks, 1).numpy()
+        for r in request.getfixturevalue("runs")["world"]:
+            got = r["families"][name]
+            rows = slice(got["data_shard"], got["data_shard"] + 1)
+            np.testing.assert_array_equal(got["tokens"], toks[rows])
+            np.testing.assert_allclose(got["logits"], logits[rows], rtol=0,
+                                       atol=1e-4)
+        return
     with pytest.raises(NotImplementedError, match="22b"):
         build_model(cfg, device="cpu", mesh=pm)
     model = build_model(cfg, device="cpu", max_seq=24)
@@ -448,6 +485,18 @@ def test_other_families_raise_over_a_process_mesh(name):
     # one rank a process, no axis above 1: today's one-process path
     assert build_model(cfg, device="cpu", max_seq=24,
                        mesh=_fake_mesh((1, 1))).placement is None
+
+
+def test_a_model_axis_that_does_not_divide_raises_for_an_moe_model():
+    """A shared-expert width the model axis does not divide (90 over 4)
+    raises, as a head count does for a dense model; the reference's
+    replicated fallback is item 22b."""
+    cfg = tiny_config("qwen2-moe-a2.7b", d_ff_expert=90, dtype="float32")
+    with pytest.raises(ValueError, match="do not split.*22b"):
+        build_model(cfg, device="cpu", mesh=_fake_mesh((1, 4)))
+    # the same model over an axis that divides it is placed
+    assert build_model(tiny_config("qwen2-moe-a2.7b", dtype="float32"),
+                       device="cpu", mesh=_fake_mesh((1, 4))).placement
 
 
 def test_a_dense_model_must_be_placed_over_a_process_mesh():

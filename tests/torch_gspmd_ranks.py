@@ -40,6 +40,8 @@ DECODE_MAX_SEQ = 16
 VARIANTS = ("qwen3-4b", "qwen2-7b")
 VARIANT_SHAPES = ((2, 2), (1, 4))
 VARIANT_SEED = 9
+# the SSM and hybrid families placed over (2, 2), drawn by the placed init
+FAMILY_DECODES = ("mamba2-1.3b", "jamba-1.5-large-398b")
 
 
 def config():
@@ -138,6 +140,28 @@ def decode_case(pm, full, prompt, steps=DECODE_STEPS,
         out.append(logits)
     return {"data_shard": shard,
             "cache_positions": int(caches["k"].shape[3]),
+            "logits": _np(torch.cat(out, dim=1)),
+            "tokens": _np(torch.cat(toks, dim=1))}
+
+
+def family_decode_case(pm, name, prompt) -> Dict[str, Any]:
+    """A tiny ``name`` placed over ``pm``, its weights drawn by ``init``
+    (each drawn whole, the block kept): this rank's data shard of
+    ``prompt`` prefilled, then greedy steps; the logits and tokens."""
+    cfg = tiny_config(name, dtype="float32")
+    model = build_model(cfg, device="cpu", mesh=pm).init(
+        torch.Generator().manual_seed(VARIANT_SEED))
+    ctx = model.shard_ctx
+    b = prompt.shape[0] // pm.shape["data"]
+    mine = prompt[ctx.data_shard * b:(ctx.data_shard + 1) * b]
+    caches, logits = model.prefill(mine, max_seq=DECODE_MAX_SEQ)
+    out, toks = [logits], []
+    for t in range(DECODE_STEPS):
+        tok = out[-1][:, -1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        caches, logits = model.decode(caches, tok, mine.shape[1] + t)
+        out.append(logits)
+    return {"data_shard": ctx.data_shard,
             "logits": _np(torch.cat(out, dim=1)),
             "tokens": _np(torch.cat(toks, dim=1))}
 
@@ -257,6 +281,10 @@ def run_world(inp: Dict[str, Any]) -> Dict[str, Any]:
         if shape == (2, 2):
             res["decode"]["(2, 2)"] = decode_case(pm, full,
                                                   torch.tensor(inp["prompt"]))
+            res["families"] = {
+                name: family_decode_case(pm, name,
+                                         torch.tensor(inp["prompt"]))
+                for name in FAMILY_DECODES}
         if shape in VARIANT_SHAPES:
             for name in VARIANTS:
                 res.setdefault("variants", {})[f"{name}/{shape}"] = \

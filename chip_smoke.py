@@ -51,7 +51,7 @@ Phases (any failure raises and the script exits non-zero):
    timed and profiled;
 7. a small trace on ``cuda`` and on the CPU (the plain versions):
    identical completion order and ACTs; then the threefry walker (no
-   kernel) on the first 200 applications of phase 2's trace, composed
+   kernel) on the first 100 applications of phase 2's trace, composed
    with Gittins and with ``srpt_mean``, on ``cuda`` and on the CPU:
    identical schedules, ms per refresh call;
 8. hold each model kernel against its plain PyTorch version on the card
@@ -169,7 +169,7 @@ Phases (any failure raises and the script exits non-zero):
    launch for each shard with walk rows; ms per tick, launches per tick
    and walk rows per shard printed; K1 and K2 held to their plain
    versions at the 8-shard launch's rows; then ``run_sim`` at
-   ``mesh_shards=8`` on the first 300 applications of phase 2's trace
+   ``mesh_shards=8`` on the first 150 applications of phase 2's trace
    against ``SimConfig()`` on the same apps, on ``cuda`` and on the CPU:
    identical completion order and ACTs;
 29. the expert-parallel MoE (``moe_impl="ep"``, ``distributed/ep_moe.py``:
@@ -218,26 +218,33 @@ Phases (any failure raises and the script exits non-zero):
    uniform and skewed (lane-balanced) dirty sets with K1 and K2, bitwise
    to the single-arena delta tick in every rank, one K1 launch a tick in
    every rank that walks;
-35. ``run_sim`` at ``mesh_shards=4`` on phase 28's 300 applications in
+35. ``run_sim`` at ``mesh_shards=4`` on phase 28's 150 applications in
    every rank of the 4-rank world, with the calendar engine and the
    deprecated heap engine: the same result on every rank, equal to phase
    28's ``SimConfig()`` run;
 36. the GSPMD train step (``build_model(cfg, mesh=)``: FSDP over the data
    axes, tensor- and vocabulary-parallel over the model axis): Llama-3-8B
-   widths cut to 2 layers, bfloat16, 4 x 2,048 tokens, 2 steps over
+   widths cut to 2 layers, bfloat16, 4 x 2,048 tokens, 1 step over
    process mesh (2, 2) and 1 over (4, 1) in a 4-rank gloo world on
    cuda:0, and the gradients at (1, 1) over NCCL in this process; each
    rank's weights drawn whole and cut to its blocks, held to the
-   one-process port on the card from the same draw: losses within 5e-2, each gradient's cosine at least
-   0.99, each rank's weights a quarter of the whole but for the
+   one-process port on the card from the same draw: losses within 5e-2
+   (at (2, 2) also the next step's, from the updated weights), each
+   gradient's cosine at least 0.99, each rank's weights a quarter of the whole but for the
    replicated norm scales; step ms a rank beside one process's (gloo's
    host copies), peak memory and K3/K4 launches a rank.  The same step
-   for the MoE, SSM and hybrid families (``GSPMD_FAMILIES``): Qwen1.5-MoE
-   (sort dispatch) and Mamba2-1.3B at full width cut to 2 layers,
-   bfloat16, one step of 4 x 2,048 tokens over (2, 2); the tiny Jamba,
-   float32, 4 x 256 tokens: loss within 5e-2 (f32: 1e-4), cosines at
-   least 0.99, each rank's bytes its ``named_shardings`` blocks', tokens
-   whose top-k experts differ from one process's printed, K3/K4/K6/K7
+   for every other family (``GSPMD_FAMILIES``): Qwen1.5-MoE (sort
+   dispatch) and Mamba2-1.3B at full width cut to 2 layers, bfloat16,
+   one step of 4 x 2,048 tokens over (2, 2); the tiny Jamba, float32, 4
+   x 256 tokens; Whisper-large-v3 (2 encoder and 2 decoder layers, 4 x
+   448 tokens with 4 x 1,500 frames) and InternVL2-26B (2 layers, 4 x
+   (1,024 patches + 1,024 tokens)) at full width over (2, 2); and the
+   divisibility fallback, Qwen2-7B at full width, 2 layers, over a (1,
+   3) mesh of ranks 0-2 (its heads, KV heads, d_ff and projections'
+   columns computed whole, its vocabulary split): loss within 5e-2 (f32:
+   1e-4), cosines at least 0.99, each rank's bytes its
+   ``named_shardings`` blocks', the layers computed whole, tokens whose
+   top-k experts differ from one process's printed, K3/K4/K6/K7
    launches a rank, and the same at (1, 1) over NCCL;
 37. the sequence-sharded decode: Llama-3-8B widths cut to 4 layers,
    bfloat16, a 2 x 512-token prompt and 8 greedy steps over (1, 4) (and
@@ -259,15 +266,28 @@ Phases (any failure raises and the script exits non-zero):
    expert pass), a limit the one-process decode with one expert dropped
    must exceed, each rank's caches its
    ``cache_shardings`` blocks (the Mamba state by heads, the conv windows
-   by channels, the attention caches by positions), K3-K7 launches a
-   rank, and the same at (1, 1) over NCCL;
-38. the elastic restart: phase 36's (2, 2) state after 2 steps saved
+   by channels, the attention caches by positions, Whisper's cross
+   caches whole over ``model``), K3-K7 launches a rank, and the same at
+   (1, 1) over NCCL.  Whisper (a 2 x 24-token prompt with 1,500 frames, 8
+   steps, its cross-attention through K5's normal mode on a rank's heads)
+   and InternVL (2 x (1,024 patches + 24 tokens), 8 steps) over (1, 4);
+   Qwen2-7B over (1, 3): a 516-token prompt and 4 steps over 520 cache
+   positions, which 3 does not divide (whole caches, K5's normal mode);
+   each family's seconds printed;
+38. the elastic restart: phase 36's (2, 2) state after 1 step saved
    (gathered whole onto rank 0, which writes), restored onto (1, 4) and
    (4, 1): parameters and moments bitwise (a 64-bit fingerprint of every
    whole tensor's bits), the next step's loss within 5e-2 of the
    unbroken (2, 2) run's.
 
 ``--only gspmd`` builds the kernels and runs phases 36-38 alone.
+
+The order they run in: the build, then phases 36-38, while phases 2, 3,
+4, 7 and 28's ``run_sim`` runs (host-bound simulator traces) each run in
+a process of its own beside them (``_Background``: spawned, each with
+its own launch counters, its result sent back); then the rest in their
+numbered order, alone on the card, so that no kernel is timed beside
+another process's work.  Every phase prints its own seconds.
 
 Then one JSON line with every kernel's numbers (K3, K4, K6 and K7 also
 with their launches on the train path: phase 26 for K3 and K4, phase 24
@@ -287,16 +307,20 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import json
 import math
+import multiprocessing as mp
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1178,12 +1202,16 @@ def phase_delta_tick(device, W):
         qs.bump_refresh(walked)
 
 
+# the applications of phases 28 and 35's run_sim (a prefix of phase 2's
+# trace; 300 before the encoder-decoder, VLM and fallback cases of phases
+# 36-37 took its time)
+MESH_SIM_APPS = 150
 # phase 28's arms: (label, shards, lane_balance); each runs with K1 and K2
 MESH_ARMS = (("delta", None, None), ("mesh1", 1, None), ("mesh8", 8, None),
              ("mesh8_lane", 8, 0.25))
 
 
-def phase_mesh(device, W, So, n_apps, CAP=16384):
+def phase_mesh(device, W, So, CAP=16384):
     """The mesh path: phase 6's 16,384-slot arena with prewarming and the
     triage scalars, from one state, in eight arms — the 1-shard delta
     tick, the mesh at 1 and 8 shards, and the 8-shard mesh balancing lanes
@@ -1193,11 +1221,9 @@ def phase_mesh(device, W, So, n_apps, CAP=16384):
     (read through ``device_rows``) are held bitwise to the delta tick's
     with the same kernel, slot by slot; ms per tick, K1 and K2 launches
     per tick and walk rows per shard are printed.  K1 and K2 are held to
-    their plain versions at the 8-shard launch's rows.  Then ``run_sim``
-    at ``mesh_shards=8`` on the first ``n_apps`` applications of phase 2's
-    trace against ``SimConfig()`` on the same apps, on ``cuda`` and on the
-    CPU: identical completion order and ACTs.  Returns the K1 launches of
-    the ``cuda`` mesh run and the K2 launches of the K2 mesh ticks."""
+    their plain versions at the 8-shard launch's rows.  (Its ``run_sim``
+    arms are ``phase_mesh_sim``.)  Returns the K2 launches of the K2 mesh
+    ticks."""
     import numpy as np
     import torch
     from repro_torch.apps.suite import T_IN, T_OUT, build_knowledge_base
@@ -1205,7 +1231,6 @@ def phase_mesh(device, W, So, n_apps, CAP=16384):
     from repro_torch.core.hermeslet import warmup_time_for
     from repro_torch.core.pdgraph import pack_graphs
     from repro_torch.core.prewarm import build_prewarm_table
-    from repro_torch.core.refresh_config import RefreshConfig
     from repro_torch.core.refresh_mesh import RefreshMesh, refresh_ranks_mesh
     from repro_torch.core.refresh_pipeline import refresh_ranks_delta
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1345,10 +1370,21 @@ def phase_mesh(device, W, So, n_apps, CAP=16384):
     log(f"[mesh] K1/K2 held to their plain versions at {A} rows a shard")
     _check_kernel(device, A, W, So)
     _check_phase_kernel(device, A, W, So)
-    # run_sim at 8 shards against SimConfig() on the same apps
+    return k2_launches
+
+
+def phase_mesh_sim(n_apps):
+    """Phase 28's ``run_sim`` arms: ``mesh_shards=8`` on the first
+    ``n_apps`` applications of phase 2's trace against ``SimConfig()`` on
+    the same apps, on ``cuda`` and on the CPU: identical completion order
+    and ACTs.  Returns the K1 launches of the ``cuda`` mesh run and the
+    ``cuda`` ``SimConfig()`` result (phase 35's reference)."""
+    from repro_torch.apps.suite import build_knowledge_base
+    from repro_torch.core.refresh_config import RefreshConfig
+    from repro_torch.kernels.pdgraph_walk import kernel
     insts = _trace(n_apps)
     kb = build_knowledge_base(n_trials=100, seed=3)
-    k1 = 0
+    k1, default = 0, None
     for dev in ("cuda", "cpu"):
         res = {}
         for arm, rc in (("default", None),
@@ -1360,12 +1396,12 @@ def phase_mesh(device, W, So, n_apps, CAP=16384):
                              [kernel.NAME] if dev == "cuda" else [])
             res[arm] = r
             if dev == "cuda" and arm == "default":
-                SHARED["sim_default"] = r      # phase 35's reference
+                default = r
             if dev == "cuda" and arm == "mesh8":
                 k1 = launches[kernel.NAME]
         _same_schedule(f"mesh_sim mesh8 vs default ({dev})", res["default"],
                        res["mesh8"], 0.0)
-    return k1, k2_launches
+    return k1, default
 
 
 def _trace(n_apps):
@@ -1476,13 +1512,14 @@ def phase_main_path(device, n_apps):
     return res, launches, cfg.mc_walkers, ov_width, rows
 
 
-def phase_composed_path(device, n_apps, main_res):
+def phase_composed_path(device, n_apps):
     """The main path's trace with ``RefreshConfig(rank_in_kernel=False)``:
     every walk goes through the per-phase kernel; the reference's contract
-    is the same schedule as the in-kernel rank.  Records each K2 launch's
-    lanes, step range, apps and operands from its arguments (host shapes,
-    no device read).  Returns the launch counts and the apps per launch of
-    the median and the largest launch."""
+    is the same schedule as the in-kernel rank (the caller holds it to
+    phase 2's, which runs beside it).  Records each K2 launch's lanes,
+    step range, apps and operands from its arguments (host shapes, no
+    device read).  Returns the launch counts, the apps per launch of the
+    median and the largest launch, and the result."""
     from repro_torch.apps.suite import build_knowledge_base
     from repro_torch.core.refresh_config import RefreshConfig
     from repro_torch.kernels.pdgraph_walk import kernel
@@ -1507,7 +1544,6 @@ def phase_composed_path(device, n_apps, main_res):
         kernel.pdgraph_walk_kernel = inner
     _check_completed("composed path", res, insts, launches,
                      [kernel.PHASE_NAME])
-    _same_schedule("composed_path vs main_path", main_res, res, 0.0)
     if len(calls) != launches[kernel.PHASE_NAME]:
         raise AssertionError(f"composed path: {len(calls)} K2 calls "
                              f"recorded, {launches[kernel.PHASE_NAME]} "
@@ -1531,7 +1567,7 @@ def phase_composed_path(device, n_apps, main_res):
     apps = list(dict.fromkeys((median[3], largest[3])))
     log(f"[composed_path] median launch {median[:5]}, largest {largest[:5]}"
         f": apps per launch {apps}")
-    return launches, apps
+    return launches, apps, res
 
 
 # the drift benchmark's full scenario (benchmarks/drift.py, FULL)
@@ -1583,7 +1619,7 @@ def phase_posterior_path(device):
     return out["cuda"][1]
 
 
-def phase_threefry_path(n_apps=200):
+def phase_threefry_path(n_apps=100):
     """The threefry walker (plain PyTorch, no kernel) on the first
     ``n_apps`` applications of the main path's trace: the composed refresh
     with Gittins, and ``srpt_mean`` (host samples in every mode), each on
@@ -1617,6 +1653,12 @@ def phase_threefry_path(n_apps=200):
             out[dev] = res
         _same_schedule(f"threefry:{arm} cuda vs cpu", out["cpu"], out["cuda"],
                        1e-6)
+
+
+def phase_reference_and_threefry():
+    """Phase 7: the small trace, then the threefry walker."""
+    phase_reference()
+    phase_threefry_path()
 
 
 def phase_reference():
@@ -3344,7 +3386,7 @@ def _accumulated_grads(model, batch, n_mb):
 REMAT_POLICIES = ("full", "dots", "offloadable")
 
 
-def phase_remat(device, layers=8, seq=2048, batch=8, reps=3):
+def phase_remat(device, layers=8, seq=2048, batch=8, reps=2):
     """Phase 30: phase 26's configuration (Llama-3-8B widths cut to
     ``layers`` layers, bfloat16, ``microbatch=8``, remat, ``batch`` x
     ``seq`` tokens) from one set of weights and one batch: a ``"full"``
@@ -3411,7 +3453,6 @@ def phase_dryrun(tmp):
     """Phase 31: ``python -m repro_torch.launch.dryrun --arch
     qwen2-moe-a2.7b --shape train_4k --mesh single`` exits 0 and writes
     its record, which is printed."""
-    import os
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen2-moe-a2.7b", "--shape", "train_4k", "--mesh", "single",
@@ -3554,7 +3595,7 @@ def _proc_ticks(device, W, n, reps=PROC_TICK_REPS, CAP=16384):
     return out
 
 
-def _rank_ep(shape, ref, device=None, times=2, batch=None):
+def _rank_ep(shape, ref, device=None, times=1, batch=None):
     """Phase 33 in one rank: the full-depth bfloat16 Qwen1.5-MoE-A2.7B of
     ``PERF_PRESETS`` over the process ``shape`` mesh (gloo; every rank on
     cuda:0), this rank's share drawn layer by layer; its data shard of a
@@ -3766,7 +3807,7 @@ def phase_processes(W, n_apps):
     in every rank, prefill ms, peak memory a rank; 34: the 4-rank mesh
     tick on the 16,384-slot arena against the delta tick
     (``_proc_ticks``); 35:
-    ``run_sim`` at ``mesh_shards=4`` on 300 applications in every rank,
+    ``run_sim`` at ``mesh_shards=4`` on 150 applications in every rank,
     with the calendar engine and the deprecated heap engine: the same
     result on every rank, equal to phase 28's ``SimConfig()`` run.
     Returns each kernel's launches per rank."""
@@ -3838,12 +3879,12 @@ def phase_processes(W, n_apps):
 # Phases 36-38: the GSPMD paths across processes (Llama-3-8B widths)
 
 GSPMD_AXES = ("data", "model")
-# 2 of 32 layers, bf16, a global batch of 4 x 2,048 tokens, 2 steps (the
-# (2, 2) run's, saved for phase 38)
-GSPMD_TRAIN = dict(layers=2, batch=4, seq=2048, steps=2, seed=31)
-# phase 36's meshes and the steps timed on each: (4, 1), whose FSDP gathers
-# and reduce-scatters over four ranks move three times (2, 2)'s bytes
-# through gloo's host copies, times the first step only
+# 2 of 32 layers, bf16, a global batch of 4 x 2,048 tokens, 1 step (the
+# (2, 2) run's, saved for phase 38; its next step's loss, from the updated
+# weights, is held to one process's)
+GSPMD_TRAIN = dict(layers=2, batch=4, seq=2048, steps=1, seed=31)
+# phase 36's meshes and the steps timed on each: one (a second step at
+# (2, 2) repeated the first's path and time)
 GSPMD_TRAIN_MESHES = {(2, 2): GSPMD_TRAIN["steps"], (4, 1): 1}
 GSPMD_RESTORE_MESHES = ((1, 4), (4, 1))
 # 4 of 32 layers, bf16, a 2 x 512-token prompt, 8 greedy steps over (1, 4)
@@ -4181,19 +4222,34 @@ def _placed_decode(pm, ref):
 
 
 # ---------------------------------------------------------------------------
-# Phases 36-37 for the MoE, SSM and hybrid families (roadmap item 22b)
+# Phases 36-37 for every other family, and the divisibility fallback
 
 # Qwen1.5-MoE and Mamba2-1.3B at full width cut to 2 layers, bfloat16: a
 # train step of 4 x 2,048 tokens over (2, 2), a 2 x 512-token prompt and 8
 # greedy steps over (1, 4); the tiny Jamba, float32, whose plan puts
 # attention, Mamba2 and MoE layers in one model: 4 x 256 tokens, a 2 x
-# 64-token prompt and 4 steps
+# 64-token prompt and 4 steps.  Whisper-large-v3 at full width, 2 encoder
+# and 2 decoder layers: 4 x 448 tokens with 4 x 1,500 frames, a 2 x
+# 24-token prompt with 1,500 frames and 8 steps (448 learned positions);
+# InternVL2-26B at full width, 2 layers: 4 x (1,024 patches + 1,024
+# tokens), a 2 x (1,024 patches + 24 tokens) prompt and 8 steps.  Qwen2-7B
+# at full width, 2 layers, over a (1, 3) mesh of ranks 0-2 (``mesh``),
+# where its 28 heads, 4 KV heads, d_ff 18,944 and the 3,584 columns of
+# its projections do not divide and are computed whole, and the
+# vocabulary splits: one gradient step of 2 x 512 tokens, then a 516-token
+# prompt and 4 steps over 520 cache positions, which the seq axis of 3
+# does not divide (whole caches, K5's normal mode)
 GSPMD_FAMILIES = {
     "qwen2-moe-a2.7b": dict(layers=2, batch=4, seq=2048, prompt=512,
                             steps=8),
     "mamba2-1.3b": dict(layers=2, batch=4, seq=2048, prompt=512, steps=8),
     "jamba-1.5-large-398b": dict(layers=None, batch=4, seq=256, prompt=64,
                                  steps=4),
+    "whisper-large-v3": dict(layers=2, batch=4, seq=448, prompt=24, steps=8,
+                             max_seq=WHISPER_MAX_SEQ),
+    "internvl2-26b": dict(layers=2, batch=4, seq=1024, prompt=24, steps=8),
+    "qwen2-7b": dict(layers=2, batch=2, seq=512, prompt=516, steps=4,
+                     mesh=(1, 3), whole=("attn", "mlp")),
 }
 GSPMD_FAMILY_SEED = 43
 # Qwen1.5-MoE's sharded decode: its largest |logit - one-process bf16
@@ -4209,22 +4265,60 @@ GSPMD_FAMILY_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
 
 
 def _family_cfg(name):
-    """Full width cut to the family's layers (bfloat16), or the tiny
-    configuration (float32)."""
+    """Full width cut to the family's layers (bfloat16; an
+    encoder-decoder's encoder too), or the tiny configuration
+    (float32)."""
     from repro_torch.config import get_config
     from repro_torch.testing import tiny_config
     layers = GSPMD_FAMILIES[name]["layers"]
     if layers is None:
         return tiny_config(name, dtype="float32")
-    return get_config(name).replace(num_layers=layers)
+    cfg = get_config(name).replace(num_layers=layers)
+    return cfg.replace(enc_layers=layers) if cfg.enc_layers else cfg
+
+
+def _family_meshes(name):
+    """(train mesh, decode mesh) of a family's phase 36 and 37 cases."""
+    mesh = GSPMD_FAMILIES[name].get("mesh")
+    return ((mesh, mesh) if mesh else
+            (GSPMD_FAMILY_TRAIN_MESH, GSPMD_FAMILY_DECODE_MESH))
+
+
+def _family_model(cfg, name, device, mesh=None):
+    """The family's model (its learned positions, where it has them),
+    placed over ``mesh`` if given; weights uninitialised."""
+    from repro_torch.models.model import build_model
+    return build_model(cfg, device=device, mesh=mesh,
+                       max_seq=GSPMD_FAMILIES[name].get("max_seq", 0))
 
 
 def _family_batch(cfg, name):
-    from repro_torch.data.pipeline import DataConfig, batch_at
+    """``batch_at``'s tokens, with the stub frontend's frames or patch
+    embeddings of the encoder-decoder and the VLM (``side_inputs``)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at, side_inputs
     spec = GSPMD_FAMILIES[name]
-    return batch_at(DataConfig(vocab_size=cfg.vocab_size,
-                               seq_len=spec["seq"],
-                               global_batch=spec["batch"]), 0)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                      global_batch=spec["batch"])
+    return {**batch_at(dcfg, 0), **side_inputs(cfg, dcfg, 0)}
+
+
+def _family_prompt(cfg, name):
+    """The decode's 2-row prompt and its frames or patch embeddings (the
+    keyword arguments of ``prefill``), on the CPU."""
+    import torch
+    gen = torch.Generator().manual_seed(38)
+    prompt = torch.randint(1, cfg.vocab_size,
+                           (2, GSPMD_FAMILIES[name]["prompt"]), generator=gen)
+    side = (_side_input(cfg, 2, gen) if cfg.family in ("encdec", "vlm")
+            else {})
+    return prompt, side
+
+
+def _prefilled(cfg, prompt):
+    """The positions a prefill of ``prompt`` fills: a VLM's patches
+    first."""
+    return prompt.shape[1] + (cfg.vision_patches if cfg.family == "vlm"
+                              else 0)
 
 
 def _family_tols(cfg):
@@ -4275,13 +4369,13 @@ def _launch_counts():
     return {n: LAUNCHES.get(n, 0) for n in GSPMD_FAMILY_KERNELS}
 
 
-def _forced_logits(model, prompt, toks):
-    """The float32 logits of ``prompt``'s prefill, then of each of the
-    teacher-forced ``toks`` (B, steps) decoded in turn."""
+def _forced_logits(model, prompt, toks, side):
+    """The float32 logits of ``prompt``'s prefill (with ``side``), then of
+    each of the teacher-forced ``toks`` (B, steps) decoded in turn."""
     import torch
-    S, steps = prompt.shape[1], toks.shape[1]
+    S, steps = _prefilled(model.cfg, prompt), toks.shape[1]
     dev = model.device
-    caches, lg = model.prefill(prompt.to(dev), max_seq=S + steps)
+    caches, lg = model.prefill(prompt.to(dev), max_seq=S + steps, **side)
     out = [lg.float().cpu()]
     for t in range(steps):
         caches, lg = model.decode(caches, toks[:, t:t + 1].to(dev), S + t)
@@ -4289,7 +4383,7 @@ def _forced_logits(model, prompt, toks):
     return torch.cat(out, 1)
 
 
-def _dropped_expert(model, prompt, toks, step_routes, logits):
+def _dropped_expert(model, prompt, side, toks, step_routes, logits):
     """The control of ``GSPMD_MOE_LOGIT_TOL``: the one-process decode,
     teacher-forced as the sound run, with the expert its steps route most
     copies to dropped (its ``wo`` zeroed in every MoE layer, then put
@@ -4303,7 +4397,7 @@ def _dropped_expert(model, prompt, toks, step_routes, logits):
         kept = [w[e].clone() for w in wos]
         for w in wos:
             w[e].zero_()
-        got = _forced_logits(model, prompt, toks)
+        got = _forced_logits(model, prompt, toks, side)
         for w, k in zip(wos, kept):
             w[e].copy_(k)
     return e, float((got - logits).abs().max())
@@ -4322,8 +4416,7 @@ def _family_reference(device, tmp, name):
     from repro_torch.models.model import build_model
     from repro_torch.training.optimizer import global_norm
     cfg = _family_cfg(name)
-    spec = GSPMD_FAMILIES[name]
-    model = build_model(cfg, device=device).init(torch.Generator(
+    model = _family_model(cfg, name, device).init(torch.Generator(
         device=device).manual_seed(GSPMD_FAMILY_SEED)).trainable()
     params = model.params()
     step = make_train_step(model, _gspmd_tcfg())
@@ -4345,14 +4438,15 @@ def _family_reference(device, tmp, name):
                            for p in params.values()))
     del params, step, grads     # the weights stay as drawn: no update
     _free()
-    B, S, steps = 2, spec["prompt"], spec["steps"]
-    prompt = torch.randint(1, cfg.vocab_size, (B, S),
-                           generator=torch.Generator().manual_seed(38))
+    steps = GSPMD_FAMILIES[name]["steps"]
+    prompt, side = _family_prompt(cfg, name)
+    S = _prefilled(cfg, prompt)
     reset_launches()
     with _Routes() as routes:
         _sync(device)
         t0 = time.perf_counter()
-        caches, logits = model.prefill(prompt.to(device), max_seq=S + steps)
+        caches, logits = model.prefill(prompt.to(device), max_seq=S + steps,
+                                       **side)
         _sync(device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_launches = _launch_counts()
@@ -4376,15 +4470,15 @@ def _family_reference(device, tmp, name):
     control = None
     if cfg.dtype != "float32":
         if cfg.num_experts:
-            control = _dropped_expert(model, prompt, toks,
+            control = _dropped_expert(model, prompt, side, toks,
                                       routes.calls[n_prefill:], logits)
-        f32 = build_model(cfg.replace(dtype="float32"), device=device)
+        f32 = _family_model(cfg.replace(dtype="float32"), name, device)
         f32.load_params({n: p.float() for n, p in model.params().items()})
         del model
         _free()
-        logits32 = _forced_logits(f32, prompt, toks)
+        logits32 = _forced_logits(f32, prompt, toks, side)
         model = f32
-    ref.update(prompt=prompt.numpy(), tokens=toks.numpy(),
+    ref.update(prompt=prompt.numpy(), side=side, tokens=toks.numpy(),
                logits=logits.numpy(), logits_f32=logits32.numpy(),
                prefill_ms=prefill_ms, decode_ms=dms,
                prefill_launches=prefill_launches,
@@ -4395,6 +4489,14 @@ def _family_reference(device, tmp, name):
     del model
     _free()
     return ref
+
+
+def _barrier(pm):
+    """A barrier over the ranks of the process mesh ``pm`` (which may be
+    fewer than the world's): over each axis's group in turn."""
+    import torch.distributed as dist
+    for a in pm.axis_names:
+        dist.barrier(group=pm.group(a))
 
 
 def _placed_bytes(place, params):
@@ -4417,39 +4519,45 @@ def _placed_bytes(place, params):
     return mine, want, split, whole_split
 
 
-def _draw_family(cfg, pm):
+def _draw_family(cfg, name, pm):
     """The model placed over the process mesh ``pm``, each weight drawn
     whole (the one-process model's draw) and cut to this rank's block,
-    every rank at once (a draw's largest float32 temporary, Qwen1.5-MoE's
-    embedding, is 1.2 GB)."""
+    every rank at once (a draw's largest float32 temporary, Qwen2-7B's
+    embedding, is 2.2 GB)."""
     import torch
-    import torch.distributed as dist
-    from repro_torch.models.model import build_model
-    model = build_model(cfg, device=pm.device, mesh=pm).init(
+    model = _family_model(cfg, name, pm.device, pm).init(
         torch.Generator(device=pm.device).manual_seed(GSPMD_FAMILY_SEED))
     _sync(pm.device)
-    dist.barrier()
+    _barrier(pm)
     return model
+
+
+def _fallbacks(model):
+    """The layers a placed model computes whole (``layers.fallback``) and
+    whether its vocabulary is split over ``model``."""
+    from repro_torch.models import layers as L
+    ctx = model.shard_ctx
+    n = ctx.mesh.shape[ctx.model_axis] if ctx.model_axis else 1
+    whole = sorted(k for k, v in L.fallback(model.cfg, n).items() if v)
+    return whole, model.placement.specs["embed"][0] is not None
 
 
 def _family_train(pm, ref, name):
     """Phase 36 for one family in one rank: the gradients of the batch
     (launches and routing recorded), their cosines to the one-process
     port's, then the update; the rank's bytes beside its blocks'."""
-    import torch
-    import torch.distributed as dist
     from repro_torch.kernels import reset_launches
     from repro_torch.launch.steps import make_train_step
     from repro_torch.training.optimizer import init_opt_state
     cfg = _family_cfg(name)
-    model = _draw_family(cfg, pm).trainable()
+    model = _draw_family(cfg, name, pm).trainable()
     place = model.placement
     params = model.params()
     mine, want, split, whole_split = _placed_bytes(place, params)
     step = make_train_step(model, _gspmd_tcfg())
     batch = _family_batch(cfg, name)
     _peak(pm.device, reset=True)
-    dist.barrier()
+    _barrier(pm)
     _sync(pm.device)
     reset_launches()
     with _Routes() as routes:
@@ -4463,7 +4571,7 @@ def _family_train(pm, ref, name):
     params, state, m = step.apply(params, state, loss, grads)
     out = dict(rank=pm.rank, coords=list(pm.coords), grad_loss=float(loss),
                grad_norm=float(m["grad_norm"]), grad_ms=grad_ms,
-               launches=launches,
+               launches=launches, size=pm.size, fallbacks=_fallbacks(model),
                cosines=cos, weights=mine, expected=want, split=split,
                whole_split=whole_split,
                rerouted=_rerouted(routes.calls, ref["routes"]),
@@ -4479,23 +4587,23 @@ def _family_decode(pm, ref, name):
     rank's blocks of them), then the one-process port's greedy tokens
     decoded (teacher-forced, so every step's logits are comparable)."""
     import torch
-    import torch.distributed as dist
     from repro_torch.distributed.sharding import block_shape
     from repro_torch.kernels import reset_launches
     from repro_torch.launch.steps import cache_shardings
     cfg = _family_cfg(name)
-    model = _draw_family(cfg, pm)
+    model = _draw_family(cfg, name, pm)
     prompt = torch.as_tensor(ref["prompt"]).to(pm.device)
     forced = torch.as_tensor(ref["tokens"]).to(pm.device)
-    S, steps = prompt.shape[1], forced.shape[1]
+    S, steps = _prefilled(cfg, prompt), forced.shape[1]
     _peak(pm.device, reset=True)
-    dist.barrier()
+    _barrier(pm)
     _sync(pm.device)
     reset_launches()
     ms = []
     with _Routes() as routes:
         t0 = time.perf_counter()
-        caches, logits = model.prefill(prompt, max_seq=S + steps)
+        caches, logits = model.prefill(prompt, max_seq=S + steps,
+                                       **ref["side"])
         _sync(pm.device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_launches = _launch_counts()
@@ -4518,6 +4626,7 @@ def _family_decode(pm, ref, name):
     specs = cache_shardings(model.shard_ctx, full,
                             seq_axes=model.shard_ctx.seq_axes)
     res = dict(rank=pm.rank, prefill_ms=prefill_ms, step_ms=ms,
+               seq_split=caches.seq_split,
                prefill_launches=prefill_launches,
                step_launches=step_launches,
                caches={k: tuple(c.shape) for k, c in caches.items()},
@@ -4545,11 +4654,10 @@ def _family_nccl(device, pm, ref, name):
     import torch
     from repro_torch.kernels import reset_launches
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.model import build_model
     from repro_torch.models.transformer import layer_kinds
     cfg = _family_cfg(name)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=device, mesh=pm).init(torch.Generator(
+    model = _family_model(cfg, name, device, pm).init(torch.Generator(
         device=device).manual_seed(GSPMD_FAMILY_SEED)).trainable()
     step = make_train_step(model, _gspmd_tcfg())
     reset_launches()
@@ -4560,8 +4668,8 @@ def _family_nccl(device, pm, ref, name):
     _free()
     prompt = torch.as_tensor(ref["prompt"]).to(device)
     forced = torch.as_tensor(ref["tokens"]).to(device)
-    S, steps = prompt.shape[1], forced.shape[1]
-    caches, logits = model.prefill(prompt, max_seq=S + steps)
+    S, steps = _prefilled(cfg, prompt), forced.shape[1]
+    caches, logits = model.prefill(prompt, max_seq=S + steps, **ref["side"])
     reset_launches()
     out = [logits.float().cpu()]
     for t in range(steps):
@@ -4588,7 +4696,8 @@ def _family_nccl(device, pm, ref, name):
             != n_attn * steps * card):
         raise AssertionError(f"[gspmd_nccl {name}] the (1, 1) step or "
                              "decode differs from the one-process port")
-    return {"train": launches, "decode": step_launches}
+    return {"train": launches, "decode": step_launches,
+            "s": time.perf_counter() - t0}
 
 
 def _rank_gspmd(ref):
@@ -4596,7 +4705,7 @@ def _rank_gspmd(ref):
     rank on cuda:0)."""
     import torch
     import torch.distributed as dist
-    from repro_torch.launch.mesh import init_process_mesh
+    from repro_torch.launch.mesh import init_process_mesh, process_submesh
     torch.backends.cuda.matmul.allow_tf32 = False
     device = ref["device"]
     cfg = _gspmd_cfg(GSPMD_TRAIN["layers"])
@@ -4627,9 +4736,17 @@ def _rank_gspmd(ref):
                               backend="gloo", device=device)
     decode = init_process_mesh(GSPMD_FAMILY_DECODE_MESH, GSPMD_AXES,
                                backend="gloo", device=device)
+    meshes = {GSPMD_FAMILY_TRAIN_MESH: train,
+              GSPMD_FAMILY_DECODE_MESH: decode,
+              # ranks 0-2; rank 3 outside it
+              (1, 3): process_submesh((1, 3), GSPMD_AXES, [[0, 1, 2]],
+                                      train.device)}
     out["families"] = {}
     for name in GSPMD_FAMILIES:
         fref = ref["families"][name]
+        train, decode = (meshes[m] for m in _family_meshes(name))
+        if train is None:       # not a rank of this family's mesh
+            continue
         t1 = time.perf_counter()
         fam = out["families"][name] = {"train": _family_train(train, fref,
                                                               name)}
@@ -4882,9 +4999,11 @@ def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name):
 
 
 def _check_gspmd_families(world, ref, nccl, launches, card):
-    """Phases 36 and 37 for the MoE, SSM and hybrid families: each rank's
+    """Phases 36 and 37 for every family but the dense one (and for
+    Qwen2-7B over (1, 3), the divisibility fallback): each rank's
     train step at ``GSPMD_FAMILY_TRAIN_MESH`` and decode at
-    ``GSPMD_FAMILY_DECODE_MESH`` held to the one-process port (bfloat16:
+    ``GSPMD_FAMILY_DECODE_MESH`` (or the family's ``mesh``) held to the
+    one-process port (bfloat16:
     loss within 5e-2, gradient cosines at least 0.99, the decode's
     largest |logit - float32 logit| at most ``GSPMD_F32_GAP`` times the
     one-process port's, tokens identical where the top-2 margin exceeds
@@ -4892,22 +5011,31 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
     ``GSPMD_MOE_LOGIT_TOL``, which its control must exceed; float32: loss
     and logits within 1e-4), each rank's weights and
     caches its blocks under ``named_shardings`` and ``cache_shardings``,
-    and each kernel's launches a rank; adds those launches to
-    ``launches`` and returns K5's partial-mode launches."""
+    and each kernel's launches a rank; Qwen2-7B's layers computed whole
+    but its vocabulary split; adds those launches to ``launches`` and
+    returns K5's partial-mode launches."""
     from repro_torch.models.transformer import layer_kinds
     partial = {}
-    for n in ("moe_gmm", "ssd_scan"):
+    for n in ("decode_attention", "moe_gmm", "ssd_scan"):
         launches[n] = {}
     log(f"[gspmd_families] world {world[0]['families_s']:.1f} s: " + ", ".join(
         f"{name} train {world[0]['families'][name]['s'][0]:.1f} s, decode "
         f"{world[0]['families'][name]['s'][1]:.1f} s"
         for name in GSPMD_FAMILIES))
+    for name in GSPMD_FAMILIES:     # each family's seconds, every part
+        parts = (ref["families"][name]["ref_s"], nccl["families"][name]["s"],
+                 *world[0]["families"][name]["s"])
+        log(f"[gspmd_family_s {name}] one process {parts[0]:.1f} s, (1, 1) "
+            f"over NCCL {parts[1]:.1f} s, the world's train {parts[2]:.1f} "
+            f"s and decode {parts[3]:.1f} s: {sum(parts):.1f} s")
     for name, spec in GSPMD_FAMILIES.items():
         fref = ref["families"][name]
         cfg = _family_cfg(name)
         tol, f32 = _family_tols(cfg)
         n_attn = sum(m == "attn" for m, _ in layer_kinds(cfg))
-        split = GSPMD_FAMILY_TRAIN_MESH[1] > 1
+        train_mesh, decode_mesh = _family_meshes(name)
+        ranks = [w for w in world if name in w["families"]]
+        split = train_mesh[1] > 1
         want = dict(fref["launches"])
         want["rmsnorm"] -= _gated_norms(cfg, True) * split * card
         log(f"[gspmd_ref {name}] one process: gradients {fref['grad_ms']:.3f}"
@@ -4917,10 +5045,10 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
             f"launches {fref['prefill_launches']} then "
             f"{fref['step_launches']}; |logit - float32 logit| "
             f"{fref['bf16_err']}; {fref['ref_s']:.1f} s")
-        for w in world:
+        for w in ranks:
             r = w["families"][name]["train"]
             worst = min(r["cosines"], key=r["cosines"].get)
-            log(f"[gspmd_train {name} {GSPMD_FAMILY_TRAIN_MESH}] rank "
+            log(f"[gspmd_train {name} {train_mesh}] rank "
                 f"{r['rank']} {tuple(r['coords'])}: gradients' loss "
                 f"{r['grad_loss']:.6f} (one process {fref['grad_loss']:.6f})"
                 f", the update's gradient norm {r['grad_norm']:.6f} (one "
@@ -4931,21 +5059,27 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
                 f"(named_shardings' blocks {r['expected']}), "
                 f"{r['weights'] / fref['weights']:.6f} of the whole, its "
                 f"blocks of the tensors split over both axes "
-                f"{r['split']} of {r['whole_split']}; tokens rerouted "
+                f"{r['split']} of {r['whole_split']}; layers computed whole "
+                f"{r['fallbacks'][0]}, vocabulary split {r['fallbacks'][1]};"
+                f" tokens rerouted "
                 f"{r['rerouted'][0]} of {r['rerouted'][1]}; launches "
                 f"{r['launches']} (want {want}); peak {r['peak']}")
+            # the layers the family's mesh computes whole; the vocabulary
+            # splits everywhere
+            fallback = (list(spec.get("whole", ())), True)
             if (abs(r["grad_loss"] - fref["grad_loss"]) > tol
                     or r["cosines"][worst] < GRAD_COSINE_MIN
                     or r["weights"] != r["expected"]
-                    or 4 * r["split"] != r["whole_split"]
+                    or r["size"] * r["split"] != r["whole_split"]
+                    or tuple(r["fallbacks"]) != fallback
                     or r["launches"] != want):
                 raise AssertionError(f"[gspmd_train {name}] rank "
                                      f"{r['rank']} differs from the "
                                      f"one-process port")
         for n in launches:
             launches[n][f"GSPMD {name} train step gradients "
-                        f"{GSPMD_FAMILY_TRAIN_MESH}, gloo, per rank"] = [
-                w["families"][name]["train"]["launches"][n] for w in world]
+                        f"{train_mesh}, gloo, per rank"] = [
+                w["families"][name]["train"]["launches"][n] for w in ranks]
         steps = spec["steps"]
         f32_tol = tol if f32 else GSPMD_F32_GAP * fref["bf16_err"]
         port_tol = math.inf
@@ -4958,18 +5092,25 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
             if control <= port_tol:
                 raise AssertionError(f"[gspmd_ref {name}] the decode's limit "
                                      f"does not see one expert dropped")
-        split = GSPMD_FAMILY_DECODE_MESH[1] > 1
+        split = decode_mesh[1] > 1
+        # the self caches' positions split over the model axis, or whole
+        seq_split = (_prefilled(cfg, fref["prompt"]) + steps) % \
+            decode_mesh[1] == 0
         want_prefill = dict(fref["prefill_launches"])
         want_prefill["rmsnorm"] -= _gated_norms(cfg, False) * split * card
         want_steps = dict(fref["step_launches"])
         want_steps["rmsnorm"] -= (_gated_norms(cfg, False) * steps * split
                                   * card)
-        want_steps["decode_attention_partial"] = n_attn * steps * card
-        want_steps["decode_attention"] = 0
-        for w in world:
+        # the self-attention's steps: K5's partial mode over split caches
+        # (the cross-attention's stay in its normal mode)
+        self_steps = n_attn * steps * card * seq_split
+        want_steps["decode_attention_partial"] = self_steps
+        want_steps["decode_attention"] -= self_steps
+        for w in ranks:
             r = w["families"][name]["decode"]
-            log(f"[gspmd_decode {name} {GSPMD_FAMILY_DECODE_MESH}] rank "
-                f"{r['rank']}: caches {r['caches']} (cache_shardings' "
+            log(f"[gspmd_decode {name} {decode_mesh}] rank "
+                f"{r['rank']}: caches {r['caches']}, positions split "
+                f"{r['seq_split']} (cache_shardings' "
                 f"blocks {r['caches_ok']}); prefill {r['prefill_ms']:.3f} ms"
                 f" (one process {fref['prefill_ms']:.3f}); decode ms a step "
                 f"{[round(x, 3) for x in r['step_ms']]} (one process "
@@ -4987,6 +5128,7 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
             bad = (r["f32_err"] > f32_tol or not r["tokens_same"]
                    or r["max_abs_err"] > port_tol)
             if (bad or not r["finite"] or not r["caches_ok"]
+                    or r["seq_split"] != seq_split
                     or r["step_launches"] != want_steps
                     or r["prefill_launches"] != want_prefill):
                 raise AssertionError(f"[gspmd_decode {name}] rank "
@@ -4994,15 +5136,15 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
                                      f"one-process port or its launches "
                                      f"are off")
         for n in launches:
-            launches[n][f"GSPMD {name} decode {GSPMD_FAMILY_DECODE_MESH}, "
+            launches[n][f"GSPMD {name} decode {decode_mesh}, "
                         f"prefill and {steps} steps, gloo, per rank"] = [
                 w["families"][name]["decode"]["prefill_launches"][n]
                 + w["families"][name]["decode"]["step_launches"][n]
-                for w in world]
-        partial[f"GSPMD {name} decode {GSPMD_FAMILY_DECODE_MESH}, {steps} "
+                for w in ranks]
+        partial[f"GSPMD {name} decode {decode_mesh}, {steps} "
                 f"steps, gloo, per rank"] = [
             w["families"][name]["decode"]["step_launches"][
-                "decode_attention_partial"] for w in world]
+                "decode_attention_partial"] for w in ranks]
         fam = nccl["families"][name]
         for n in launches:
             launches[n][f"GSPMD {name} train step gradients (1, 1), "
@@ -5012,14 +5154,15 @@ def _check_gspmd_families(world, ref, nccl, launches, card):
     return partial
 
 
-def phase_gspmd(device, tmp):
+def phase_gspmd(device, tmp, settle=None):
     """Phases 36-38: the GSPMD paths across processes (dense Llama-3-8B
     widths, bfloat16), each rank of a 4-rank gloo world on cuda:0 held to
     the one-process port on the card from the same weights (each rank
     drawing every weight whole and keeping its block), and the same code
     at (1, 1) over NCCL here.  36: the FSDP and tensor-parallel train step
-    (2 layers, 4 x 2,048 tokens; 2 steps over (2, 2), 1 over (4, 1)): loss
-    within 5e-2, each gradient's cosine at least 0.99, each rank's weights
+    (2 layers, 4 x 2,048 tokens; 1 step over (2, 2) and over (4, 1)): loss
+    within 5e-2, and the (2, 2) run's next loss, from its updated weights,
+    within 5e-2 of one process's, each gradient's cosine at least 0.99, each rank's weights
     a quarter of the whole (but for the replicated norm scales), step ms,
     peak memory and K3/K4 launches a rank; 37: the sequence-sharded
     decode (4 layers, 2 x 512-token prompt, 8 greedy steps) over (1, 4):
@@ -5028,12 +5171,14 @@ def phase_gspmd(device, tmp):
     tokens identical where the one-process top-2 margin exceeds 5e-2, K5's
     partial mode against its plain twin on each rank (rows of length 0
     included), decode ms a step, K5 launches a rank;
-    38: the (2, 2) train state after 2 steps saved (gathered whole, rank 0
+    38: the (2, 2) train state after 1 step saved (gathered whole, rank 0
     writes), restored onto (1, 4) and (4, 1): parameters and moments
     bitwise (fingerprints of every whole tensor), one more step's loss
     within 5e-2 of the unbroken (2, 2) run's.  Times are those of gloo's
-    host copies between 4 processes on one card, not NCCL's.  Returns the
-    K5 partial-mode kernel entry and the launches."""
+    host copies between 4 processes on one card, not NCCL's.  ``settle``,
+    if given, is called before K5's partial mode is timed (it waits for
+    the processes running beside this phase).  Returns the K5
+    partial-mode kernel entry and the launches."""
     import torch
     from repro_torch.launch.procs import spawn
     t0 = time.perf_counter()
@@ -5073,9 +5218,19 @@ def phase_gspmd(device, tmp):
                 f"{r['weights'] / ref['weights']:.6f} of the whole "
                 f"({r['replicated']} bytes of replicated norm scales); peak "
                 f"{r['peak']}; launches {r['launches']}")
+            # the loss after the last timed step's update: the (2, 2) run's
+            # next step (phase 38's) against the one-process port's
+            nxt = r.get("next_loss")
+            if nxt is not None:
+                log(f"[gspmd_train {shape}] rank {r['rank']}: the next "
+                    f"step's loss {nxt:.6f} (one process "
+                    f"{ref['losses'][GSPMD_TRAIN['steps']]:.6f})")
             bad = (abs(r["grad_loss"] - ref["grad_loss"]) > MODEL_BF16_TOL
                    or any(abs(a - b) > MODEL_BF16_TOL for a, b in
                           zip(r["losses"], ref["losses"]))
+                   or (nxt is not None and abs(
+                       nxt - ref["losses"][GSPMD_TRAIN["steps"]])
+                       > MODEL_BF16_TOL)
                    or r["cosines"][worst] < GRAD_COSINE_MIN
                    or r["launches"] != ref["launches"]
                    or 4 * (r["weights"] - r["replicated"])
@@ -5148,6 +5303,8 @@ def phase_gspmd(device, tmp):
                                              card)
     cfg = _gspmd_cfg(layers)
     Sl = world[0]["decode"]["cache_positions"]
+    if settle is not None:
+        settle()
     entry = _kernel_entry("decode_attention", _check_decode_partial(
         device, GSPMD_DECODE["batch"], cfg.num_heads, cfg.num_kv_heads,
         cfg.resolved_head_dim(), Sl, [Sl, Sl - 1, 0, 1], "bfloat16"),
@@ -5164,6 +5321,97 @@ def phase_gspmd(device, tmp):
         launches[n]["GSPMD train step gradients (1, 1), NCCL"] = \
             nccl["train"][n]
     return entry, launches
+
+
+# each phase's own seconds (host clock), in the order run
+PHASE_S = {}
+
+
+def _background_child(name, fn, args, send):
+    """A background phase's process: ``fn(*args)``, its seconds printed;
+    sends (ok, result or traceback, seconds)."""
+    try:
+        import torch
+        # the simulators' CPU work is single-threaded Python: fewer intra-op
+        # threads, and a lower priority, leave the cores to the phases on
+        # the critical path beside it
+        torch.set_num_threads(2)
+        os.nice(5)
+        t0 = time.perf_counter()
+        val = fn(*args)
+        sec = time.perf_counter() - t0
+        log(f"[phase {name}] {sec:.1f} s (a process of its own)")
+        send.send((True, val, sec))
+    except BaseException:
+        send.send((False, traceback.format_exc(), 0.0))
+    finally:
+        send.close()
+
+
+class _Background:
+    """Phases run each in a process of its own (spawned: its own CUDA
+    context and launch counters) while this process runs others.
+    ``join`` waits for every one, records its seconds in ``PHASE_S`` and
+    returns the results by name, raising if any failed; leaving the
+    ``with`` block stops every process still running."""
+
+    def __init__(self):
+        self.ctx = mp.get_context("spawn")
+        self.jobs = {}
+        self.done = {}
+
+    def start(self, name, fn, *args):
+        recv, send = self.ctx.Pipe(duplex=False)
+        proc = self.ctx.Process(target=_background_child,
+                                args=(name, fn, args, send))
+        proc.start()
+        send.close()
+        self.jobs[name] = (proc, recv)
+
+    def join(self):
+        failed = []
+        for name, (proc, recv) in list(self.jobs.items()):
+            try:
+                ok, val, sec = recv.recv()
+            except EOFError:
+                ok, val, sec = False, "exited without a result", 0.0
+            proc.join()
+            recv.close()
+            del self.jobs[name]
+            if not ok:
+                failed.append(f"{name} (exit code {proc.exitcode}):\n{val}")
+                continue
+            PHASE_S[name] = sec
+            self.done[name] = val
+        if failed:
+            raise RuntimeError("background phases failed:\n"
+                               + "\n".join(failed))
+        return self.done
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for proc, recv in self.jobs.values():
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10.0)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            recv.close()
+        self.jobs.clear()
+
+
+@contextlib.contextmanager
+def _phase(name):
+    """Time the block as phase ``name`` and print its seconds."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        log(f"[phase {name}] {PHASE_S[name]:.1f} s")
 
 
 def main() -> int:
@@ -5203,86 +5451,130 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    phase_build()
+    with _phase("1 build"):
+        phase_build()
     if args.only == "gspmd":
         torch.backends.cuda.matmul.allow_tf32 = False
         (ROOT / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+                _phase("36-38 gspmd"):
             kernels = [phase_gspmd(dev, Path(tmp))[0]]
         return _finish(kernels, t0)
-    main_res, launches, W, ov_width, rows = phase_main_path(dev,
-                                                            args.sim_apps)
-    launches_composed, phase_apps = phase_composed_path(dev, args.sim_apps,
-                                                        main_res)
-    launches_posterior = phase_posterior_path(dev)
-    kernels = phase_kernels(dev, W, ov_width, rows, phase_apps, args.parent)
+    # phases 2-4, 7 and 28's run_sim (simulator traces, host-bound) each in
+    # a process of its own beside phases 36-38 (gloo's host copies); every
+    # phase after them runs alone on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (ROOT / "build").mkdir(exist_ok=True)
+    with _Background() as bg:
+        bg.start("2 main path", phase_main_path, dev, args.sim_apps)
+        bg.start("3 composed path", phase_composed_path, dev, args.sim_apps)
+        bg.start("4 posterior path", phase_posterior_path, dev)
+        bg.start("7 reference and threefry", phase_reference_and_threefry)
+        bg.start("28 mesh run_sim", phase_mesh_sim,
+                 min(MESH_SIM_APPS, args.sim_apps))
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+                _phase("36-38 gspmd"):
+            partial, gspmd = phase_gspmd(dev, Path(tmp), settle=bg.join)
+        done = bg.join()
+    log(f"[background] phases 2, 3, 4, 7 and 28's run_sim beside 36-38: "
+        f"{time.perf_counter() - t0 - PHASE_S['1 build']:.1f} s")
+    main_res, launches, W, ov_width, rows = done["2 main path"]
+    launches_composed, phase_apps, composed_res = done["3 composed path"]
+    _same_schedule("composed_path vs main_path", main_res, composed_res, 0.0)
+    launches_posterior = done["4 posterior path"]
+    mesh_k1, SHARED["sim_default"] = done["28 mesh run_sim"]
+    with _phase("5 walk kernels"):
+        kernels = phase_kernels(dev, W, ov_width, rows, phase_apps,
+                                args.parent)
     # each kernel's launches on its own path
     from repro_torch.kernels.pdgraph_walk import kernel
     path = {kernel.NAME: launches, kernel.PHASE_NAME: launches_composed,
             kernel.POSTERIOR_NAME: launches_posterior}
     for k in kernels:
         k["launches"] = path[k["name"]][k["name"]]
-    phase_delta_tick(dev, W)
-    phase_reference()
-    phase_threefry_path()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model_kernels = phase_model_kernels(dev, args.parent)
-    phase_full_width(dev)
-    launches_serve = phase_serve(dev, "llama3-8b")
+    with _phase("6 delta ticks"):
+        phase_delta_tick(dev, W)
+    with _phase("8 model kernels"):
+        model_kernels = phase_model_kernels(dev, args.parent)
+    with _phase("9 full width"):
+        phase_full_width(dev)
+    with _phase("10 serve"):
+        launches_serve = phase_serve(dev, "llama3-8b")
     for k in model_kernels:
         k["launches"] = launches_serve[k["name"]]
     kernels += model_kernels
-    phase_engine_reference(dev, "llama3-8b")
-    moe_kernel = phase_moe_kernels(dev)
-    phase_moe_full_width(dev)
-    moe_kernel["launches"] = phase_serve(dev, "qwen2-moe-a2.7b")["moe_gmm"]
+    with _phase("11 engine"):
+        phase_engine_reference(dev, "llama3-8b")
+    with _phase("12 K6"):
+        moe_kernel = phase_moe_kernels(dev)
+    with _phase("13 MoE full width"):
+        phase_moe_full_width(dev)
+    with _phase("14 MoE serve"):
+        moe_kernel["launches"] = phase_serve(dev, "qwen2-moe-a2.7b")[
+            "moe_gmm"]
     kernels.append(moe_kernel)
-    phase_engine_reference(dev, "qwen2-moe-a2.7b")
-    ssd_kernel = phase_ssd_kernels(dev, args.parent)
-    phase_ssm_full_width(dev)
-    ssd_kernel["launches"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
+    with _phase("15 MoE engine"):
+        phase_engine_reference(dev, "qwen2-moe-a2.7b")
+    with _phase("16 K7"):
+        ssd_kernel = phase_ssd_kernels(dev, args.parent)
+    with _phase("17 SSM full width"):
+        phase_ssm_full_width(dev)
+    with _phase("18 SSM serve"):
+        ssd_kernel["launches"] = phase_serve(dev, "mamba2-1.3b")["ssd_scan"]
     kernels.append(ssd_kernel)
-    phase_engine_reference(dev, "mamba2-1.3b")
-    phase_engine_reference(dev, "jamba-1.5-large-398b")
-    side_kernels = phase_encdec_vlm_kernels(dev)
-    phase_side_input_full_width(dev, "whisper-large-v3", 2)
-    phase_side_input_full_width(dev, "internvl2-26b", 2)
-    path = {"whisper": phase_side_input_path(
-                dev, "whisper-large-v3", 4, 4, 32, WHISPER_MAX_SEQ),
-            "internvl": phase_side_input_path(
-                dev, "internvl2-26b", 2, 24, 16, 0)}
+    with _phase("19 SSM and hybrid engines"):
+        phase_engine_reference(dev, "mamba2-1.3b")
+        phase_engine_reference(dev, "jamba-1.5-large-398b")
+    with _phase("20 encdec and VLM kernels"):
+        side_kernels = phase_encdec_vlm_kernels(dev)
+    with _phase("21-22 encdec and VLM full width"):
+        phase_side_input_full_width(dev, "whisper-large-v3", 2)
+        phase_side_input_full_width(dev, "internvl2-26b", 2)
+    with _phase("23 encdec and VLM paths"):
+        path = {"whisper": phase_side_input_path(
+                    dev, "whisper-large-v3", 4, 4, 32, WHISPER_MAX_SEQ),
+                "internvl": phase_side_input_path(
+                    dev, "internvl2-26b", 2, 24, 16, 0)}
     for k in side_kernels:
         name, which = k["name"].split(":")
         k["launches"] = path[which][name]
     kernels += side_kernels
-    train_tiny = phase_train_tiny(dev)
-    phase_train_full_width_check(dev)
-    train_path = phase_train_path(dev)
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    with _phase("24 train tiny"):
+        train_tiny = phase_train_tiny(dev)
+    with _phase("25 train full width"):
+        phase_train_full_width_check(dev)
+    with _phase("26 train path"):
+        train_path = phase_train_path(dev)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+            _phase("27 restart"):
         phase_train_restart(dev, Path(tmp))
     # K1's and K2's launches on the mesh path beside their own paths'
-    mesh_k1, mesh_k2 = phase_mesh(dev, W, ov_width, min(300, args.sim_apps))
+    with _phase("28 mesh"):
+        mesh_k2 = phase_mesh(dev, W, ov_width)
     for k in kernels:
         if k["name"] == kernel.NAME:
             k["mesh_launches"] = mesh_k1
-            k["mesh_path"] = "run_sim at mesh_shards=8, 300 apps"
+            k["mesh_path"] = (f"run_sim at mesh_shards=8, "
+                              f"{min(MESH_SIM_APPS, args.sim_apps)} apps")
         elif k["name"] == kernel.PHASE_NAME:
             k["mesh_launches"] = mesh_k2
             k["mesh_path"] = "6 mesh ticks at 8 shards, 16,384 slots"
-    phase_ep_check(dev)
-    kernels.append(phase_ep_path(dev))
-    phase_ep_train(dev)
-    phase_remat(dev)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+    with _phase("29 EP"):
+        phase_ep_check(dev)
+        kernels.append(phase_ep_path(dev))
+        phase_ep_train(dev)
+    with _phase("30 remat"):
+        phase_remat(dev)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+            _phase("31 dry run"):
         phase_dryrun(Path(tmp))
     # across processes: NCCL at one rank here, then gloo worlds on cuda:0
-    nccl = phase_process_nccl(dev, W)
-    proc = phase_processes(W, min(300, args.sim_apps))
-    # the GSPMD paths: NCCL at one rank here, then a 4-rank gloo world
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        partial, gspmd = phase_gspmd(dev, Path(tmp))
+    with _phase("32 process NCCL"):
+        nccl = phase_process_nccl(dev, W)
+    with _phase("33-35 processes"):
+        proc = phase_processes(W, min(MESH_SIM_APPS, args.sim_apps))
+    # the GSPMD paths' K5 partial mode (phases 36-38, run first)
     kernels.append(partial)
     for k in kernels:
         if k["name"] == kernel.NAME:
@@ -5315,6 +5607,7 @@ def _finish(kernels, t0) -> int:
     """The kernels line, the card's name and power limit, and the last
     line."""
     import torch
+    log(f"[phases] {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -56,6 +56,24 @@ def batch_at(cfg: DataConfig, step: int, *, rank: int = 0,
     }
 
 
+def side_inputs(mcfg, cfg: DataConfig, step: int) -> Dict[str, np.ndarray]:
+    """The stubbed frontends' inputs of ``step``'s global batch for the
+    model config ``mcfg``, which the JAX package's pipeline does not make
+    (its trainer runs the token families only): ``frames`` (global_batch,
+    enc_frames, d_model) for the ``encdec`` family, ``patch_embeds``
+    (global_batch, vision_patches, d_model) for the ``vlm`` family,
+    standard normal float32 draws from (seed, step); nothing for the other
+    families."""
+    name, rows = {"encdec": ("frames", mcfg.enc_frames),
+                  "vlm": ("patch_embeds", mcfg.vision_patches)
+                  }.get(mcfg.family, (None, 0))
+    if name is None:
+        return {}
+    rng = np.random.default_rng((cfg.seed, step, 1))
+    return {name: rng.standard_normal((cfg.global_batch, rows, mcfg.d_model))
+            .astype(np.float32)}
+
+
 def data_iter(cfg: DataConfig, start_step: int = 0, *, rank: int = 0,
               world: int = 1) -> Iterator[Dict[str, np.ndarray]]:
     step = start_step

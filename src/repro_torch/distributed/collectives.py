@@ -23,6 +23,10 @@ The sharded model's collectives carry gradients (``torch.autograd``):
   order; its backward sums every rank's gradient of the whole and keeps
   this rank's block (a reduce-scatter), so an FSDP weight gathered over
   the data axes gets the data-parallel sum of its gradient there;
+* ``gather_alike(x, group, dim)``: the same gather, whose result every
+  rank of the group then uses alike (a layer computed replicated over the
+  model axis from its weights' blocks), so its backward keeps this rank's
+  block of the gradient, unsummed;
 * ``copy_to(x, group)``: the identity, whose backward sums the gradient
   over the group (the tensor-parallel region's input: each rank's
   gradient of it covers its own heads or columns only);
@@ -165,6 +169,27 @@ def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _GatherDim.apply(x, group, dim % x.dim())
 
 
+class _GatherAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather_in(x.movedim(dim, 0), group).movedim(0, dim) \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        r = _dist().get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), \
+            None, None
+
+
+def gather_alike(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim`` in the group's rank order, used
+    alike on every rank after it; the backward keeps this rank's block of
+    the gradient, unsummed (the module docstring)."""
+    return _GatherAlike.apply(x, group, dim % x.dim())
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` itself; its gradient is summed over the group."""
     return _CopyTo.apply(x, group)
@@ -173,18 +198,6 @@ def copy_to(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group; its gradient passes as it is."""
     return _ReduceFrom.apply(x, group)
-
-
-class _AllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group, ctx.rows = group, x.shape[0]
-        return all_gather_in(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        r = _dist().get_rank(ctx.group)
-        return g[r * ctx.rows:(r + 1) * ctx.rows], None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -201,7 +214,7 @@ class _AllToAll(torch.autograd.Function):
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=0, tiled=True)`` over ``mesh``'s
     ``axis`` (a ``ProcessMesh``); its backward keeps this rank's block."""
-    return _AllGather.apply(x, mesh.group(axis))
+    return gather_alike(x, mesh.group(axis), 0)
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -145,7 +145,7 @@ def _rank_body(p: X.MoE, x: torch.Tensor, cfg: ModelConfig, ctx, n: int,
     Tc = B * S // n
     r = ctx.model_rank
     # placed: each rank's gradient covers its own tokens, summed here
-    xr = L.copy_to(x, L.tp_group(p))
+    xr = L.copy_to(x, L.tp_group(p, "wi"))
     xc = xr.reshape(B * S, D)[r * Tc:(r + 1) * Tc].unsqueeze(0)
 
     def exchange(t):

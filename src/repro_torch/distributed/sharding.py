@@ -25,12 +25,15 @@ holds ``local_block`` of each tensor, the blocks laid as ``NamedSharding``
 lays them (a dim over several axes split row-major over them), and
 ``gather_block`` puts a tensor back together on every rank
 (``gather_whole`` on one).  ``Placement`` is a model's map of every
-parameter to its spec (``named_shardings``; the dense, MoE, SSM and
-hybrid families, ``places``), and ``shard_params`` cuts a full parameter
-set to this rank's blocks.  An MoE model that keeps the expert share
-(``expert_share``, by default with ``moe_impl="ep"``) holds instead its
-experts cut to the rank's (``expert_rows``), every other tensor
-replicated.
+parameter to its spec (``named_shardings``; every family, ``places``),
+and ``shard_params`` cuts a full parameter set to this rank's blocks.
+Where the divisibility fallback leaves a layer's heads or width whole
+(``_fit``), the blocks may still split its weights' columns, even in the
+middle of a head; such a layer is computed replicated over ``model``
+from its weights gathered whole (``Placement.whole``).  An MoE model
+that keeps the expert share (``expert_share``, by default with
+``moe_impl="ep"``) holds instead its experts cut to the rank's
+(``expert_rows``), every other tensor replicated.
 """
 from __future__ import annotations
 
@@ -389,19 +392,23 @@ def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 def gather_block(t: torch.Tensor, spec, mesh,
-                 axes: Optional[Tuple[str, ...]] = None) -> torch.Tensor:
+                 axes: Optional[Tuple[str, ...]] = None,
+                 alike: Tuple[str, ...] = ()) -> torch.Tensor:
     """The inverse of ``local_block``: every dim whose axes are all in
     ``axes`` (default: every sharded dim) gathered back over them, the
     last axis first, so the blocks land row-major.  Through
     ``collectives.gather_dim``, so a gradient flows back to the block
-    (summed over the ranks that gathered it)."""
-    from repro_torch.distributed.collectives import gather_dim
+    (summed over the ranks that gathered it); over the axes of ``alike``
+    through ``collectives.gather_alike`` (the ranks along them use the
+    result alike: the block's gradient is this rank's, unsummed)."""
+    from repro_torch.distributed.collectives import gather_alike, gather_dim
     for dim, entry in enumerate(spec):
         ax = _entry_axes(entry)
         if not ax or (axes is not None and not set(ax) <= set(axes)):
             continue
         for a in reversed(ax):
-            t = gather_dim(t, mesh.group(a), dim)
+            gather = gather_alike if a in alike else gather_dim
+            t = gather(t, mesh.group(a), dim)
     return t
 
 
@@ -453,6 +460,16 @@ class Placement:
                  axes: Optional[Tuple[str, ...]] = None) -> torch.Tensor:
         return gather_block(t, self.specs[name], self.mesh, axes)
 
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole of ``name`` from this rank's block ``t``, for a layer
+        computed replicated over the model axis: gathered over the data
+        axes (the backward sums the data shards' gradients there) and over
+        ``model`` (the backward keeps this rank's block, since every model
+        rank computes the same gradient of the whole)."""
+        model = self.ctx.model_axis
+        return gather_block(t, self.specs[name], self.mesh,
+                            alike=(model,) if model else ())
+
     def replicated_axes(self, name: str) -> Tuple[str, ...]:
         """The mesh axes that do not split ``name``: every rank along
         them holds the same block."""
@@ -466,27 +483,13 @@ class Placement:
                    for a in self.replicated_axes(name))
 
 
-# the families whose models a process mesh places (roadmap item 22b adds
-# the encoder-decoder and the VLM)
-PLACED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def not_ported(cfg, what: str):
-    """The error of a family whose sharded path is not ported."""
-    return NotImplementedError(
-        f"{cfg.name} ({cfg.family} family): {what} over a process mesh with "
-        f"a data or model axis above 1 is item 22b of the roadmap (the "
-        f"{', '.join(PLACED_FAMILIES)} families run there)")
-
-
 def places(cfg, mesh, expert_share: Optional[bool] = None) -> bool:
     """Whether ``mesh`` (a ``ProcessMesh``, or a ``ShardCtx`` over any
-    mesh) places ``cfg``'s model by ``named_shardings``: a process mesh
-    and a family of ``PLACED_FAMILIES``, but not an MoE model that keeps
-    the expert share (``expert_share``; by default, ``None``, the models
-    with ``moe_impl="ep"``)."""
+    mesh) places ``cfg``'s model by ``named_shardings``: a process mesh,
+    but not for an MoE model that keeps the expert share (``expert_share``;
+    by default, ``None``, the models with ``moe_impl="ep"``)."""
     ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
-    if not ctx.process or cfg.family not in PLACED_FAMILIES:
+    if not ctx.process:
         return False
     if expert_share is None:
         expert_share = cfg.moe_impl == "ep"
@@ -508,8 +511,6 @@ def shard_params(params: Dict[str, torch.Tensor], mesh, cfg=None,
         from repro_torch.models.transformer import layer_plan
         place = Placement(ctx, params, len(layer_plan(cfg)))
         return {n: place.local(n, t) for n, t in params.items()}
-    if cfg is not None and cfg.family != "moe" and ctx.sharded:
-        raise not_ported(cfg, "shard_params")
     mesh = ctx.mesh
     out = {}
     for name, t in params.items():

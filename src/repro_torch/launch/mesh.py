@@ -206,13 +206,48 @@ def init_process_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
         if store is not None:
             kw.update(store=store, rank=rank, world_size=world_size)
         dist.init_process_group(**kw)
-    ranks = np.arange(size).reshape(shape)
+    groups = _axis_groups(np.arange(size).reshape(shape), axis_names, rank)
+    return ProcessMesh(shape, axis_names, rank, dev, backend, groups)
+
+
+def _axis_groups(ranks: np.ndarray, axis_names: Sequence[str],
+                 rank: int) -> Dict[str, object]:
+    """One subgroup for each slice of each axis of ``ranks`` (world ranks
+    laid over the mesh), made by every rank in the same order; this
+    rank's group along each axis it lies on."""
+    import torch.distributed as dist
     groups = {}
     for ax, name in enumerate(axis_names):
-        lines = np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax])
+        lines = np.moveaxis(ranks, ax, -1).reshape(-1, ranks.shape[ax])
         for line in lines:
             members = [int(r) for r in line]
             g = dist.new_group(members)
             if rank in members:
                 groups[name] = g
-    return ProcessMesh(shape, axis_names, rank, dev, backend, groups)
+    return groups
+
+
+def process_submesh(shape: Sequence[int], axis_names: Sequence[str],
+                    blocks: Sequence[Sequence[int]],
+                    device: torch.device) -> Optional[ProcessMesh]:
+    """Meshes of ``shape`` over chosen ranks of an initialised world:
+    ``blocks`` lists each mesh's world ranks, row-major (``[[0, 1], [2,
+    3]]``: two (1, 2) meshes side by side; ``[[0, 1, 2]]``: one (1, 3)
+    mesh, rank 3 outside it).  Every rank makes every block's groups, in
+    the same order (``dist.new_group`` is collective over the default
+    group).  Returns this rank's mesh, its rank that mesh's position, on
+    ``device``; ``None`` on a rank in no block."""
+    import torch.distributed as dist
+    shape = tuple(int(s) for s in shape)
+    rank = dist.get_rank()
+    mine = None
+    for members in blocks:
+        if len(members) != int(np.prod(shape)):
+            raise ValueError(f"{len(members)} ranks cannot fill a mesh of "
+                             f"{shape}")
+        groups = _axis_groups(np.asarray(members).reshape(shape),
+                              axis_names, rank)
+        if rank in members:
+            mine = ProcessMesh(shape, axis_names, list(members).index(rank),
+                               device, dist.get_backend(), groups)
+    return mine

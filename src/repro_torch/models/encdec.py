@@ -20,6 +20,17 @@ Caches: ``k``/``v`` ``(n, B, K, S, hd)`` of the decoder's self-attention,
 written at prefill and at each decoded position, and ``xk``/``xv``
 ``(n, B, K, enc_frames, hd)``, the cross-attention keys and values of the
 encoder output, written once at prefill and only read by decode.
+
+Over a process mesh (a model built with ``mesh=``) the encoder's and the
+decoder's attention and MLPs are tensor-parallel over whole heads and
+columns (``layers.py``; the divisibility fallback computes a layer whole
+where the model axis does not divide its heads or width).  The self
+caches hold this rank's slice of the positions (``transformer.
+self_attention``), the cross caches every KV head of this rank's rows,
+replicated over ``model`` (the reference's ``cache_shardings``), so a
+decode step's cross-attention runs the decode kernel on this rank's query
+heads and their KV heads.  LayerNorm stays plain: the RMSNorm kernel is
+RMSNorm only.
 """
 from __future__ import annotations
 
@@ -31,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Caches, remat_kwargs, remat_on
+from repro_torch.models.transformer import (Caches, remat_kwargs, remat_on,
+                                            self_attention)
 
 CROSS_CACHES = ("xk", "xv")
 
@@ -85,54 +97,57 @@ def run_encoder(layers: nn.ModuleList, final_norm: L.Norm,
 def cross_kv(p: L.Attention, enc_out: torch.Tensor, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention keys and values of the encoder output, (B, S_enc,
-    K, hd) each, with ``bk``/``bv`` when the config has QKV biases."""
+    K, hd) each, with ``bk``/``bv`` when the config has QKV biases
+    (placed: this rank's KV heads, column-parallel behind ``copy_to``)."""
     B, S, _ = enc_out.shape
-    hd, K = cfg.resolved_head_dim(), cfg.num_kv_heads
-    k = enc_out @ p.wk
-    v = enc_out @ p.wv
+    hd = cfg.resolved_head_dim()
+    enc_out = L.copy_to(enc_out, L.tp_group(p, "wk"))
+    k = L.col(p, enc_out, "wk", cfg)
+    v = L.col(p, enc_out, "wv", cfg)
     if cfg.qkv_bias:
-        k, v = k + p.bk, v + p.bv
-    return k.reshape(B, S, K, hd), v.reshape(B, S, K, hd)
+        k, v = k + L.weight(p, "bk", cfg), v + L.weight(p, "bv", cfg)
+    return k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
 
 
 def cross_q(p: L.Attention, x: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """The cross-attention queries (B, S, H, hd): no ``bq``, as in the JAX
-    package."""
+    package (placed: this rank's heads)."""
     B, S, _ = x.shape
-    return (x @ p.wq).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim())
+    x = L.copy_to(x, L.tp_group(p, "wq"))
+    return L.col(p, x, "wq", cfg).reshape(B, S, -1,
+                                          cfg.resolved_head_dim())
 
 
 def _decoder_layer(lp: DecoderLayer, x: torch.Tensor,
                    enc_out: Optional[torch.Tensor], cfg: ModelConfig,
-                   mode: str, cache: Optional[Caches] = None,
+                   mode: str, caches: Optional[Caches] = None, i: int = 0,
                    pos: Optional[int] = None, lengths=None) -> torch.Tensor:
-    """One decoder layer.  ``cache``: this layer's ``k``/``v``/``xk``/
-    ``xv`` (none in ``train``), written at ``prefill``; ``decode`` writes
-    position ``pos`` and attends over ``lengths`` = (self, cross)."""
+    """Decoder layer ``i``.  ``caches``: every layer's ``k``/``v``/``xk``/
+    ``xv`` (none in ``train``), this layer's written at ``prefill``;
+    ``decode`` writes position ``pos`` and attends over ``lengths`` =
+    (self, cross).  Placed: the self-attention as the decoder-only
+    families' (``transformer.self_attention``); the cross caches hold
+    every KV head of this rank's rows, and a decode step attends this
+    rank's query heads over them (``layers.head_decode_attention``)."""
     decode = mode == "decode"
     h = L.apply_norm(x, lp.self_norm, cfg)
-    q, k, v = L.qkv_project(lp.self_attn, h, cfg, None)
-    if decode:
-        cache["k"][:, :, pos] = k[:, 0]
-        cache["v"][:, :, pos] = v[:, 0]
-        a = L.decode_step_attention(q, cache["k"], cache["v"], lengths[0])
-    else:
-        a = L.prefill_attention(q, k, v)
-        xk, xv = cross_kv(lp.cross_attn, enc_out, cfg)
-        if cache is not None:
-            for n, t in zip(("k", "v") + CROSS_CACHES, (k, v, xk, xv)):
-                cache[n].copy_(t.transpose(1, 2))
-    x = x + L.attn_out(lp.self_attn, a)
+    x = x + self_attention(lp.self_attn, h, cfg, mode, None, caches, i, pos,
+                           lengths[0] if decode else None)
 
     h = L.apply_norm(x, lp.cross_norm, cfg)
-    cq = cross_q(lp.cross_attn, h, cfg)
+    p = lp.cross_attn
+    cq = cross_q(p, h, cfg)
     if decode:
-        ca = L.cross_decode_attention(cq, cache["xk"], cache["xv"],
-                                      lengths[1])
+        ca = L.head_decode_attention(p, cq, caches["xk"][i],
+                                     caches["xv"][i], lengths[1], cfg)
     else:
+        xk, xv = cross_kv(p, enc_out, cfg)
+        if caches is not None:
+            for n, t in zip(CROSS_CACHES, (xk, xv)):
+                caches[n][i].copy_(L.all_kv_heads(p, t, cfg).transpose(1, 2))
         ca = L.full_attention(cq, xk, xv)
-    x = x + L.attn_out(lp.cross_attn, ca)
+    x = x + L.attn_out(p, ca)
 
     h = L.apply_norm(x, lp.mlp_norm, cfg)
     return x + L.mlp_apply(lp.mlp, h, cfg)
@@ -166,6 +181,5 @@ def run_decoder(layers: nn.ModuleList, x: torch.Tensor,
                    torch.full((rows,), caches["xk"].shape[3],
                               dtype=torch.int32, device=x.device))
     for i, lp in enumerate(layers):
-        cache = {n: caches[n][i] for n in ("k", "v") + CROSS_CACHES}
-        x = _decoder_layer(lp, x, enc_out, cfg, mode, cache, pos, lengths)
+        x = _decoder_layer(lp, x, enc_out, cfg, mode, caches, i, pos, lengths)
     return x

@@ -30,12 +30,20 @@ query heads read (gathered whole over the model axis if ``_fit`` split its
 columns, replicated otherwise).  The sequence-sharded decode
 (``seq_decode_attention``) attends every head over this rank's slice of
 the cache through the decode kernel's partial mode and merges the slices'
-partials in rank order.
+partials in rank order; caches holding every position
+(``head_decode_attention``) take its normal mode on the rank's heads.
+
+Where the model axis does not divide a split a layer takes
+(``fallback``), the layer is computed whole on every rank, as the
+reference's GSPMD replicates such a dim: its weights are gathered from
+their blocks over every axis (``Placement.whole``; the blocks may split a
+head), and its ``copy_to``, ``reduce_from`` and head gathers are the
+identity (``whole``, ``tp_group``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -214,35 +222,42 @@ def kv_heads(cfg: ModelConfig, n: int, r: int) -> Tuple[int, int]:
     return r * Hl // G, ((r + 1) * Hl - 1) // G + 1
 
 
-def check_tensor_parallel(cfg: ModelConfig, n: int) -> None:
-    """The head and width splits the tensor-parallel layers take: the
-    attention heads, ``d_ff`` and the padded vocabulary; the MoE family's
-    padded experts and shared-expert width; the Mamba heads and state
-    width (``in_proj_x`` splits whole heads, ``conv_b``/``conv_c`` the
-    state columns).  A split that does not divide raises (the reference
-    replicates such a dim: roadmap item 22b)."""
+def fallback(cfg: ModelConfig, n: int) -> Dict[str, bool]:
+    """The reference's divisibility fallback at a model axis of ``n``: for
+    each kind of tensor-parallel layer, whether ``n`` fails to divide a
+    split it takes, so that the layer is computed replicated over
+    ``model`` (``whole``).  ``attn``: the heads, or the KV heads where they
+    and ``n`` divide neither way; ``mlp``: ``d_ff``; ``experts``: the
+    padded experts; ``shared``: the shared-expert width; ``mamba``: the
+    Mamba heads or the state width (``in_proj_x`` splits whole heads,
+    ``conv_b``/``conv_c`` the state columns).  The padded vocabulary needs
+    no flag: its spec is replicated then, and the embedding, head and loss
+    read the spec."""
     H, K = cfg.num_heads, cfg.num_kv_heads
     E = padded_experts(cfg.num_experts) if cfg.num_experts else 0
     Fs = cfg.num_shared_experts * (cfg.d_ff_expert or cfg.d_ff)
     Hs = cfg.ssm_heads if cfg.ssm_state else 0
-    N = cfg.ssm_state
-    if H % n or (K % n and n % K) or cfg.d_ff % n \
-            or padded_vocab(cfg.vocab_size) % n or E % n or Fs % n \
-            or Hs % n or N % n:
-        raise ValueError(
-            f"{cfg.name}: {H} heads, {K} KV heads, d_ff {cfg.d_ff}, the "
-            f"padded vocabulary {padded_vocab(cfg.vocab_size)}, {E} padded "
-            f"experts, shared width {Fs}, {Hs} Mamba heads and state {N} do "
-            f"not split over a model axis of {n} (heads and widths "
-            f"divisible by it, KV heads divisible by it or dividing it; the "
-            f"replicated fallback is item 22b of the roadmap)")
+    return {"attn": bool(H % n or (K % n and n % K)),
+            "mlp": bool(cfg.d_ff % n), "experts": bool(E % n),
+            "shared": bool(Fs % n),
+            "mamba": bool(Hs % n or cfg.ssm_state % n)}
+
+
+def whole(p: nn.Module, attr: str) -> bool:
+    """Whether the placed module ``p`` computes the layer that reads
+    ``attr`` replicated over the model axis (the divisibility fallback:
+    ``Model`` names those weights in ``p.whole``)."""
+    return attr in getattr(p, "whole", ())
 
 
 def _w(p: nn.Module, attr: str) -> torch.Tensor:
-    """A placed weight with its FSDP dim gathered over the data axes."""
+    """A placed weight with its FSDP dim gathered over the data axes; the
+    weight of a layer computed whole, gathered over every axis."""
     place, prefix = p.placed
-    return place.gathered(f"{prefix}.{attr}", getattr(p, attr),
-                          place.ctx.batch_axes)
+    name = f"{prefix}.{attr}"
+    if whole(p, attr):
+        return place.whole(name, getattr(p, attr))
+    return place.gathered(name, getattr(p, attr), place.ctx.batch_axes)
 
 
 def _kv_weight(p: nn.Module, attr: str, cfg: ModelConfig) -> torch.Tensor:
@@ -265,20 +280,24 @@ def _kv_weight(p: nn.Module, attr: str, cfg: ModelConfig) -> torch.Tensor:
     return full[..., k0 * hd:k1 * hd]
 
 
-def tp_group(p: nn.Module):
-    """The model axis's group of a placed module (``None`` unplaced or
-    for a model axis of 1)."""
+def tp_group(p: nn.Module, attr: str):
+    """The model axis's group of the layer of a placed module that reads
+    ``attr`` (``None`` unplaced, for a model axis of 1, or for a layer
+    computed whole)."""
     placed = getattr(p, "placed", None)
-    return None if placed is None else model_group(placed[0].ctx)[2]
+    if placed is None or whole(p, attr):
+        return None
+    return model_group(placed[0].ctx)[2]
 
 
 def weight(p: nn.Module, attr: str, cfg: Optional[ModelConfig] = None
            ) -> torch.Tensor:
     """``p.<attr>``; placed: its FSDP dim gathered over the data axes, and
-    ``wk``/``wv``/``bk``/``bv`` restricted to this rank's KV heads."""
+    ``wk``/``wv``/``bk``/``bv`` restricted to this rank's KV heads; the
+    whole tensor for a layer computed whole."""
     if getattr(p, "placed", None) is None:
         return getattr(p, attr)
-    if attr in ("wk", "wv", "bk", "bv"):
+    if attr in ("wk", "wv", "bk", "bv") and not whole(p, attr):
         return _kv_weight(p, attr, cfg)
     return _w(p, attr)
 
@@ -309,7 +328,7 @@ def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
     parallel behind ``copy_to``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
-    group = tp_group(p)
+    group = tp_group(p, "wq")
     x = copy_to(x, group)
     q = col(p, x, "wq", cfg)
     k = col(p, x, "wk", cfg)
@@ -328,12 +347,14 @@ def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
 
 def all_kv_heads(p: Attention, k: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    """Every KV head of a placed layer's new keys or values (B, S, K, hd)
-    from each rank's (B, S, Kl, hd): gathered over the model axis, each
-    head taken from the first rank that holds it."""
-    n, _, group = model_group(p.placed[0].ctx)
+    """Every KV head of a layer's new keys or values (B, S, K, hd) from
+    each rank's (B, S, Kl, hd): gathered over the model axis, each head
+    taken from the first rank that holds it (``k`` itself unplaced or for
+    a layer computed whole)."""
+    group = tp_group(p, "wk")
     if group is None:
         return k
+    n = model_group(p.placed[0].ctx)[0]
     allk = C.gather_dim(k, group, 2)
     K, Kl = cfg.num_kv_heads, k.shape[2]
     first = {}
@@ -347,7 +368,7 @@ def all_kv_heads(p: Attention, k: torch.Tensor, cfg: ModelConfig
 
 def all_heads(p: Attention, q: torch.Tensor) -> torch.Tensor:
     """Every query head (B, S, H, hd) from each rank's (B, S, H/n, hd)."""
-    _, _, group = model_group(p.placed[0].ctx)
+    group = tp_group(p, "wq")
     return q if group is None else C.gather_dim(q, group, 2)
 
 
@@ -411,16 +432,23 @@ def decode_step_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache.transpose(1, 2), lengths=lengths)
 
 
-def cross_decode_attention(q: torch.Tensor, xk_cache: torch.Tensor,
-                           xv_cache: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
-    """One token's cross-attention over the static cross caches, laid out
-    (B, K, F, hd); ``lengths`` (B*K,) int32 is F for every (batch, KV head)
-    row, so each attends over all F encoder positions.  The JAX package
-    computes this product with its XLA attention at Sq = 1; the decode
-    kernel computes the same function (its probabilities kept in float32,
-    where XLA rounds them to the model dtype)."""
-    return decode_step_attention(q, xk_cache, xv_cache, lengths)
+def head_decode_attention(p: Attention, q: torch.Tensor,
+                          k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          lengths: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """One token's attention over caches (B, K, S, hd) that hold every KV
+    head and every position (the cross caches; the self caches where the
+    seq axes do not divide their length), for ``p``'s query heads of this
+    rank q (B, 1, Hl, hd): the decode kernel over the rank's KV heads (a
+    strided view of the caches), ``lengths`` (B*K,) those of every KV
+    head (every head unplaced or for a layer computed whole)."""
+    if tp_group(p, "wq") is not None:
+        n, r, _ = model_group(p.placed[0].ctx)
+        k0, k1 = kv_heads(cfg, n, r)
+        B, K = k_cache.shape[:2]
+        k_cache, v_cache = k_cache[:, k0:k1], v_cache[:, k0:k1]
+        lengths = lengths.reshape(B, K)[:, k0:k1].reshape(-1)
+    return decode_step_attention(q, k_cache, v_cache, lengths)
 
 
 def row(p: nn.Module, h: torch.Tensor, attr: str) -> torch.Tensor:
@@ -432,7 +460,7 @@ def row(p: nn.Module, h: torch.Tensor, attr: str) -> torch.Tensor:
     if getattr(p, "placed", None) is None:
         return h @ w
     y = f32_product(h.reshape(-1, h.shape[-1]), w)
-    return reduce_from(y, tp_group(p)).to(h.dtype).reshape(
+    return reduce_from(y, tp_group(p, attr)).to(h.dtype).reshape(
         h.shape[:-1] + (-1,))
 
 
@@ -461,7 +489,7 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Placed: ``wi``/``wg`` column-parallel, ``wo`` row-parallel over the
     model axis."""
-    x = copy_to(x, tp_group(p))
+    x = copy_to(x, tp_group(p, "wi"))
     h = col(p, x, "wi")
     if cfg.act == "silu":
         h = F.silu(col(p, x, "wg")) * h

@@ -35,8 +35,13 @@ scan runs on the rank's heads.  The gated RMSNorm normalises over all of
 ``d_inner``: each row's float32 sum of squares is summed over ``model``
 (plain PyTorch; the RMSNorm kernel where the model axis is 1).  The
 caches hold the rank's heads of ``ssm``, its channels of ``conv_x`` and
-its state columns of ``conv_{b,c}``.  On an unplaced block every
-collective is the identity, which keeps the one-process bits.
+its state columns of ``conv_{b,c}``.  Where the model axis does not
+divide the heads or the state width, the block is computed whole on
+every rank from its weights gathered whole (``layers.fallback``); its
+caches keep the blocks ``cache_shardings`` gives them (``conv_x`` may
+still split ``d_inner``), gathered whole for the step and written back.
+On an unplaced block every collective is the identity, which keeps the
+one-process bits.
 """
 from __future__ import annotations
 
@@ -152,9 +157,40 @@ def _window(a: torch.Tensor, k: int) -> torch.Tensor:
 
 def _tp(p: Mamba):
     """(model axis size n, this rank's coordinate, its group) of a placed
-    block; (1, 0, None) unplaced."""
-    placed = getattr(p, "placed", None)
-    return (1, 0, None) if placed is None else L.model_group(placed[0].ctx)
+    block; (1, 0, None) unplaced or computed whole."""
+    if L.tp_group(p, "in_proj_x") is None:
+        return 1, 0, None
+    return L.model_group(p.placed[0].ctx)
+
+
+# the dim of each of a layer's caches the model axis may split, and the
+# config's whole size of it
+_CACHE_SPLIT = {"ssm": (1, "ssm_heads"), "conv_x": (2, "d_inner"),
+                "conv_b": (2, "ssm_state"), "conv_c": (2, "ssm_state")}
+
+
+def _whole_caches(p: Mamba, cache: Optional[Cache], cfg: ModelConfig):
+    """A block computed whole reads and writes whole caches: each of its
+    caches that ``cache_shardings`` splits over ``model`` gathered whole,
+    and a function that writes them back into the blocks after the step
+    (``cache`` itself and a no-op otherwise)."""
+    if cache is None or getattr(p, "placed", None) is None \
+            or not L.whole(p, "in_proj_x"):
+        return cache, lambda: None
+    _, r, group = L.model_group(p.placed[0].ctx)
+    full = {}
+    for name, t in cache.items():
+        dim, size = _CACHE_SPLIT[name]
+        full[name] = (t if t.shape[dim] == getattr(cfg, size)
+                      else C.gather_dim(t, group, dim))
+
+    def put_back():
+        for name, t in cache.items():
+            if full[name] is not t:
+                dim = _CACHE_SPLIT[name][0]
+                t.copy_(full[name].narrow(dim, r * t.shape[dim],
+                                          t.shape[dim]))
+    return full, put_back
 
 
 def _state_proj(p: Mamba, u: torch.Tensor, attr: str) -> torch.Tensor:
@@ -196,6 +232,7 @@ def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
     Bsz, S, _ = u.shape
     n, _, group = _tp(p)
     H, P = cfg.ssm_heads // n, cfg.ssm_head_dim
+    cache, put_back = _whole_caches(p, cache, cfg)
     u = L.copy_to(u, group)
     z = L.col(p, u, "in_proj_z")
     xa = F.silu(L.col(p, u, "in_proj_x"))
@@ -205,18 +242,19 @@ def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ModelConfig,
     x = _causal_conv(xa, L.weight(p, "conv_x")).reshape(Bsz, S, H, P)
     b = _all_columns(_causal_conv(ba, L.weight(p, "conv_b")), group)
     c = _all_columns(_causal_conv(ca, L.weight(p, "conv_c")), group)
-    dt = softplus(dt + p.dt_bias[None, None, :])
-    A = -torch.exp(p.a_log)
+    dt = softplus(dt + L.weight(p, "dt_bias")[None, None, :])
+    A = -torch.exp(L.weight(p, "a_log"))
     y, final = ssd_scan(x, dt, A, b, c, chunk=cfg.ssm_chunk)
-    y = y + x * p.d[None, None, :, None].to(x.dtype)
+    y = y + x * L.weight(p, "d")[None, None, :, None].to(x.dtype)
     y = y.reshape(Bsz, S, H * P)
-    y = gated_norm(y, z, p.norm_scale, cfg, n, group)
+    y = gated_norm(y, z, L.weight(p, "norm_scale"), cfg, n, group)
     if cache is not None:
         k = cfg.ssm_conv
         cache["ssm"].copy_(final)
         cache["conv_x"].copy_(_window(xa, k))
         cache["conv_b"].copy_(_window(ba, k))
         cache["conv_c"].copy_(_window(ca, k))
+        put_back()
     return L.row(p, y, "out_proj")
 
 
@@ -227,6 +265,7 @@ def mamba_decode(p: Mamba, cache: Cache, u: torch.Tensor,
     Bsz = u.shape[0]
     n, _, group = _tp(p)
     H, P = cfg.ssm_heads // n, cfg.ssm_head_dim
+    cache, put_back = _whole_caches(p, cache, cfg)
     ut = L.copy_to(u[:, 0, :], group)
     z = L.col(p, ut, "in_proj_z")
     x = F.silu(L.col(p, ut, "in_proj_x"))
@@ -238,11 +277,12 @@ def mamba_decode(p: Mamba, cache: Cache, u: torch.Tensor,
                      group)
     c = _all_columns(_conv_step(cache["conv_c"], c, L.weight(p, "conv_c")),
                      group)
-    dt = softplus(dt + p.dt_bias[None, :])
-    A = -torch.exp(p.a_log)
+    dt = softplus(dt + L.weight(p, "dt_bias")[None, :])
+    A = -torch.exp(L.weight(p, "a_log"))
     xh = x.reshape(Bsz, H, P)
     y = ssd_step(cache["ssm"], xh, dt, A, b, c)
-    y = y + xh * p.d[None, :, None].to(xh.dtype)
+    y = y + xh * L.weight(p, "d")[None, :, None].to(xh.dtype)
     y = y.reshape(Bsz, H * P)
-    y = gated_norm(y, z, p.norm_scale, cfg, n, group)
+    y = gated_norm(y, z, L.weight(p, "norm_scale"), cfg, n, group)
+    put_back()
     return L.row(p, y, "out_proj")[:, None, :]

@@ -32,7 +32,7 @@ attention layers, ``ssm`` and ``conv_{x,b,c}`` for the Mamba layers, and
 the encoder-decoder's cross caches ``xk``/``xv`` (``encdec.py``).
 
 Over a process mesh (``build_model(cfg, mesh=ProcessMesh or ShardCtx)``)
-a dense, MoE, SSM or hybrid model is placed (``sharding.places``): each
+a model of any family is placed (``sharding.places``): each
 rank holds ``local_block`` of every weight under ``named_shardings``
 (``self.placement``), and ``init`` draws each weight whole and keeps the
 block, so the blocks are the one-process model's.  Its entry points then
@@ -42,12 +42,17 @@ split, not replicated) and run tensor- and vocabulary-parallel over the
 model axis: ``train_loss`` is this rank's rows' share of the global
 masked mean (the mask counted over every data shard), the logits of
 ``prefill`` and ``decode`` cover the whole vocabulary, and the caches
-hold this rank's blocks under ``cache_shardings`` (``new_caches``).  An
-MoE model that keeps the expert share (``build_model``'s
-``expert_share``, by default with ``moe_impl="ep"``) holds instead its
-experts only (``experts``), the rest replicated.  The encoder-decoder
-and VLM families there with a data or model axis above 1 raise
-``NotImplementedError`` (roadmap item 22b).
+hold this rank's blocks under ``cache_shardings`` (``new_caches``).  A
+layer whose heads or width the model axis does not divide is computed
+replicated over ``model`` from its weights gathered whole (the
+reference's divisibility fallback: ``layers.fallback``), and a cache
+length the seq axes do not divide keeps whole caches
+(``transformer.PlacedCaches``).  The VLM's projected patches are
+column-parallel over ``model``, then gathered (the reference constrains
+them to ``("batch", None, None)``).  An MoE model that keeps the expert
+share (``build_model``'s ``expert_share``, by default with
+``moe_impl="ep"``) holds instead its experts only (``experts``), the rest
+replicated.
 """
 from __future__ import annotations
 
@@ -61,12 +66,13 @@ from torch import nn
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (PLACED_FAMILIES, Placement,
-                                              ShardCtx, block_shape,
-                                              cache_shardings, current_ctx,
-                                              not_ported, places)
+from repro_torch.distributed.sharding import (Placement, ShardCtx,
+                                              block_shape, cache_shardings,
+                                              current_ctx, places)
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as X
 from repro_torch.models import transformer as T
 
 Params = Dict[str, torch.Tensor]
@@ -130,14 +136,9 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------- placement
     def _check_placeable(self, ctx: ShardCtx) -> None:
-        cfg = self.cfg
-        if cfg.family not in PLACED_FAMILIES:
-            raise not_ported(cfg, "placing the model")
         if not ctx.process:
-            raise ValueError(f"{cfg.name}: a model is placed over a process "
-                             f"mesh only (got a logical mesh)")
-        L.check_tensor_parallel(
-            cfg, ctx.mesh.shape[ctx.model_axis] if ctx.model_axis else 1)
+            raise ValueError(f"{self.cfg.name}: a model is placed over a "
+                             f"process mesh only (got a logical mesh)")
 
     def _place(self, ctx: ShardCtx) -> None:
         """Swap every ``meta`` weight for this rank's block on the model's
@@ -153,19 +154,20 @@ class Model(nn.Module):
                 (0.0 if attr.startswith("b") else 1.0)
             mod._parameters[attr] = L.new_param(
                 self.placement.block_shape(name), p.dtype, self.device, fill)
+        fb = L.fallback(self.cfg, ctx.mesh.shape[ctx.model_axis]
+                        if ctx.model_axis else 1)
         for mod_name, mod in self.named_modules():
-            if mod_name and any(True for _ in
-                                mod.named_parameters(recurse=False)):
+            own = [a for a, _ in mod.named_parameters(recurse=False)]
+            if mod_name and own:
                 mod.placed = (self.placement, mod_name)
+                mod.whole = frozenset(a for a in own if _whole(mod, a, fb))
 
     def _in_context(self):
         """The context this model's entry points run under: its own
         placement's (a different current context raises), none for an
         unplaced model; a process context with a data or model axis above
-        1 around an unplaced model raises (``NotImplementedError`` for the
-        families item 22b will place, ``ValueError`` for a family a
-        process mesh places, built without ``mesh=``), the MoE family's
-        expert share aside."""
+        1 around an unplaced model raises ``ValueError`` (it was built
+        without ``mesh=``), the MoE family's expert share aside."""
         ctx = current_ctx()
         if self.placement is not None:
             if ctx is not None and ctx.mesh is not self.shard_ctx.mesh:
@@ -173,12 +175,9 @@ class Model(nn.Module):
                                  "the current ShardCtx's")
             return self.shard_ctx
         if ctx is not None and ctx.sharded and self.cfg.family != "moe":
-            if self.cfg.family in PLACED_FAMILIES:
-                raise ValueError(
-                    f"{self.cfg.name}: a {self.cfg.family} model under a "
-                    f"process mesh holds its blocks only: build it with "
-                    f"mesh=")
-            raise not_ported(self.cfg, "the model")
+            raise ValueError(
+                f"{self.cfg.name}: a {self.cfg.family} model under a "
+                f"process mesh holds its blocks only: build it with mesh=")
         return None
 
     # ------------------------------------------------------------- params
@@ -292,6 +291,20 @@ class Model(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.t() if self.lm_head is None else self.lm_head
 
+    def _project(self, patches: torch.Tensor) -> torch.Tensor:
+        """The VLM's ``patches @ projector``; placed: column-parallel over
+        ``model`` (the projector's FSDP rows gathered), the columns then
+        gathered and used alike on every rank (whole where the model axis
+        does not divide ``d_model``)."""
+        place = self.placement
+        if place is None:
+            return patches @ self.projector
+        w = place.gathered("projector", self.projector, place.ctx.batch_axes)
+        group = (L.model_group(place.ctx)[2]
+                 if place.specs["projector"][1] is not None else None)
+        y = L.linear(L.copy_to(patches, group), w, True)
+        return y if group is None else C.gather_alike(y, group, -1)
+
     def new_caches(self, batch: int, seq: int) -> T.Caches:
         """Zeroed caches for ``batch`` rows of ``seq`` positions (the JAX
         package's ``cache_spec``, stacked by kind; the encoder-decoder's
@@ -299,20 +312,20 @@ class Model(nn.Module):
         this rank's rows, and each cache is this rank's block under
         ``cache_shardings`` of the caches of every data shard's rows: its
         slice of the ``seq`` positions (over ``shard_ctx.seq_axes``), its
-        Mamba heads (``ssm``) and channels (``conv_*``) over ``model``."""
+        Mamba heads (``ssm``) and channels (``conv_*``) over ``model``
+        (each whole where its axes do not divide it: a ``seq`` the seq axes
+        do not divide keeps every position, ``PlacedCaches.seq_split``)."""
         cfg = self.cfg
         ctx = self._in_context()
         if ctx is not None:
             n = int(np.prod([ctx.mesh.shape[a] for a in ctx.seq_axes]))
-            if seq % n:
-                raise ValueError(f"{seq} cache positions do not split over "
-                                 f"the {n} ranks of {ctx.seq_axes}")
             nd = int(np.prod([ctx.mesh.shape[a] for a in ctx.batch_axes]))
             full = self.cache_spec(batch * nd, seq)
             specs = cache_shardings(ctx, full, seq_axes=ctx.seq_axes)
-            return {k: torch.zeros(block_shape(t.shape, specs[k], ctx.mesh),
-                                   dtype=t.dtype, device=self.device)
-                    for k, t in full.items()}
+            return T.PlacedCaches(
+                {k: torch.zeros(block_shape(t.shape, specs[k], ctx.mesh),
+                                dtype=t.dtype, device=self.device)
+                 for k, t in full.items()}, seq_split=seq % n == 0)
         z = lambda *s, dtype=self.dtype: torch.zeros(  # noqa: E731
             s, dtype=dtype, device=self.device)
         caches = {}
@@ -420,8 +433,8 @@ class Model(nn.Module):
         with torch.enable_grad(), self._using(params):
             x = T.embed_tokens(self.embed, tokens, self.placement)
             if patches is not None:
-                x = torch.cat([patches @ self.projector, x], dim=1)
-            x = T.add_positions(self.pos_emb, x, 0)
+                x = torch.cat([self._project(patches), x], dim=1)
+            x = T.add_positions(self.pos_emb, x, 0, self.placement)
             if frames is not None:
                 enc_out = E.run_encoder(self.encoder, self.enc_final_norm,
                                         frames, cfg)
@@ -457,8 +470,8 @@ class Model(nn.Module):
         with self._using(params):
             x = T.embed_tokens(self.embed, tokens, self.placement)
             if patches is not None:
-                x = torch.cat([patches @ self.projector, x], dim=1)
-            x = T.add_positions(self.pos_emb, x, 0)
+                x = torch.cat([self._project(patches), x], dim=1)
+            x = T.add_positions(self.pos_emb, x, 0, self.placement)
             caches = self.new_caches(B, max(max_seq or 0, x.shape[1]))
             if frames is not None:
                 enc_out = E.run_encoder(self.encoder, self.enc_final_norm,
@@ -484,15 +497,15 @@ class Model(nn.Module):
         the whole sequence, written by the rank whose slice holds it."""
         pos = int(pos)
         ctx = self._in_context()
-        n_seq = 1 if ctx is None else int(np.prod(
-            [ctx.mesh.shape[a] for a in ctx.seq_axes]))
+        n_seq = 1 if ctx is None or not getattr(caches, "seq_split", True) \
+            else int(np.prod([ctx.mesh.shape[a] for a in ctx.seq_axes]))
         if "k" in caches and not 0 <= pos < caches["k"].shape[3] * n_seq:
             raise ValueError(f"decode position {pos} outside the caches' "
                              f"{caches['k'].shape[3] * n_seq} positions")
         token = token.to(self.device)
         with self._using(params):
             x = T.embed_tokens(self.embed, token, self.placement)
-            x = T.add_positions(self.pos_emb, x, pos)
+            x = T.add_positions(self.pos_emb, x, pos, self.placement)
             if self.cfg.family == "encdec":
                 x = E.run_decoder(self.layers, x, None, self.cfg, "decode",
                                   caches, pos)
@@ -511,25 +524,39 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     """The model with uninitialised weights: call ``init`` or
     ``load_params``.  ``max_seq``: the learned position table's rows
     (``Model``).  ``mesh``: a ``ProcessMesh`` (or a ``ShardCtx`` over one,
-    for another ``param_sharding`` or ``seq_axes``).  A dense, MoE, SSM or
-    hybrid model is then placed (the module docstring; ``fsdp`` by
-    default), but for an MoE model that keeps the expert share
-    (``expert_share``; by default, ``None``, one with ``moe_impl="ep"``):
-    it holds this rank's share of the experts (``sharding.expert_rows``),
-    the rest replicated.  The encoder-decoder and VLM families there with
-    a data or model axis above 1 raise ``NotImplementedError``."""
+    for another ``param_sharding`` or ``seq_axes``).  The model is then
+    placed (the module docstring; ``fsdp`` by default), but for an MoE
+    model that keeps the expert share (``expert_share``; by default,
+    ``None``, one with ``moe_impl="ep"``): it holds this rank's share of
+    the experts (``sharding.expert_rows``), the rest replicated."""
     experts = None
     if mesh is not None:
         ctx = mesh if isinstance(mesh, ShardCtx) else ShardCtx(mesh)
         if places(cfg, mesh, expert_share):
             return Model(cfg, device, max_seq, shard_ctx=ctx)
-        if ctx.sharded and cfg.family != "moe":
-            raise not_ported(cfg, "build_model")
         if cfg.num_experts:
             from repro_torch.distributed.sharding import expert_rows
             experts = expert_rows(ctx.mesh,
                                   L.padded_experts(cfg.num_experts))
     return Model(cfg, device, max_seq, experts)
+
+
+# the weights of the layer each fallback flag of ``layers.fallback`` makes
+# whole, by module type
+_MOE_EXPERTS = ("router", "wi", "wg", "wo")
+
+
+def _whole(mod: nn.Module, attr: str, fb: Dict[str, bool]) -> bool:
+    """Whether the placed ``mod`` computes the layer of ``attr`` whole."""
+    if isinstance(mod, L.Attention):
+        return fb["attn"]
+    if isinstance(mod, L.MLP):
+        return fb["mlp"]
+    if isinstance(mod, X.MoE):
+        return fb["experts"] if attr in _MOE_EXPERTS else fb["shared"]
+    if isinstance(mod, M.Mamba):
+        return fb["mamba"]
+    return False
 
 
 def _np(a) -> np.ndarray:

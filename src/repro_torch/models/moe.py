@@ -28,7 +28,9 @@ places it: the experts ``("expert", "fsdp", None)``, so a rank holds
 ``E / n`` of them (``n`` the model axis) with their FSDP dim gathered over
 the data axes before use; the router and the shared gate gathered over
 the data axes and replicated over ``model``; the shared expert column-
-(``shared_w(i|g)``) and row-parallel (``shared_wo``) over ``model``.  The
+(``shared_w(i|g)``) and row-parallel (``shared_wo``) over ``model``.
+Where the model axis does not divide the padded experts, or the shared
+width, that part is computed whole on every rank (``layers.fallback``).  The
 sort dispatch keeps the reference's global meaning: the tokens of every
 data shard are gathered, routed and sorted as one batch (one capacity
 ``C`` from the global token count), a rank fills and runs only its
@@ -138,7 +140,7 @@ def route(p: MoE, xf: torch.Tensor, cfg: ModelConfig
     puts equal probabilities in index order, as ``jax.lax.top_k`` does.
     Placed: the router gathered over the data axes; a rank combines only
     its experts' copies, so its gradient is summed over ``model``."""
-    router = L.copy_to(L.weight(p, "router"), L.tp_group(p))
+    router = L.copy_to(L.weight(p, "router"), L.tp_group(p, "wi"))
     probs = torch.softmax(xf.float() @ router, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]
@@ -150,7 +152,7 @@ def shared_expert(p: MoE, x: torch.Tensor) -> torch.Tensor:
     row-parallel ``shared_wo`` over ``model``.  The gate reads the
     replicated input and scales the summed output, so every model rank
     holds the gate's whole gradient."""
-    xr = L.copy_to(x, L.tp_group(p))
+    xr = L.copy_to(x, L.tp_group(p, "shared_wi"))
     h = F.silu(L.col(p, xr, "shared_wg")) * L.col(p, xr, "shared_wi")
     out = L.row(p, h, "shared_wo")
     gate = torch.sigmoid(x.float() @ L.weight(p, "shared_gate"))[..., None]
@@ -200,7 +202,7 @@ def moe_apply_sort(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S, D = x.shape
     k = cfg.top_k
     E = padded_experts(cfg.num_experts)
-    group = L.tp_group(p)
+    group = L.tp_group(p, "wi")
     ctx, axes = _data(p)
     xf = L.copy_to(x, group).reshape(B * S, D)
     if axes:        # every data shard's tokens, in order
@@ -251,7 +253,7 @@ def moe_apply_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S, D = x.shape
     T = B * S
     E = padded_experts(cfg.num_experts)
-    group = L.tp_group(p)
+    group = L.tp_group(p, "wi")
     xf = L.copy_to(x, group).reshape(T, D)
     w, idx = route(p, xf, cfg)
     e0, El = _share(p)

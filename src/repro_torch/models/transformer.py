@@ -129,7 +129,8 @@ class DecoderLayer(nn.Module):
         i = self.cache_index
         h = L.apply_norm(x, self.mixer_norm, cfg)
         if self.mixer == "attn":
-            x = x + self._attention(h, cfg, mode, rope, caches, pos, lengths)
+            x = x + self_attention(self.attn, h, cfg, mode, rope, caches, i,
+                                   pos, lengths)
         else:
             cache = (None if caches is None
                      else {n: caches[n][i] for n in MAMBA_CACHES})
@@ -149,44 +150,62 @@ class DecoderLayer(nn.Module):
         apply = X.moe_apply_dense if small else X.moe_apply
         return x + apply(self.moe, h, cfg)
 
-    def _attention(self, h: torch.Tensor, cfg: ModelConfig, mode: str,
-                   rope, caches: Optional[Caches], pos: Optional[int],
-                   lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        """The attention block.  A placed layer's caches hold this rank's
-        slice of the positions of every KV head: the step's new keys and
-        values are gathered over the model axis, the rank that owns a
-        position writes it, and a decode step attends every head over the
-        slice (``seq_decode_attention``), keeping this rank's heads."""
-        p, i = self.attn, self.cache_index
-        placed = getattr(p, "placed", None)
-        ctx = None if placed is None else placed[0].ctx
-        q, k, v = L.qkv_project(p, h, cfg, rope)
-        if caches is not None:
-            kc, vc = caches["k"][i], caches["v"][i]
-            s0, Sl = (0, kc.shape[2]) if ctx is None else \
-                L.seq_slice(ctx, kc.shape[2])
-            kf, vf = (k, v) if ctx is None else \
-                (L.all_kv_heads(p, k, cfg), L.all_kv_heads(p, v, cfg))
-            if mode == "decode":
-                if ctx is None or s0 <= pos < s0 + Sl:
-                    kc[:, :, pos - s0] = kf[:, 0]
-                    vc[:, :, pos - s0] = vf[:, 0]
-            else:
-                w = min(kf.shape[1], s0 + Sl) - s0 if ctx is not None \
-                    else kf.shape[1]
-                if w > 0:
-                    kc[:, :, :w].copy_(kf[:, s0:s0 + w].transpose(1, 2))
-                    vc[:, :, :w].copy_(vf[:, s0:s0 + w].transpose(1, 2))
-        if mode != "decode":
-            a = L.prefill_attention(q, k, v)
-        elif ctx is None:
-            a = L.decode_step_attention(q, kc, vc, lengths)
+
+class PlacedCaches(dict):
+    """A placed model's caches (``Model.new_caches``): ``seq_split`` says
+    whether its attention caches hold this rank's slice of the positions
+    (over the context's seq axes) or, where those axes do not divide the
+    cache's length (``cache_shardings``' fallback), every position."""
+
+    def __init__(self, caches: Caches, seq_split: bool):
+        super().__init__(caches)
+        self.seq_split = seq_split
+
+
+def self_attention(p: L.Attention, h: torch.Tensor, cfg: ModelConfig,
+                   mode: str, rope, caches: Optional[Caches], i: int,
+                   pos: Optional[int] = None,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The self-attention block over the caches ``caches["k"][i]`` and
+    ``["v"][i]`` (none in ``train``; ``prefill`` writes every position,
+    ``decode`` position ``pos`` and attends over ``lengths``).  A placed
+    layer's caches hold every KV head: the step's new keys and values are
+    gathered over the model axis.  Where they hold this rank's slice of
+    the positions, the rank that owns a position writes it, and a decode
+    step attends every head over the slice (``seq_decode_attention``),
+    keeping this rank's heads; where they hold every position
+    (``PlacedCaches.seq_split`` false), every rank writes, and a decode
+    step attends this rank's heads over them (``head_decode_attention``).
+    A layer computed whole (``layers.whole``) attends every head."""
+    placed = getattr(p, "placed", None)
+    ctx = None if placed is None else placed[0].ctx
+    split = ctx is not None and getattr(caches, "seq_split", True)
+    q, k, v = L.qkv_project(p, h, cfg, rope)
+    if caches is not None:
+        kc, vc = caches["k"][i], caches["v"][i]
+        s0, Sl = (L.seq_slice(ctx, kc.shape[2]) if split
+                  else (0, kc.shape[2]))
+        kf, vf = L.all_kv_heads(p, k, cfg), L.all_kv_heads(p, v, cfg)
+        if mode == "decode":
+            if s0 <= pos < s0 + Sl:
+                kc[:, :, pos - s0] = kf[:, 0]
+                vc[:, :, pos - s0] = vf[:, 0]
         else:
-            _, r, _ = L.model_group(ctx)
-            Hl = q.shape[2]
-            a = L.seq_decode_attention(L.all_heads(p, q), kc, vc, pos, ctx)
+            w = min(kf.shape[1], s0 + Sl) - s0
+            if w > 0:
+                kc[:, :, :w].copy_(kf[:, s0:s0 + w].transpose(1, 2))
+                vc[:, :, :w].copy_(vf[:, s0:s0 + w].transpose(1, 2))
+    if mode != "decode":
+        a = L.prefill_attention(q, k, v)
+    elif not split:
+        a = L.head_decode_attention(p, q, kc, vc, lengths, cfg)
+    else:
+        Hl = q.shape[2]
+        a = L.seq_decode_attention(L.all_heads(p, q), kc, vc, pos, ctx)
+        if L.tp_group(p, "wq") is not None:
+            r = L.model_group(ctx)[1]
             a = a[:, :, r * Hl:(r + 1) * Hl]
-        return L.attn_out(p, a)
+    return L.attn_out(p, a)
 
 
 def build_layers(cfg: ModelConfig, dtype, device,
@@ -343,12 +362,16 @@ def _vocab_block(place, head: torch.Tensor):
 
 
 def add_positions(pos_emb: Optional[torch.Tensor], x: torch.Tensor,
-                  offset: int) -> torch.Tensor:
+                  offset: int, place=None) -> torch.Tensor:
     """x (B, S, D) plus the learned positions ``offset .. offset + S - 1``
     (no-op without ``pos_emb``).  The JAX package's ``dynamic_slice``
-    clamps a window that runs past the table; here it raises."""
+    clamps a window that runs past the table; here it raises.  Placed
+    (``place``): the table's ``D`` dim, a data-axis block under ``fsdp``,
+    gathered over the data axes first."""
     if pos_emb is None:
         return x
+    if place is not None:
+        pos_emb = place.gathered("pos_emb", pos_emb, place.ctx.batch_axes)
     S = x.shape[1]
     if not 0 <= offset <= pos_emb.shape[0] - S:
         raise ValueError(f"positions {offset}..{offset + S - 1} outside the "

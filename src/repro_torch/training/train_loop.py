@@ -25,9 +25,9 @@ import torch
 
 from repro_torch.checkpoint.checkpointing import CheckpointManager, latest_step
 from repro_torch.config import ModelConfig, TrainConfig
-from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.data.pipeline import DataConfig, batch_at, side_inputs
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import P, not_ported, places
+from repro_torch.distributed.sharding import P, places
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import build_model
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
@@ -60,7 +60,10 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
     dev = resolve_device(device)
     t0 = time.time()
     if mesh is not None and not places(cfg, mesh):
-        raise not_ported(cfg, "run_training")
+        raise NotImplementedError(
+            f"{cfg.name}: run_training over a process mesh trains a placed "
+            f"model; an MoE model that keeps the expert share "
+            f"(moe_impl='ep') is not placed")
     model = build_model(cfg, device=dev, mesh=mesh).init(
         torch.Generator(device=dev).manual_seed(dcfg.seed)).trainable()
     params = model.params()
@@ -88,6 +91,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
         for step in range(start, total_steps):
             ts = time.time()
             batch = batch_at(dcfg, step)
+            batch.update(side_inputs(cfg, dcfg, step))
             if injector is not None:
                 injector.maybe_fail(step)
             params, opt_state, metrics = step_fn(params, opt_state, batch)

@@ -878,19 +878,38 @@ def test_decode_attention_encdec_vlm_shapes(dev, B, H, K, Smax, full, dtype):
     (self-attention)."""
     rng = np.random.default_rng(Smax + B)
     hd = 64 if H == 20 else 128
-    from repro_torch.models.layers import (cross_decode_attention,
-                                           decode_step_attention)
+    from repro_torch.models.layers import decode_step_attention
     q = _normal(rng, (B, 1, H, hd), dtype, dev)
     kc = _normal(rng, (B, K, Smax, hd), dtype, dev)
     vc = _normal(rng, (B, K, Smax, hd), dtype, dev)
     rows = (np.full(B * K, Smax) if full
             else rng.integers(1, Smax + 1, B * K))
     rows = torch.as_tensor(rows, device=dev, dtype=torch.int32)
-    fn = cross_decode_attention if full else decode_step_attention
     before = LAUNCHES[dec_kernel.NAME]
-    out = fn(q, kc, vc, rows)
+    out = decode_step_attention(q, kc, vc, rows)
     assert LAUNCHES[dec_kernel.NAME] == before + 1
-    want = fn(q.cpu(), kc.cpu(), vc.cpu(), rows.cpu())
+    want = decode_step_attention(q.cpu(), kc.cpu(), vc.cpu(), rows.cpu())
+    _close(out.cpu(), want, dtype)
+
+
+@pytest.mark.parametrize("k0,k1", [(5, 10), (15, 20)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_over_a_rank_s_kv_heads(dev, k0, k1, dtype):
+    """K5 over a strided view of the KV heads ``[k0, k1)`` of caches that
+    hold every head (a rank's query heads of Whisper's cross-attention
+    at a model axis of 4, ``layers.head_decode_attention``) against its
+    plain version on the same view."""
+    from repro_torch.models.layers import decode_step_attention
+    rng = np.random.default_rng(k0)
+    B, K, F, hd = 2, 20, 1500, 64
+    q = _normal(rng, (B, 1, k1 - k0, hd), dtype, dev)
+    kc = _normal(rng, (B, K, F, hd), dtype, dev)[:, k0:k1]
+    vc = _normal(rng, (B, K, F, hd), dtype, dev)[:, k0:k1]
+    rows = torch.full((B * (k1 - k0),), F, dtype=torch.int32, device=dev)
+    before = LAUNCHES[dec_kernel.NAME]
+    out = decode_step_attention(q, kc, vc, rows)
+    assert LAUNCHES[dec_kernel.NAME] == before + 1
+    want = decode_step_attention(q.cpu(), kc.cpu(), vc.cpu(), rows.cpu())
     _close(out.cpu(), want, dtype)
 
 

@@ -38,11 +38,12 @@ None)``, restored onto (2, 2) under ``P(None, "model")``) bitwise; a
 checkpoint the JAX package wrote restored onto (2, 2) bitwise;
 ``run_training`` restarted from a (2, 2) checkpoint at (1, 4) and (4, 1),
 its losses within 1e-5 relative of the one-process run's.
-(iv) The guards: the encoder-decoder and VLM families over a process
-mesh with a data or model axis above 1 raise ``NotImplementedError``
-naming item 22b, and a model axis the widths do not divide raises; the
-SSM and hybrid families are placed there and decode as one process does
-(``test_torch_gspmd_families.py`` holds every placed family whole).
+(iv) The other families and the fallback: the SSM, hybrid,
+encoder-decoder and VLM families are placed over a process mesh and
+decode as one process does, and a model axis the heads or widths do not
+divide gives the reference's replicated fallback, the layers computed
+whole from blocks that may split them (``test_torch_gspmd_families.py``
+holds every placed family and the fallback whole).
 """
 import subprocess
 import sys
@@ -438,77 +439,100 @@ def _fake_mesh(shape):
 @pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-1.5-large-398b",
                                   "whisper-large-v3", "internvl2-26b"])
 def test_other_families_raise_over_a_process_mesh(request, name):
-    """The encoder-decoder and VLM families raise there, naming item 22b;
-    the SSM and hybrid families are placed (each rank its blocks) and
-    decode as one process does (the world's (2, 2) decode, weights drawn
-    by the placed ``init``)."""
+    """Every family is placed there (each rank its blocks: the Mamba
+    in_proj_x, the encoder-decoder's decoder wq, the VLM's projector
+    split over both axes) and decodes as one process does (the world's
+    (2, 2) decode, weights drawn by the placed ``init``); an unplaced
+    model under the process mesh's context raises, naming ``mesh=``.
+    (Before the encoder-decoder and VLM families were placed, this test
+    held their refusal.)"""
     cfg = tiny_config(name, dtype="float32")
     pm = _fake_mesh((2, 2))
+    model = build_model(cfg, device="cpu", mesh=pm,
+                        max_seq=ranks.DECODE_MAX_SEQ)
+    place = model.placement
+    assert place is not None
+    assert all(tuple(p.shape) == place.block_shape(n)
+               for n, p in model.params().items())
+    D, hd = cfg.d_model, cfg.resolved_head_dim()
     if cfg.family in ("ssm", "hybrid"):
-        model = build_model(cfg, device="cpu", mesh=pm)
-        place = model.placement
-        assert place is not None
-        assert all(tuple(p.shape) == place.block_shape(n)
-                   for n, p in model.params().items())
-        assert model.layers[1].mamba.in_proj_x.shape == (
-            cfg.d_model // 2, cfg.d_inner // 2)
-        with use_shard_ctx(ShardCtx(pm)):
-            with pytest.raises(ValueError, match="mesh="):
-                build_model(cfg, device="cpu").decode(
-                    {}, torch.zeros((1, 1), dtype=torch.long), 0)
-        prompt = torch.tensor(request.getfixturevalue("runs")["prompt"])
-        one = build_model(cfg, device="cpu").init(
-            torch.Generator().manual_seed(ranks.VARIANT_SEED))
-        caches, logits = one.prefill(prompt, max_seq=ranks.DECODE_MAX_SEQ)
-        out, toks = [logits], []
-        for t in range(ranks.DECODE_STEPS):
-            toks.append(out[-1][:, -1].argmax(-1, keepdim=True))
-            caches, logits = one.decode(caches, toks[-1],
-                                        prompt.shape[1] + t)
-            out.append(logits)
-        logits, toks = torch.cat(out, 1).numpy(), torch.cat(toks, 1).numpy()
-        for r in request.getfixturevalue("runs")["world"]:
-            got = r["families"][name]
-            rows = slice(got["data_shard"], got["data_shard"] + 1)
-            np.testing.assert_array_equal(got["tokens"], toks[rows])
-            np.testing.assert_allclose(got["logits"], logits[rows], rtol=0,
-                                       atol=1e-4)
-        return
-    with pytest.raises(NotImplementedError, match="22b"):
-        build_model(cfg, device="cpu", mesh=pm)
-    model = build_model(cfg, device="cpu", max_seq=24)
+        split = model.layers[1].mamba.in_proj_x, (D // 2, cfg.d_inner // 2)
+    elif cfg.family == "encdec":
+        split = model.layers[0].self_attn.wq, (D // 2,
+                                               cfg.num_heads * hd // 2)
+    else:
+        split = model.projector, (D // 2, D // 2)
+    assert tuple(split[0].shape) == split[1]
     with use_shard_ctx(ShardCtx(pm)):
-        with pytest.raises(NotImplementedError, match="22b"):
-            model.decode({}, torch.zeros((1, 1), dtype=torch.long), 0)
-        with pytest.raises(NotImplementedError, match="22b"):
-            make_train_step(model, ranks.train_config(1, "none"))
+        with pytest.raises(ValueError, match="mesh="):
+            build_model(cfg, device="cpu").decode(
+                {}, torch.zeros((1, 1), dtype=torch.long), 0)
+    prompt = torch.tensor(request.getfixturevalue("runs")["prompt"])
+    one = build_model(cfg, device="cpu", max_seq=ranks.DECODE_MAX_SEQ).init(
+        torch.Generator().manual_seed(ranks.VARIANT_SEED))
+    n = ranks.family_cache_len(cfg)
+    caches, logits = one.prefill(prompt, max_seq=n,
+                                 **ranks.family_side(cfg, prompt.shape[0]))
+    S = prompt.shape[1] + n - ranks.DECODE_MAX_SEQ
+    out, toks = [logits], []
+    for t in range(ranks.DECODE_STEPS):
+        toks.append(out[-1][:, -1].argmax(-1, keepdim=True))
+        caches, logits = one.decode(caches, toks[-1], S + t)
+        out.append(logits)
+    logits, toks = torch.cat(out, 1).numpy(), torch.cat(toks, 1).numpy()
+    for r in request.getfixturevalue("runs")["world"]:
+        got = r["families"][name]
+        rows = slice(got["data_shard"], got["data_shard"] + 1)
+        np.testing.assert_array_equal(got["tokens"], toks[rows])
+        np.testing.assert_allclose(got["logits"], logits[rows], rtol=0,
+                                   atol=1e-4)
     # one rank a process, no axis above 1: today's one-process path
-    assert build_model(cfg, device="cpu", max_seq=24,
-                       mesh=_fake_mesh((1, 1))).placement is None
+    if cfg.family in ("encdec", "vlm"):
+        assert build_model(cfg, device="cpu", max_seq=24,
+                           mesh=_fake_mesh((1, 1))).placement is not None
 
 
 def test_a_model_axis_that_does_not_divide_raises_for_an_moe_model():
     """A shared-expert width the model axis does not divide (90 over 4)
-    raises, as a head count does for a dense model; the reference's
-    replicated fallback is item 22b."""
+    takes the reference's replicated fallback: the shared expert is
+    computed whole on every rank (its weights gathered from their
+    blocks), the experts stay split; the same model over an axis that
+    divides it is placed as before.  (Before the fallback, this test held
+    the refusal; ``test_torch_gspmd_families.py`` holds the fallback's
+    train step and decode to the reference.)"""
     cfg = tiny_config("qwen2-moe-a2.7b", d_ff_expert=90, dtype="float32")
-    with pytest.raises(ValueError, match="do not split.*22b"):
-        build_model(cfg, device="cpu", mesh=_fake_mesh((1, 4)))
+    model = build_model(cfg, device="cpu", mesh=_fake_mesh((1, 4)))
+    moe = model.layers[0].moe
+    assert moe.whole == {"shared_wi", "shared_wg", "shared_wo",
+                         "shared_gate"}
+    assert moe.wi.shape[0] == model.placement.full["layers.0.moe.wi"][0] // 4
+    assert moe.shared_wi.shape == (cfg.d_model, 90)   # 90 does not split
+    assert all(tuple(p.shape) == model.placement.block_shape(n)
+               for n, p in model.params().items())
     # the same model over an axis that divides it is placed
-    assert build_model(tiny_config("qwen2-moe-a2.7b", dtype="float32"),
-                       device="cpu", mesh=_fake_mesh((1, 4))).placement
+    placed = build_model(tiny_config("qwen2-moe-a2.7b", dtype="float32"),
+                         device="cpu", mesh=_fake_mesh((1, 4)))
+    assert placed.placement and not placed.layers[0].moe.whole
 
 
 def test_a_dense_model_must_be_placed_over_a_process_mesh():
+    """An unplaced model under a process mesh's context raises; 6 heads
+    over a model axis of 4 take the reference's replicated fallback: the
+    attention is computed whole on every rank, though each rank holds a
+    quarter of ``wq``'s 96 columns (a head and a half).  (Before the
+    fallback, the 6-head model raised.)"""
     cfg = tiny_config("llama3-8b", dtype="float32")
     model = build_model(cfg, device="cpu")
     with use_shard_ctx(ShardCtx(_fake_mesh((1, 2)))):
         with pytest.raises(ValueError, match="mesh="):
             model.prefill(torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(ValueError, match="do not split"):
-        build_model(tiny_config("llama3-8b", num_heads=6, num_kv_heads=2,
-                                dtype="float32"), device="cpu",
-                    mesh=_fake_mesh((1, 4)))
+    six = build_model(tiny_config("llama3-8b", num_heads=6, num_kv_heads=2,
+                                  dtype="float32"), device="cpu",
+                      mesh=_fake_mesh((1, 4)))
+    attn = six.layers[0].attn
+    assert attn.whole == {"wq", "wk", "wv", "wo"}
+    assert attn.wq.shape == (64, 24) and attn.wo.shape == (24, 64)
+    assert not six.layers[0].mlp.whole      # d_ff 128 splits four ways
 
 
 # ------------------------------------- K5's partial mode, plain version

@@ -41,6 +41,7 @@ import json
 import subprocess
 import sys
 import textwrap
+from functools import partial
 from pathlib import Path
 
 import jax
@@ -50,7 +51,7 @@ import torch
 
 from repro.models.model import build_model as jax_build_model
 from repro.testing import tiny_config as jax_tiny_config
-from repro_torch.data.pipeline import batch_at
+from repro_torch.data.pipeline import batch_at, side_inputs
 from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.procs import spawn
@@ -70,7 +71,12 @@ ROOT = Path(__file__).resolve().parent.parent
 ENV = {"OMP_NUM_THREADS": "1"}
 B, S = 8, 16
 NAMES = list(ranks.FAMILIES)
+FALLBACKS = list(ranks.FALLBACKS)
+ALL = NAMES + FALLBACKS
 SHAPES = [f"{s}" for s in ranks.TRAIN_SHAPES]
+# a case whose reference results are another's (the same model, weights
+# and inputs; only the specs differ, which the reference gives for each)
+SAME_AS = {"whisper-large-v3@fsdp": "whisper-large-v3"}
 
 _REFERENCE = """
 import json, sys
@@ -87,8 +93,8 @@ from repro.testing import tiny_config
 from repro.training.optimizer import adamw_update, init_opt_state
 assert jax.device_count() == 4
 inp = dict(np.load(sys.argv[1]))
-families = json.loads(sys.argv[3])
-max_seq, steps = (int(a) for a in sys.argv[4:6])
+cases = json.loads(sys.argv[3])
+steps = int(sys.argv[4])
 
 
 def nest(prefix):
@@ -113,6 +119,19 @@ def flat(tree, prefix, leaf=np.asarray):
     return out
 
 
+def pad(caches, n):
+    # the attention caches (periods, B, S, K, hd) padded to n positions
+    def one(kind, a):
+        if kind not in ("k", "v"):
+            return a
+        return jnp.pad(a, [(0, 0), (0, 0), (0, n - a.shape[2]), (0, 0),
+                           (0, 0)])
+    if "k" in caches:           # the encoder-decoder's: one stack
+        return {kind: one(kind, a) for kind, a in caches.items()}
+    return {sub: {kind: one(kind, a) for kind, a in c.items()}
+            for sub, c in caches.items()}
+
+
 # the reference's sort dispatch, its own routing packed as its body packs
 # it: each call's expert ids and whether each copy is kept
 calls = []
@@ -133,22 +152,28 @@ def recording(p, x, cfg):
     return sort_dispatch(p, x, cfg)
 
 
-mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
-ctx = ShardCtx(mesh, param_sharding="fsdp")
-batch = {k: jnp.asarray(inp["b/" + k]) for k in ("tokens", "labels",
-                                                 "loss_mask")}
 out, specs = {}, {}
-with use_shard_ctx(ctx), mesh:
-    for name, over in families.items():
-        cfg = tiny_config(name, dtype="float32", **over)
+for name, case in cases.items():
+    mesh = Mesh(np.array(jax.devices()).reshape(case["mesh"]),
+                ("data", "model"))
+    ctx = ShardCtx(mesh, param_sharding=case["sharding"])
+    side = lambda pre: {k: jnp.asarray(inp[f"{name}/{pre}/{k}"])
+                        for k in case["side"]}
+    with use_shard_ctx(ctx), mesh:
+        cfg = tiny_config(case["arch"], dtype="float32", **case["over"])
         model = build_model(cfg)
         p0 = nest(f"{name}/p/")
         ns = named_shardings(ctx, p0)
         specs[name] = flat(ns, "", lambda s: [
             list(e) if isinstance(e, tuple) else e for e in s.spec])
+        if case["specs_only"]:
+            continue
         params = jax.device_put(p0, ns)
         opt = jax.device_put(init_opt_state(params),
                              opt_state_shardings(ctx, params))
+        batch = {k: jnp.asarray(inp["b/" + k]) for k in ("tokens", "labels",
+                                                         "loss_mask")}
+        batch.update(side("side"))
         # make_train_step at one microbatch without compression, its two
         # halves jitted apart: the gradients are an output too
         grad_fn = jax.jit(jax.value_and_grad(model.train_loss))
@@ -159,15 +184,14 @@ with use_shard_ctx(ctx), mesh:
         out[f"{name}/grad_loss"] = out[f"{name}/loss"] = np.asarray(loss)
         out.update(flat(g, f"{name}/grads/"))
         out.update(flat(p2, f"{name}/params/"))
-        # the greedy decode: a prefill, its caches padded to max_seq
+        # the greedy decode: a prefill, its caches padded to the case's
+        # cache length (a VLM's prompt starts with its patches)
         caches, logits = jax.jit(model.prefill)(
-            params, {"tokens": jnp.asarray(inp["prompt"])})
-        S = inp["prompt"].shape[1]
-        caches = {sub: {kind: jnp.pad(a, [(0, 0), (0, 0), (0, max_seq - S),
-                                          (0, 0), (0, 0)])
-                        if kind in ("k", "v") else a
-                        for kind, a in c.items()}
-                  for sub, c in caches.items()}
+            params, {"tokens": jnp.asarray(inp["prompt"]),
+                     **side("pside")})
+        S = inp["prompt"].shape[1] + (cfg.vision_patches
+                                      if cfg.family == "vlm" else 0)
+        caches = pad(caches, case["cache"])
         step = jax.jit(model.decode)
         lg = [logits]
         for t in range(steps):
@@ -179,22 +203,27 @@ with use_shard_ctx(ctx), mesh:
         out[f"{name}/decode/logits"] = np.asarray(jnp.concatenate(lg, 1))
         out.update(flat(caches, f"{name}/decode/caches/"))
         # training from the restart's first weights, its batches
-        run = nest(f"{name}/init/")
-        opt = init_opt_state(run)
-        placed = (ns, opt_state_shardings(ctx, run))
-        for k in range(int(inp["run_steps"])):
-            # placed as the first step's inputs were: no new compile
-            run, opt = jax.device_put((run, opt), placed)
-            loss, g = grad_fn(run, {
-                n: jnp.asarray(inp[f"run/{k}/{n}"])
-                for n in ("tokens", "labels", "loss_mask")})
-            run, opt, _ = update(g, opt, run)
-            out[f"{name}/run_losses/{k}"] = np.asarray(loss)
-        if cfg.family == "moe":
+        if case["run"]:
+            run = nest(f"{name}/init/")
+            opt = init_opt_state(run)
+            placed = (named_shardings(ctx, run),
+                      opt_state_shardings(ctx, run))
+            for k in range(int(inp["run_steps"])):
+                # placed as the first step's inputs were: no new compile
+                run, opt = jax.device_put((run, opt), placed)
+                loss, g = grad_fn(run, {
+                    **{n: jnp.asarray(inp[f"run/{k}/{n}"])
+                       for n in ("tokens", "labels", "loss_mask")},
+                    **side(f"runside/{k}")})
+                run, opt, _ = update(g, opt, run)
+                out[f"{name}/run_losses/{k}"] = np.asarray(loss)
+        if case["routes"]:
             # the layers unrolled (scan_layers=False), so each layer's
             # packing leaves the jitted forward as an output
-            unrolled = build_model(tiny_config(name, dtype="float32",
-                                               scan_layers=False, **over))
+            unrolled = build_model(tiny_config(case["arch"],
+                                               dtype="float32",
+                                               scan_layers=False,
+                                               **case["over"]))
 
             def routes(params, batch):
                 calls.clear()
@@ -234,20 +263,28 @@ def _nest(flat, prefix):
     return out
 
 
-def _jax_tree(params, period):
-    """The JAX package's parameter tree of a decoder-only model's port
-    parameters: ``params_from_jax`` inverted (each layer's leaf stacked
-    over the periods of its sub-layer)."""
+def _jax_tree(params, cfg):
+    """The JAX package's parameter tree of the port's parameters:
+    ``params_from_jax`` inverted (each layer's leaf stacked over the
+    periods of its sub-layer; the encoder-decoder's over its encoder and
+    decoder layers)."""
+    encdec = cfg.family == "encdec"
+    period = 1 if encdec else len(layer_plan(cfg))
     tree, layers = {"layers": {}}, {}
     for n, t in params.items():
         a = t.detach().numpy()
         head, _, rest = n.partition(".")
-        if head == "layers":
+        if head in ("layers", "encoder"):
             j, group, leaf = rest.split(".")
-            key = (f"sub{int(j) % period}", group, leaf)
-            layers.setdefault(key, {})[int(j) // period] = a
-        elif head in ("embed", "lm_head"):
+            sub = (("dec" if head == "layers" else "enc") if encdec
+                   else f"sub{int(j) % period}")
+            layers.setdefault((sub, group, leaf), {})[int(j) // period] = a
+        elif head == "enc_final_norm":
+            tree["layers"].setdefault(head, {})[rest] = a
+        elif head in ("embed", "lm_head", "projector"):
             tree[head] = {"table" if head == "embed" else "kernel": a}
+        elif head == "pos_emb":
+            tree[head] = a
         else:
             tree.setdefault(head, {})[rest] = a
     for (sub, group, leaf), by_p in layers.items():
@@ -257,11 +294,15 @@ def _jax_tree(params, period):
 
 
 def _port_caches(jref, name):
-    """The reference's decode caches ({sub<i>: {kind: (periods, B, ...)}})
-    in the port's layout: stacked by kind in layer order, attention
-    caches (B, K, S, hd)."""
+    """The reference's decode caches ({sub<i>: {kind: (periods, B, ...)}},
+    or the encoder-decoder's {kind: (layers, B, ...)}) in the port's
+    layout: stacked by kind in layer order, attention caches (B, K, S,
+    hd)."""
     cfg = ranks.config(name)
     tree = _nest(jref, f"{name}/decode/caches/")
+    attn = ("k", "v", "xk", "xv")
+    if cfg.family == "encdec":
+        return {k: a.transpose(0, 1, 3, 2, 4) for k, a in tree.items()}
     period = len(layer_plan(cfg))
     out = {}
     for j in range(cfg.num_layers):
@@ -269,7 +310,7 @@ def _port_caches(jref, name):
         for kind, a in sub.items():
             a = a[j // period]
             out.setdefault(kind, []).append(
-                a.transpose(0, 2, 1, 3) if kind in ("k", "v") else a)
+                a.transpose(0, 2, 1, 3) if kind in attn else a)
     return {k: np.stack(v) for k, v in out.items()}
 
 
@@ -287,12 +328,37 @@ def _np(d):
     return {n: t.detach().numpy() for n, t in d.items()}
 
 
+def _model(name):
+    """The one-process port of case ``name`` (its learned positions, where
+    it has them, ``DECODE_MAX_SEQ`` rows, as the ranks')."""
+    return build_model(ranks.config(name), device="cpu",
+                       max_seq=ranks.DECODE_MAX_SEQ)
+
+
+def _decode(model, prompt, side, max_seq):
+    """A prefill into caches of ``cache_len`` positions and greedy steps:
+    the logits, tokens and caches."""
+    n = ranks.cache_len(model.cfg, max_seq)
+    caches, logits = model.prefill(prompt, max_seq=n, **side)
+    S0 = prompt.shape[1] + n - max_seq
+    lg, toks = [logits], []
+    for t in range(ranks.DECODE_STEPS):
+        tok = lg[-1][:, -1].argmax(-1, keepdim=True)
+        toks.append(tok)
+        caches, logits = model.decode(caches, tok, S0 + t)
+        lg.append(logits)
+    return dict(logits=torch.cat(lg, 1).numpy(),
+                tokens=torch.cat(toks, 1).numpy(), caches=_np(caches))
+
+
 def _one_process(name, full, batch, prompt):
     """The one-process port from ``full``: the train step's loss,
     gradients and updated parameters, the sort dispatch's packing, the
-    decode's logits, tokens and caches."""
+    decode's logits, tokens and caches (one decode a cache length of a
+    fallback case)."""
     cfg = ranks.config(name)
-    model = build_model(cfg, device="cpu").load_params(full).trainable()
+    model = _model(name).load_params(full).trainable()
+    batch = {**batch, **ranks.side(cfg, B, 11)}
     out = {}
     if name in ranks.MOE:
         with ranks.RouteRecorder() as rec, torch.no_grad():
@@ -305,44 +371,63 @@ def _one_process(name, full, batch, prompt):
     params, _, metrics = step.apply(params, init_opt_state(params), loss,
                                     grads)
     out.update(loss=float(metrics["loss"]), params=_np(params))
-    model = build_model(cfg, device="cpu").load_params(full)
+    model = _model(name).load_params(full)
     prompt = torch.as_tensor(prompt)
-    caches, logits = model.prefill(prompt, max_seq=ranks.DECODE_MAX_SEQ)
-    lg, toks = [logits], []
-    for t in range(ranks.DECODE_STEPS):
-        tok = lg[-1][:, -1].argmax(-1, keepdim=True)
-        toks.append(tok)
-        caches, logits = model.decode(caches, tok, prompt.shape[1] + t)
-        lg.append(logits)
-    out.update(logits=torch.cat(lg, 1).numpy(),
-               tokens=torch.cat(toks, 1).numpy(), caches=_np(caches))
+    side = ranks.side(cfg, prompt.shape[0], 12)
+    lens = (ranks.FALLBACK_MAX_SEQS if name in ranks.FALLBACKS
+            else (ranks.DECODE_MAX_SEQ,))
+    out["decode"] = {n: _decode(model, prompt, side, n) for n in lens}
+    out.update(out["decode"][ranks.DECODE_MAX_SEQ])
     return out
+
+
+def _case(name):
+    """What the reference's subprocess runs for case ``name``."""
+    cfg = ranks.config(name)
+    fb = name in ranks.FALLBACKS
+    return {"arch": ranks.arch(name),
+            "over": (ranks.FALLBACKS if fb else ranks.FAMILIES)[name],
+            "sharding": ranks.SHARDING.get(name, "fsdp"),
+            "mesh": list(ranks.FALLBACK_MESH if fb else (2, 2)),
+            "cache": ranks.cache_len(cfg, max(ranks.FALLBACK_MAX_SEQS)
+                                     if fb else ranks.DECODE_MAX_SEQ),
+            "side": sorted(ranks.side(cfg, 1, 0)), "run": not fb,
+            "routes": name in ranks.MOE,
+            "specs_only": name in SAME_AS}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("gspmd_families")
     batch = _batch()
-    trees = {}
-    for name, over in ranks.FAMILIES.items():
-        jm = jax_build_model(jax_tiny_config(name, dtype="float32", **over))
-        trees[name] = jax.tree_util.tree_map(
-            np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
     prompt = np.random.default_rng(8).integers(0, 256, (2, 7))
-    run = {}        # the restart's first weights (its draw) and batches
-    for name in ranks.FAMILIES:
+    cases = {name: _case(name) for name in ALL}
+    arrays, trees = {}, {}
+    for name in ALL:
         cfg = ranks.config(name)
+        jm = jax_build_model(jax_tiny_config(ranks.arch(name),
+                                             dtype="float32",
+                                             **cases[name]["over"]))
+        trees[name] = jax.tree_util.tree_map(np.asarray, jax.jit(partial(
+            jm.init, max_seq=ranks.DECODE_MAX_SEQ))(jax.random.PRNGKey(0)))
+        arrays.update(_flat(trees[name], f"{name}/p/"))
+        for pre, rows, seed in (("side", B, 11), ("pside", 2, 12)):
+            arrays.update({f"{name}/{pre}/{k}": v.numpy() for k, v in
+                           ranks.side(cfg, rows, seed).items()})
+    for name in NAMES:      # the restart's first weights (its draw)
+        cfg = ranks.config(name)
+        dcfg = ranks.data_config()
         first = build_model(cfg, device="cpu").init(torch.Generator(
-            device="cpu").manual_seed(ranks.data_config().seed)).params()
-        run.update(_flat(_jax_tree(first, len(layer_plan(cfg))),
-                         f"{name}/init/"))
+            device="cpu").manual_seed(dcfg.seed)).params()
+        arrays.update(_flat(_jax_tree(first, cfg), f"{name}/init/"))
+        for k in range(ranks.RESTART_STEPS[1]):     # and batches
+            arrays.update({f"{name}/runside/{k}/{n}": v for n, v in
+                           side_inputs(cfg, dcfg, k).items()})
     for k in range(ranks.RESTART_STEPS[1]):
-        run.update({f"run/{k}/{n}": v for n, v in
-                    batch_at(ranks.data_config(), k).items()})
-    np.savez(tmp / "in.npz",
-             **{k: v for name, t in trees.items()
-                for k, v in _flat(t, f"{name}/p/").items()},
-             **{f"b/{k}": v for k, v in batch.items()}, **run,
+        arrays.update({f"run/{k}/{n}": v for n, v in
+                       batch_at(ranks.data_config(), k).items()})
+    np.savez(tmp / "in.npz", **arrays,
+             **{f"b/{k}": v for k, v in batch.items()},
              prompt=prompt.astype(np.int32),
              run_steps=np.asarray(ranks.RESTART_STEPS[1]))
     env = {"XLA_FLAGS": "--xla_force_host_platform_device_count=4",
@@ -350,9 +435,7 @@ def runs(tmp_path_factory):
            "PATH": "/usr/bin:/bin"}
     ref = subprocess.Popen([sys.executable, "-c", textwrap.dedent(_REFERENCE),
                             str(tmp / "in.npz"), str(tmp / "out.npz"),
-                            json.dumps(ranks.FAMILIES),
-                            str(ranks.DECODE_MAX_SEQ),
-                            str(ranks.DECODE_STEPS)],
+                            json.dumps(cases), str(ranks.DECODE_STEPS)],
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True, env=env)
     full = {name: params_from_jax(t) for name, t in trees.items()}
@@ -363,11 +446,14 @@ def runs(tmp_path_factory):
     out, err = ref.communicate(timeout=900)
     assert ref.returncode == 0, err[-3000:]
     jref = dict(np.load(tmp / "out.npz"))
+    for name, same in SAME_AS.items():
+        jref.update({f"{name}/{k[len(same) + 1:]}": v for k, v in
+                     list(jref.items()) if k.startswith(f"{same}/")})
     specs = json.load(open(tmp / "out.npz.json"))
     torch.manual_seed(0)
     tb = {k: torch.tensor(v) for k, v in batch.items()}
     one = {name: _one_process(name, full[name], tb, prompt)
-           for name in NAMES}
+           for name in ALL}
     return {"world": world, "jax": jref, "specs": specs, "one": one,
             "full": full, "prompt": prompt}
 
@@ -400,10 +486,11 @@ def _close_update(got, want, got_g, want_g, what):
             f"{what} {n} (gradients near zero)"
 
 
-def _update_from(full, cfg, grads, comp="none"):
+def _update_from(full, name, grads, comp="none"):
     """The one-process AdamW step (after the int8 compression with
     ``comp="int8"``) on given gradients."""
-    model = build_model(cfg, device="cpu").load_params(full)
+    cfg = ranks.config(name)
+    model = _model(name).load_params(full)
     params = model.params()
     g = {n: torch.tensor(a) for n, a in grads.items()}
     if comp == "int8":
@@ -426,7 +513,7 @@ def test_train_step_matches_one_process(runs, name, shape):
     for key in ("grad_loss", "loss"):
         assert abs(got[key] - want[key]) <= 1e-5 * abs(want[key]), key
     _close(got["grads"], want["grads"], f"{name} {shape} grads")
-    _close(got["params"], _update_from(runs["full"][name], ranks.config(name),
+    _close(got["params"], _update_from(runs["full"][name], name,
                                        got["grads"]),
            f"{name} {shape} params from its own gradients")
     _close_update(got["params"], want["params"], got["grads"],
@@ -445,8 +532,7 @@ def test_global_norm_and_int8_scales_cover_every_leaf(runs, name, shape):
     want = float(global_norm({n: torch.tensor(a)
                               for n, a in got["grads"].items()}))
     assert abs(got["grad_norm"] - want) <= 1e-5 * want
-    cfg = ranks.config(name)
-    _close(got["params_int8"], _update_from(runs["full"][name], cfg,
+    _close(got["params_int8"], _update_from(runs["full"][name], name,
                                             got["grads"], "int8"),
            f"{name} {shape} int8 params from its own gradients")
 
@@ -466,16 +552,35 @@ def test_train_step_matches_the_reference_mesh(runs, name, shape):
 
 
 # the reference's leaf of the port's whole-tensor names
-_LEAVES = {"embed": "embed/table", "lm_head": "lm_head/kernel"}
+_LEAVES = {"embed": "embed/table", "lm_head": "lm_head/kernel",
+           "projector": "projector/kernel"}
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_every_rank_holds_the_blocks_named_shardings_gives_it(runs, name):
+def _reference_entries(ref, n, cfg):
+    """The reference's spec of the port's parameter ``n`` (``ref``: its
+    ``named_shardings`` by leaf path), less a layer's stacked dim."""
+    head, _, rest = n.partition(".")
+    if cfg.family == "encdec" and head in ("encoder", "layers",
+                                           "enc_final_norm"):
+        if head == "enc_final_norm":
+            path = f"layers/{n.replace('.', '/')}"
+        else:
+            _, tail = rest.split(".", 1)
+            path = (f"layers/{'enc' if head == 'encoder' else 'dec'}/"
+                    f"{tail.replace('.', '/')}")
+    else:
+        leaf = reference_leaf(n, len(layer_plan(cfg)))
+        path = _LEAVES.get(leaf, leaf.replace(".", "/"))
+    entries = [tuple(e) if isinstance(e, list) else e for e in ref[path]]
+    return entries[1:] if head in ("layers", "encoder") else entries
+
+
+def _blocks_are_named_shardings(runs, name, ref_shape):
     """Each rank's tensors are its blocks under the reference's
-    ``named_shardings`` at (2, 2) (a layer's stacked leaf less its period
-    dim), and their bytes those blocks' bytes, at every mesh."""
+    ``named_shardings`` at ``ref_shape``, and their bytes those blocks'
+    bytes, at every mesh the case trains over."""
     ref = runs["specs"][name]
-    period = len(layer_plan(ranks.config(name)))
+    cfg = ranks.config(name)
     full = runs["full"][name]
     for r in runs["world"]:
         for shape, case in r[name]["train"].items():
@@ -489,14 +594,24 @@ def test_every_rank_holds_the_blocks_named_shardings_gives_it(runs, name):
                                                 else (e,))]))
                 want += full[n].numel() * full[n].element_size() // blocks
             assert case["bytes"] == want, (r["rank"], shape)
-        for n, spec in r[name]["train"]["(2, 2)"]["specs"].items():
-            leaf = reference_leaf(n, period)
-            entries = [tuple(e) if isinstance(e, list) else e
-                       for e in ref[_LEAVES.get(leaf, leaf.replace(".", "/"))]]
-            if n.startswith("layers."):
-                entries = entries[1:]
+        for n, spec in r[name]["train"][ref_shape]["specs"].items():
+            entries = _reference_entries(ref, n, cfg)
             entries += [None] * (len(spec) - len(entries))
             assert tuple(entries) == spec, (n, entries, spec)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_rank_holds_the_blocks_named_shardings_gives_it(runs, name):
+    """Each rank's tensors are its blocks under the reference's
+    ``named_shardings`` at (2, 2) (a layer's stacked leaf less its period
+    dim; at the case's ``param_sharding``: Whisper's learned positions
+    replicated under its "dp", split over the data axes under "fsdp"),
+    and their bytes those blocks' bytes, at every mesh."""
+    _blocks_are_named_shardings(runs, name, "(2, 2)")
+    specs = runs["world"][0][name]["train"]["(2, 2)"]["specs"]
+    if "pos_emb" in specs:
+        assert specs["pos_emb"] == ((None, "data") if ranks.SHARDING.get(
+            name, "fsdp") == "fsdp" else (None, None))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -532,33 +647,55 @@ def test_sort_dispatch_keeps_the_reference_copies(runs, name):
     assert all(not k.all() for k in keeps) == overflow
 
 
-@pytest.mark.parametrize("mesh", ["(1, 2)", "(2, 2)"])
-@pytest.mark.parametrize("name", NAMES)
-def test_decode_over_a_process_mesh(runs, name, mesh):
-    want = runs["one"][name]
+def _decode_matches(runs, name, got, want, rows, what):
+    """One rank's decode against the one-process port's and the
+    reference's rows: tokens equal, logits within 1e-4."""
     jref = runs["jax"]
     ref_logits = jref[f"{name}/decode/logits"]
     ref_tokens = np.concatenate([jref[f"{name}/decode/tokens/{t}"]
                                  for t in range(ranks.DECODE_STEPS)], 1)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"][rows], what)
+    np.testing.assert_allclose(got["logits"], want["logits"][rows], rtol=0,
+                               atol=1e-4, err_msg=what)
+    np.testing.assert_array_equal(got["tokens"], ref_tokens[rows], what)
+    np.testing.assert_allclose(got["logits"], ref_logits[rows], rtol=0,
+                               atol=1e-4, err_msg=what)
+
+
+def _positions(caches, n):
+    """The attention caches cut or zero-padded to ``n`` positions."""
+    out = {}
+    for k, a in caches.items():
+        if k in ("k", "v") and a.shape[3] != n:
+            widths = [(0, 0)] * a.ndim
+            widths[3] = (0, max(n - a.shape[3], 0))
+            a = np.pad(a, widths)[:, :, :, :n]
+        out[k] = a
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["(1, 2)", "(2, 2)"])
+@pytest.mark.parametrize("name", NAMES)
+def test_decode_over_a_process_mesh(runs, name, mesh):
+    want = runs["one"][name]
     nd = 2 if mesh == "(2, 2)" else 1
     for r in runs["world"]:
         got = r[name]["decode"][mesh]
         b = want["tokens"].shape[0] // nd
         rows = slice(got["data_shard"] * b, (got["data_shard"] + 1) * b)
-        np.testing.assert_array_equal(got["tokens"], want["tokens"][rows])
-        np.testing.assert_allclose(got["logits"], want["logits"][rows],
-                                   rtol=0, atol=1e-4)
-        np.testing.assert_array_equal(got["tokens"], ref_tokens[rows])
-        np.testing.assert_allclose(got["logits"], ref_logits[rows], rtol=0,
-                                   atol=1e-4)
+        _decode_matches(runs, name, got, want, rows, f"{name} {mesh}")
         if r["rank"] == 0:
             _close(got["caches"], want["caches"], f"{name} {mesh} caches")
-            _close(got["caches"], _port_caches(runs["jax"], name),
-                   f"{name} {mesh} caches, the reference's")
+            ref = _port_caches(runs["jax"], name)
+            _close(got["caches"], _positions(ref, ranks.cache_len(
+                ranks.config(name))), f"{name} {mesh} caches, the "
+                "reference's")
         for k, (shape, spec) in got["cache_shapes"].items():
             whole = want["caches"][k].shape
             if k in ("k", "v"):     # this rank's slice of the positions
                 assert shape[3] == whole[3] // 2 and spec[3] == "model"
+            elif k in ("xk", "xv"):     # every KV head and frame
+                assert shape[2:] == whole[2:] and set(spec[2:]) == {None}
             else:                   # its heads or its channels
                 assert shape[2 if k == "ssm" else 3] * 2 == \
                     whole[2 if k == "ssm" else 3], k
@@ -580,6 +717,81 @@ def test_run_training_restarts_onto_another_mesh_shape(runs, name):
         for got in (res["first"] + res["losses"],):
             np.testing.assert_allclose(got, want, rtol=1e-5)
             np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+# ------------------------------------ the divisibility fallback at (1, 4)
+
+@pytest.mark.parametrize("name", FALLBACKS)
+def test_fallback_train_step_matches_one_process_and_the_reference(runs,
+                                                                   name):
+    """A layer whose heads or width the model axis does not divide is
+    computed whole on every rank from its weights' blocks: the train step
+    at (1, 4) against the one-process port and the reference's own (1, 4)
+    mesh (loss within 1e-5 relative, gradients within 1e-4 of each
+    tensor's largest magnitude, the updated parameters as the families'
+    are held)."""
+    shape = f"{ranks.FALLBACK_MESH}"
+    got = runs["world"][0][name]["train"][shape]
+    want = runs["one"][name]
+    jref = runs["jax"]
+    for key in ("grad_loss", "loss"):
+        assert abs(got[key] - want[key]) <= 1e-5 * abs(want[key]), key
+        ref = float(jref[f"{name}/{key}"])
+        assert abs(got[key] - ref) <= 1e-5 * abs(ref), key
+    _close(got["grads"], want["grads"], f"{name} grads")
+    grads = _jax(runs, name, "grads")
+    _close(got["grads"], grads, f"{name} grads, the reference's")
+    _close(got["params"], _update_from(runs["full"][name], name,
+                                       got["grads"]),
+           f"{name} params from its own gradients")
+    _close_update(got["params"], want["params"], got["grads"],
+                  want["grads"], f"{name} params")
+    _close_update(got["params"], _jax(runs, name, "params"), got["grads"],
+                  grads, f"{name} params, the reference's")
+
+
+@pytest.mark.parametrize("name", FALLBACKS)
+def test_fallback_blocks_are_named_shardings(runs, name):
+    """Each rank holds exactly its blocks under the reference's
+    ``named_shardings`` at (1, 4), though they split a layer computed
+    whole (the 6-head ``wq``'s 96 columns four ways, in the middle of a
+    head; the 2-head Mamba's ``d_inner``)."""
+    shape = f"{ranks.FALLBACK_MESH}"
+    _blocks_are_named_shardings(runs, name, shape)
+    specs = runs["world"][0][name]["train"][shape]["specs"]
+    split = {"llama3-8b@6-heads": "layers.0.attn.wq",
+             "qwen2-moe-a2.7b@d_ff_expert-90": "layers.0.moe.wi",
+             "mamba2-1.3b@2-heads": "layers.0.mamba.in_proj_x"}[name]
+    assert specs[split][-1] == "model" or specs[split][0] == "model"
+
+
+@pytest.mark.parametrize("max_seq", ranks.FALLBACK_MAX_SEQS)
+@pytest.mark.parametrize("name", FALLBACKS)
+def test_fallback_decode(runs, name, max_seq):
+    """The decode at (1, 4) with the layers the axis does not divide
+    computed whole: caches of 16 positions split four ways (the decode
+    kernel's partial mode), and of 18, which the seq axis does not divide,
+    kept whole on every rank (its normal mode); tokens equal, logits
+    within 1e-4, caches within 1e-4 of the one-process port's and the
+    reference's, each cache its block under ``cache_shardings``."""
+    want = runs["one"][name]["decode"][max_seq]
+    ref = _port_caches(runs["jax"], name)
+    for r in runs["world"]:
+        got = r[name]["decode"][max_seq]
+        _decode_matches(runs, name, got, want, slice(None),
+                        f"{name} {max_seq}")
+        assert got["seq_split"] == (max_seq % 4 == 0)
+        if r["rank"] == 0:
+            _close(got["caches"], want["caches"], f"{name} caches")
+            _close(got["caches"], _positions(ref, max_seq),
+                   f"{name} caches, the reference's")
+        for k, (shape, spec) in got["cache_shapes"].items():
+            whole = want["caches"][k].shape
+            blocks = [4 if e == "model" else 1 for e in spec]
+            assert tuple(shape) == tuple(w // b for w, b in
+                                         zip(whole, blocks)), k
+            if k in ("k", "v"):
+                assert (spec[3] == "model") == got["seq_split"], k
 
 
 def test_placed_ep_dispatch_matches_one_process(runs):

@@ -20,7 +20,7 @@ from repro_torch.config import TrainConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.distributed.sharding import (ShardCtx, gather_block,
                                               shard_params)
-from repro_torch.launch.mesh import ProcessMesh, init_process_mesh
+from repro_torch.launch.mesh import init_process_mesh, process_submesh
 from repro_torch.launch.steps import cache_shardings, make_train_step
 from repro_torch.models import moe as X
 from repro_torch.models.model import build_model
@@ -29,23 +29,69 @@ from repro_torch.training.optimizer import init_opt_state
 from repro_torch.training.train_loop import run_training
 
 AXES = ("data", "model")
-# the tiny models of the three families, f32; the first MoE model at
+# the tiny models of the families, f32, by case name (the architecture,
+# then "@" and what the case changes); the first MoE model at
 # capacity_factor 1.25, where copies overflow their experts' capacity
 FAMILIES = {"qwen2-moe-a2.7b": {"capacity_factor": 1.25},
             "phi3.5-moe-42b-a6.6b": {},
             "mamba2-1.3b": {},
-            "jamba-1.5-large-398b": {}}
+            "jamba-1.5-large-398b": {},
+            "whisper-large-v3": {},
+            "internvl2-26b": {},
+            "whisper-large-v3@fsdp": {}}
+# each case's ShardCtx param_sharding: the encoder-decoder and VLM at
+# their configs' own (Whisper's "dp" replicates its learned positions;
+# once more under "fsdp", which splits them over the data axes), the
+# others at "fsdp"
+SHARDING = {"whisper-large-v3": "dp"}
 MOE = ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")
 TRAIN_SHAPES = ((2, 2), (4, 1), (1, 4))
 DECODE_STEPS = 3
 DECODE_MAX_SEQ = 16
+# the reference's divisibility fallback at a model axis of 4: 6 heads
+# (their wq columns split in the middle of a head), a shared-expert width
+# of 90, and 2 Mamba heads (d_inner 128 split, the heads whole)
+FALLBACKS = {"llama3-8b@6-heads": {"num_heads": 6, "num_kv_heads": 2},
+             "qwen2-moe-a2.7b@d_ff_expert-90": {"d_ff_expert": 90},
+             "mamba2-1.3b@2-heads": {"ssm_head_dim": 64}}
+FALLBACK_MESH = (1, 4)
+# the fallback decodes' cache lengths: one the seq axis of 4 divides, and
+# one it does not (whole caches, the decode kernel's normal mode)
+FALLBACK_MAX_SEQS = (DECODE_MAX_SEQ, 18)
 RESTART_STEPS = (2, 3)      # steps of the (2, 2) run, then of the restart
 # the EP dispatch on a placed expert share: the first MoE model's weights
 EP_NAME = "qwen2-moe-a2.7b"
 
 
+def arch(name: str) -> str:
+    return name.split("@")[0]
+
+
 def config(name: str):
-    return tiny_config(name, dtype="float32", **FAMILIES[name])
+    over = FAMILIES[name] if name in FAMILIES else FALLBACKS[name]
+    return tiny_config(arch(name), dtype="float32", **over)
+
+
+def shard_ctx(name: str, mesh) -> ShardCtx:
+    return ShardCtx(mesh, param_sharding=SHARDING.get(name, "fsdp"))
+
+
+def cache_len(cfg, max_seq: int = DECODE_MAX_SEQ) -> int:
+    """A decode's cache positions: a VLM's caches hold the patches too."""
+    return max_seq + (cfg.vision_patches if cfg.family == "vlm" else 0)
+
+
+def side(cfg, rows: int, seed: int) -> Dict[str, torch.Tensor]:
+    """The family's stub frontend input for ``rows`` rows (standard normal
+    float32 from ``seed``), as keyword arguments of ``prefill``."""
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((rows, cfg.enc_frames, cfg.d_model),
+                                      generator=g)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.randn(
+            (rows, cfg.vision_patches, cfg.d_model), generator=g)}
+    return {}
 
 
 def ep_config():
@@ -96,8 +142,10 @@ class RouteRecorder:
 
 def placed(name: str, mesh, full: Dict[str, torch.Tensor]):
     cfg = config(name)
-    return build_model(cfg, device="cpu", mesh=mesh).load_params(
-        shard_params(full, mesh, cfg))
+    ctx = shard_ctx(name, mesh)
+    return build_model(cfg, device="cpu", mesh=ctx,
+                       max_seq=DECODE_MAX_SEQ).load_params(
+        shard_params(full, ctx, cfg))
 
 
 def data_shard(mesh, batch: Dict[str, torch.Tensor]):
@@ -141,27 +189,33 @@ def train_case(name: str, pm, full, batch) -> Dict[str, Any]:
     return out
 
 
-def decode_case(name: str, pm, full, prompt) -> Dict[str, Any]:
-    """Prefill this rank's data shard of ``prompt`` into caches of
-    ``DECODE_MAX_SEQ`` positions, then ``DECODE_STEPS`` greedy steps: the
-    logits of every step, the tokens, and the caches gathered whole."""
+def decode_case(name: str, pm, full, prompt, side_in,
+                max_seq: int = DECODE_MAX_SEQ) -> Dict[str, Any]:
+    """Prefill this rank's data shard of ``prompt`` (with its rows of the
+    stub frontend input ``side_in``) into caches of ``cache_len``
+    positions, then ``DECODE_STEPS`` greedy steps: the logits of every
+    step, the tokens, the caches gathered whole, and each cache's block
+    beside its spec under ``cache_shardings``."""
     model = placed(name, pm, full)
     ctx = model.shard_ctx
     nd = int(np.prod([ctx.mesh.shape[a] for a in ctx.batch_axes]))
     b = prompt.shape[0] // nd
-    mine = prompt[ctx.data_shard * b:(ctx.data_shard + 1) * b]
-    S = mine.shape[1]
-    caches, logits = model.prefill(mine, max_seq=DECODE_MAX_SEQ)
+    rows = slice(ctx.data_shard * b, (ctx.data_shard + 1) * b)
+    mine = {k: v[rows] for k, v in side_in.items()}
+    n = cache_len(model.cfg, max_seq)
+    caches, logits = model.prefill(prompt[rows], max_seq=n, **mine)
+    S = n - max_seq + prompt.shape[1]
     out, toks = [logits], []
     for t in range(DECODE_STEPS):
         tok = out[-1][:, -1].argmax(-1, keepdim=True)
         toks.append(tok)
         caches, logits = model.decode(caches, tok, S + t)
         out.append(logits)
-    full_spec = model.cache_spec(prompt.shape[0], DECODE_MAX_SEQ)
+    full_spec = model.cache_spec(prompt.shape[0], n)
     specs = cache_shardings(ctx, full_spec, seq_axes=ctx.seq_axes)
     shapes = {k: (tuple(c.shape), tuple(specs[k])) for k, c in caches.items()}
     return {"data_shard": ctx.data_shard, "cache_shapes": shapes,
+            "seq_split": caches.seq_split,
             "caches": {k: _np(gather_block(c, specs[k], ctx.mesh))
                        for k, c in caches.items()},
             "logits": _np(torch.cat(out, dim=1)),
@@ -196,29 +250,15 @@ def restart_case(name: str, tmp: str, m22, m14) -> Dict[str, Any]:
     tcfg = TrainConfig(warmup_steps=1, checkpoint_every=RESTART_STEPS[0])
     first = run_training(cfg, tcfg, data_config(),
                          total_steps=RESTART_STEPS[0], ckpt_dir=tmp,
-                         device="cpu", mesh=m22, verbose=False)
+                         device="cpu", mesh=shard_ctx(name, m22),
+                         verbose=False)
     dist.barrier()
     rep = run_training(cfg, tcfg, data_config(),
                        total_steps=RESTART_STEPS[1], ckpt_dir=tmp,
-                       device="cpu", mesh=m14, verbose=False)
+                       device="cpu", mesh=shard_ctx(name, m14),
+                       verbose=False)
     return {"first": first.losses, "losses": rep.losses,
             "restarts": rep.restarts}
-
-
-def _pair_mesh(rank: int) -> ProcessMesh:
-    """Two (1, 2) meshes side by side in the 4-rank world: ranks {0, 1}
-    and {2, 3} (every rank makes every group, in the same order)."""
-    groups = {}
-    for members in ([0, 1], [2, 3]):
-        g = dist.new_group(members)
-        if rank in members:
-            groups["model"] = g
-    for r in range(4):
-        g = dist.new_group([r])
-        if r == rank:
-            groups["data"] = g
-    return ProcessMesh((1, 2), AXES, rank % 2, torch.device("cpu"), "gloo",
-                       groups)
 
 
 def run_world(inp: Dict[str, Any]) -> Dict[str, Any]:
@@ -226,20 +266,32 @@ def run_world(inp: Dict[str, Any]) -> Dict[str, Any]:
     torch.manual_seed(0)
     meshes = {shape: init_process_mesh(shape, AXES, device="cpu")
               for shape in TRAIN_SHAPES}
-    pair = _pair_mesh(dist.get_rank())
+    # two (1, 2) meshes side by side: ranks {0, 1} and {2, 3}
+    pair = process_submesh((1, 2), AXES, [[0, 1], [2, 3]],
+                           torch.device("cpu"))
     batch = {k: torch.tensor(v) for k, v in inp["batch"].items()}
     prompt = torch.tensor(inp["prompt"])
     res: Dict[str, Any] = {"rank": dist.get_rank()}
     for name in FAMILIES:
         full = {n: torch.tensor(a) for n, a in inp["params"][name].items()}
+        cfg = config(name)
+        b = {**batch, **side(cfg, batch["tokens"].shape[0], 11)}
+        sd = side(cfg, prompt.shape[0], 12)
         r = res[name] = {"train": {}, "decode": {}}
         for shape, pm in meshes.items():
-            r["train"][f"{shape}"] = train_case(name, pm, full, batch)
+            r["train"][f"{shape}"] = train_case(name, pm, full, b)
         r["decode"]["(2, 2)"] = decode_case(name, meshes[(2, 2)], full,
-                                            prompt)
-        r["decode"]["(1, 2)"] = decode_case(name, pair, full, prompt)
+                                            prompt, sd)
+        r["decode"]["(1, 2)"] = decode_case(name, pair, full, prompt, sd)
         r["restart"] = restart_case(name, f"{inp['tmp']}/{name}",
                                     meshes[(2, 2)], meshes[(1, 4)])
+    for name in FALLBACKS:
+        full = {n: torch.tensor(a) for n, a in inp["params"][name].items()}
+        pm = meshes[FALLBACK_MESH]
+        res[name] = {"train": {f"{FALLBACK_MESH}": train_case(name, pm, full,
+                                                              batch)},
+                     "decode": {n: decode_case(name, pm, full, prompt, {}, n)
+                                for n in FALLBACK_MAX_SEQS}}
     res["ep"] = ep_case(meshes[(2, 2)],
                         {n: torch.tensor(a)
                          for n, a in inp["params"][EP_NAME].items()},

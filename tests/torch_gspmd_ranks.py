@@ -23,7 +23,7 @@ from repro_torch.distributed.sharding import (P, ShardCtx, gather_block,
                                               gather_whole, local_block,
                                               shard_params)
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.launch.mesh import ProcessMesh, init_process_mesh
+from repro_torch.launch.mesh import init_process_mesh, process_submesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model
@@ -40,8 +40,30 @@ DECODE_MAX_SEQ = 16
 VARIANTS = ("qwen3-4b", "qwen2-7b")
 VARIANT_SHAPES = ((2, 2), (1, 4))
 VARIANT_SEED = 9
-# the SSM and hybrid families placed over (2, 2), drawn by the placed init
-FAMILY_DECODES = ("mamba2-1.3b", "jamba-1.5-large-398b")
+# the other families placed over (2, 2), drawn by the placed init
+FAMILY_DECODES = ("mamba2-1.3b", "jamba-1.5-large-398b", "whisper-large-v3",
+                  "internvl2-26b")
+SIDE_SEED = 13
+
+
+def family_side(cfg, rows: int) -> Dict[str, torch.Tensor]:
+    """The stub frontend input of ``rows`` prompt rows (standard normal
+    float32 from ``SIDE_SEED``): frames for the encoder-decoder, patch
+    embeddings for the VLM, as keyword arguments of ``prefill``."""
+    g = torch.Generator().manual_seed(SIDE_SEED)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((rows, cfg.enc_frames, cfg.d_model),
+                                      generator=g)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.randn(
+            (rows, cfg.vision_patches, cfg.d_model), generator=g)}
+    return {}
+
+
+def family_cache_len(cfg) -> int:
+    """A family decode's cache positions (a VLM's hold its patches too)."""
+    return DECODE_MAX_SEQ + (cfg.vision_patches if cfg.family == "vlm"
+                             else 0)
 
 
 def config():
@@ -149,37 +171,26 @@ def family_decode_case(pm, name, prompt) -> Dict[str, Any]:
     (each drawn whole, the block kept): this rank's data shard of
     ``prompt`` prefilled, then greedy steps; the logits and tokens."""
     cfg = tiny_config(name, dtype="float32")
-    model = build_model(cfg, device="cpu", mesh=pm).init(
+    model = build_model(cfg, device="cpu", mesh=pm,
+                        max_seq=DECODE_MAX_SEQ).init(
         torch.Generator().manual_seed(VARIANT_SEED))
     ctx = model.shard_ctx
     b = prompt.shape[0] // pm.shape["data"]
-    mine = prompt[ctx.data_shard * b:(ctx.data_shard + 1) * b]
-    caches, logits = model.prefill(mine, max_seq=DECODE_MAX_SEQ)
+    rows = slice(ctx.data_shard * b, (ctx.data_shard + 1) * b)
+    mine = prompt[rows]
+    side = {k: v[rows] for k, v in family_side(cfg, prompt.shape[0]).items()}
+    n = family_cache_len(cfg)
+    caches, logits = model.prefill(mine, max_seq=n, **side)
+    S = mine.shape[1] + n - DECODE_MAX_SEQ
     out, toks = [logits], []
     for t in range(DECODE_STEPS):
         tok = out[-1][:, -1].argmax(-1, keepdim=True)
         toks.append(tok)
-        caches, logits = model.decode(caches, tok, mine.shape[1] + t)
+        caches, logits = model.decode(caches, tok, S + t)
         out.append(logits)
     return {"data_shard": ctx.data_shard,
             "logits": _np(torch.cat(out, dim=1)),
             "tokens": _np(torch.cat(toks, dim=1))}
-
-
-def _pair_mesh(rank: int) -> ProcessMesh:
-    """Two (1, 2) meshes side by side in the 4-rank world: ranks {0, 1}
-    and {2, 3} (every rank makes every group, in the same order)."""
-    groups = {}
-    for members in ([0, 1], [2, 3]):
-        g = dist.new_group(members)
-        if rank in members:
-            groups["model"] = g
-    for r in range(4):
-        g = dist.new_group([r])
-        if r == rank:
-            groups["data"] = g
-    return ProcessMesh((1, 2), AXES, rank % 2, torch.device("cpu"), "gloo",
-                       groups)
 
 
 def seq_attention_case(pm, ref_in) -> np.ndarray:
@@ -289,7 +300,9 @@ def run_world(inp: Dict[str, Any]) -> Dict[str, Any]:
             for name in VARIANTS:
                 res.setdefault("variants", {})[f"{name}/{shape}"] = \
                     variant_case(pm, name, batch)
-    pair = _pair_mesh(dist.get_rank())
+    # two (1, 2) meshes side by side: ranks {0, 1} and {2, 3}
+    pair = process_submesh((1, 2), AXES, [[0, 1], [2, 3]],
+                           torch.device("cpu"))
     res["decode"]["(1, 2)"] = decode_case(pair, full,
                                           torch.tensor(inp["prompt"]))
     # the reference's batch-1 cell with a pod axis: the positions split

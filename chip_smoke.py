@@ -63,6 +63,9 @@ Phases (any failure raises and the script exits non-zero):
    bound, its plain version and one PyTorch library call; K3 also at
    every launch plan (D from 64 to 16,384, an input off 16-byte
    alignment) and its sweep, with ``--parent`` beside the parent's kernel;
+   K5's bfloat16-scores option (``decode_f32_scores=False``: each q.k
+   rounded to bfloat16 before the scale) at the engine's shape, over 8
+   rows of up to 8,192 positions and in the partial mode, each timed;
 9. Llama-3-8B at full width cut to 2 layers: a 24-token prompt and 8
    teacher-forced decode steps on ``cuda`` (through K3-K5) and on the CPU
    (the plain versions) from the same weights: logits within 5e-2;
@@ -196,8 +199,11 @@ Phases (any failure raises and the script exits non-zero):
    ``"full"``'s bit for bit (within the run-to-run gap if two ``"full"``
    runs differ); step ms and peak memory for each;
 31. the dry run: ``python -m repro_torch.launch.dryrun --arch
-   qwen2-moe-a2.7b --shape train_4k --mesh single`` exits 0; its record
-   is printed;
+   qwen2-moe-a2.7b --shape train_4k --mesh single --set moe_impl=ep``
+   (the step traced as rank 0 of the 256-rank production mesh on
+   ``meta``, host work in a process of its own beside phases 36-38)
+   exits 0; its record, with the reference's keys (but ``compile_s``)
+   and all-to-all bytes, is printed;
 32. a process group of one rank over NCCL in this process
    (``launch.mesh.init_process_mesh``): the EP layer at Qwen1.5-MoE's
    full width over the (1, 1) process mesh, its collectives through
@@ -245,7 +251,13 @@ Phases (any failure raises and the script exits non-zero):
    1e-4), cosines at least 0.99, each rank's bytes its
    ``named_shardings`` blocks', the layers computed whole, tokens whose
    top-k experts differ from one process's printed, K3/K4/K6/K7
-   launches a rank, and the same at (1, 1) over NCCL;
+   launches a rank, and the same at (1, 1) over NCCL.  Then one step of
+   Qwen1.5-MoE under ``PERF_PRESETS`` (``moe_impl="ep"``, full width, 2
+   layers, 4 x 1,024 tokens in two microbatches) through
+   ``run_training(mesh=)`` over (2, 2), the model placed with its experts
+   split (``expert_share=False``): its loss within 5e-2 of the
+   one-process port's (its EP body over a logical (2, 2)), the same
+   model's gradients' cosines at least 0.99, K6 launched on every rank;
 37. the sequence-sharded decode: Llama-3-8B widths cut to 4 layers,
    bfloat16, a 2 x 512-token prompt and 8 greedy steps over (1, 4) (and
    (1, 1) over NCCL), each rank's caches its quarter of the positions,
@@ -283,8 +295,8 @@ Phases (any failure raises and the script exits non-zero):
 ``--only gspmd`` builds the kernels and runs phases 36-38 alone.
 
 The order they run in: the build, then phases 36-38, while phases 2, 3,
-4, 7 and 28's ``run_sim`` runs (host-bound simulator traces) each run in
-a process of its own beside them (``_Background``: spawned, each with
+4, 7 and 28's ``run_sim`` runs (host-bound simulator traces) and phase
+31 (a trace on ``meta``) each run in a process of its own beside them (``_Background``: spawned, each with
 its own launch counters, its result sent back); then the rest in their
 numbered order, alone on the card, so that no kernel is timed beside
 another process's work.  Every phase prints its own seconds.
@@ -1700,6 +1712,26 @@ def _hold(tag, out, want, dtype_name, tol=None):
     return err
 
 
+# K5's bfloat16-scores checks scale q by this: scores in the hundreds, where
+# one bfloat16 step of q.k is a logit step of about 0.1, so the output of
+# float32 scores lies several tolerances away (0.12-0.24 on the plain
+# version at the checks' shapes) and a kernel that ignored the option fails
+BF16_SCORES_Q_SCALE = 16.0
+
+
+def _apart(tag, out, f32_plain, dtype_name):
+    """Raise unless ``out`` (K5 with ``bf16_scores``) lies more than twice
+    the dtype's tolerance from ``f32_plain``, the plain version with
+    float32 scores: the option did something.  Returns that gap."""
+    tol = KERNEL_TOL[dtype_name]
+    gap = float((out.float() - f32_plain.float()).abs().max())
+    log(f"{tag} max_abs_gap_to_f32_scores={gap} (must exceed {2 * tol})")
+    if not gap > 2 * tol:
+        raise AssertionError(f"{tag}: within {gap} of the plain version's "
+                             "float32 scores: the option changed nothing")
+    return gap
+
+
 def _timed(tag, launch, plain, library, n_bytes, flops=0.0,
            flops_peak=PEAK_BF16_FLOPS):
     """Kernel time per launch (on a held stream; free-running CUDA events
@@ -1740,7 +1772,7 @@ def _check_rmsnorm(device, rows, D, dtype_name, seed=0, offset=0):
     path."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import kernel, ref
+    from repro_torch.kernels.rmsnorm import kernel, ops, ref
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = _randn((rows * D + offset,), dt, gen, device)[offset:].view(rows, D)
@@ -1752,17 +1784,18 @@ def _check_rmsnorm(device, rows, D, dtype_name, seed=0, offset=0):
            f"{' offset=%d' % offset if offset else ''} {tuple(plan)}]")
     err = _hold(tag, kernel.rmsnorm_kernel(x, s, eps=1e-5),
                 ref.rmsnorm_ref(x, s, 1e-5), dtype_name)
+    flops, n_bytes = ops.cost(rows, D, x.element_size(), s.element_size())
     t = _timed(tag, lambda: kernel.rmsnorm_kernel(x, s, eps=1e-5),
                lambda: ref.rmsnorm_ref(x, s, 1e-5),
                lambda: F.rms_norm(x, (D,), s_lib, 1e-5),
-               n_bytes=2 * rows * D * x.element_size() + 4 * D)
+               n_bytes=n_bytes, flops=flops, flops_peak=PEAK_F32_FLOPS)
     return dict(t, max_abs_err=err)
 
 
 def _check_flash(device, B, Sq, Skv, H, K, hd, dtype_name, causal, seed=0):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(seed)
     q = _randn((B, Sq, H, hd), dt, gen, device)
@@ -1781,29 +1814,34 @@ def _check_flash(device, B, Sq, Skv, H, K, hd, dtype_name, causal, seed=0):
             .reshape(B, Sq, H, hd))
     err = _hold(tag, kernel.flash_attention_kernel(q, k, v, causal=causal),
                 want, dtype_name)
-    pairs = (sum(min(i + 1, Skv) for i in range(Sq)) if causal
-             else Sq * Skv)
+    flops, n_bytes = ops.cost(B, Sq, Skv, H, K, hd, q.element_size(),
+                              causal)
     t = _timed(tag, lambda: kernel.flash_attention_kernel(q, k, v,
                                                           causal=causal),
                lambda: ref.attention_ref(qf, kf, vf, causal=causal),
                lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=True),
-               n_bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
-               flops=4.0 * B * H * hd * pairs,
+               n_bytes=n_bytes, flops=flops,
                flops_peak=(PEAK_BF16_FLOPS if dtype_name == "bfloat16"
                            else PEAK_F32_FLOPS))
     return dict(t, max_abs_err=err)
 
 
-def _check_decode(device, B, H, K, hd, Smax, lengths, dtype_name, seed=0):
+def _check_decode(device, B, H, K, hd, Smax, lengths, dtype_name, seed=0,
+                  bf16_scores=False):
     """Caches laid out (B, K, Smax, hd) and passed as the transposed view
-    the engine passes; per-row ``lengths`` (B,)."""
+    the engine passes; per-row ``lengths`` (B,); ``bf16_scores``: the
+    launch option that rounds each q.k to bfloat16 before the scale, with
+    q scaled by ``BF16_SCORES_Q_SCALE``: held to the plain version's
+    ``f32_scores=False`` and kept apart from its float32 scores."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import kernel, ref
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(seed)
     q = _randn((B, H, hd), dt, gen, device)
+    if bf16_scores:
+        q = (q.float() * BF16_SCORES_Q_SCALE).to(dt)
     kc = _randn((B, K, Smax, hd), dt, gen, device)
     vc = _randn((B, K, Smax, hd), dt, gen, device)
     lengths = torch.as_tensor(lengths, device=device)
@@ -1813,29 +1851,32 @@ def _check_decode(device, B, H, K, hd, Smax, lengths, dtype_name, seed=0):
     mask = (torch.arange(Smax, device=device)[None, :]
             < lengths[:, None])[:, None, None, :]
     tag = (f"[kernel:decode_attention B={B} H={H} K={K} hd={hd} Smax={Smax} "
-           f"{dtype_name} lengths={lengths.tolist()[:8]}]")
+           f"{dtype_name} lengths={lengths.tolist()[:8]}"
+           f"{' bf16_scores' if bf16_scores else ''}]")
 
     def launch():
         return kernel.decode_attention_kernel(q, kc.transpose(1, 2),
-                                              vc.transpose(1, 2), rows)
+                                              vc.transpose(1, 2), rows,
+                                              bf16_scores=bf16_scores)
 
-    def plain():
+    def plain(f32_scores=not bf16_scores):
         return ref.decode_attention_ref(q.reshape(B * K, G, hd),
                                         kc.reshape(B * K, Smax, hd),
-                                        vc.reshape(B * K, Smax, hd), rows)
+                                        vc.reshape(B * K, Smax, hd), rows,
+                                        f32_scores=f32_scores)
 
     out = launch()
     err = _hold(tag, out, plain().reshape(B, H, hd), dtype_name)
+    if bf16_scores:
+        _apart(tag, out, plain(True).reshape(B, H, hd), dtype_name)
     if not torch.equal(out, launch()):
         raise AssertionError(f"{tag}: two launches differ (the split merge "
                              "must not depend on the blocks' order)")
-    es = q.element_size()
-    n_bytes = (2 * K * hd * es * int(lengths.sum()) + 2 * q.numel() * es
-               + 4 * B * K)
+    flops, n_bytes = ops.cost(B, H, K, hd, int(rows.sum()), q.element_size())
     t = _timed(tag, launch, plain,
                lambda: F.scaled_dot_product_attention(
                    q4, kc, vc, attn_mask=mask, enable_gqa=True),
-               n_bytes=n_bytes)
+               n_bytes=n_bytes, flops=flops, flops_peak=PEAK_F32_FLOPS)
     return dict(t, max_abs_err=err)
 
 
@@ -1878,8 +1919,9 @@ def phase_model_kernels(device, parent=None):
     """K3-K5 against their plain versions: the serve path's own shapes
     (the kernels-line entries) and the full-width Llama-3-8B shapes; K3 at
     every D of the card tests, rows not a multiple of a block's and an
-    input one element off 16-byte alignment; K3's sweep beside the
-    parent's kernel when ``parent`` names its checkout."""
+    input one element off 16-byte alignment; K5's bfloat16-scores option,
+    both modes, timed; K3's sweep beside the parent's kernel when
+    ``parent`` names its checkout."""
     import numpy as np
     import torch
     main = {
@@ -1924,6 +1966,14 @@ def phase_model_kernels(device, parent=None):
         # its end and one past it
         _check_decode(device, 1, 32, 8, 128, 8192, [8192], dt)
         _check_decode(device, 4, 32, 8, 128, 2048, [5, 512, 513, 2048], dt)
+    # the bfloat16-scores option (decode_f32_scores=False): the engine's
+    # shape, 8 long rows, and the partial mode at phase 37's shape
+    _check_decode(device, 1, 32, 8, 128, 192, [100], "bfloat16",
+                  bf16_scores=True)
+    _check_decode(device, 8, 32, 8, 128, 8192, long_lengths, "bfloat16",
+                  bf16_scores=True)
+    _check_decode_partial(device, 2, 32, 8, 128, 1024, [1024, 1023, 0, 1],
+                          "bfloat16", bf16_scores=True)
     return [_kernel_entry(name, r) for name, r in main.items()]
 
 
@@ -2245,7 +2295,7 @@ def _check_moe_gmm(device, E, C, D, N, dtype_name, seed=0):
     (E, D, N) at the experts' init scale 1/sqrt(D); timed beside its bound,
     the plain version and ``torch.bmm``."""
     import torch
-    from repro_torch.kernels.moe_gmm import kernel, ref
+    from repro_torch.kernels.moe_gmm import kernel, ops, ref
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = _randn((E, C, D), dt, gen, device)
@@ -2254,11 +2304,10 @@ def _check_moe_gmm(device, E, C, D, N, dtype_name, seed=0):
     tag = f"[kernel:moe_gmm E={E} C={C} D={D} N={N} {dtype_name}]"
     err = _hold(tag, kernel.moe_gmm_kernel(x, w), ref.moe_gmm_ref(x, w),
                 dtype_name, tol=GMM_TOL[dtype_name])
+    flops, n_bytes = ops.cost(E, C, D, N, x.element_size())
     t = _timed(tag, lambda: kernel.moe_gmm_kernel(x, w),
                lambda: ref.moe_gmm_ref(x, w), lambda: torch.bmm(x, w),
-               n_bytes=x.element_size() * (x.numel() + w.numel()
-                                           + E * C * N),
-               flops=2.0 * E * C * D * N,
+               n_bytes=n_bytes, flops=flops,
                flops_peak=(PEAK_BF16_FLOPS if dtype_name == "bfloat16"
                            else PEAK_F32_FLOPS))
     return dict(t, max_abs_err=err)
@@ -2384,7 +2433,7 @@ def _check_ssd(device, B, S, H, P, N, chunk, dtype_name, seed=0):
     x and 4 Lc N P for the state's read and update; at the bf16 tensor-core
     rate for bf16 inputs, else the f32 rate."""
     import torch
-    from repro_torch.kernels.ssd_scan import kernel, ref
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
     dt_ = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(seed)
     args = _ssd_inputs(device, B, S, H, P, N, dt_, gen)
@@ -2396,12 +2445,7 @@ def _check_ssd(device, B, S, H, P, N, chunk, dtype_name, seed=0):
                     tol=SSD_TOL[dtype_name]),
               _hold(f"{tag} final_state", final, want_final, "float32",
                     tol=SSD_TOL["float32"]))
-    es = args[0].element_size()
-    n_bytes = (2 * B * S * H * P * es + 2 * B * S * N * es + 4 * B * S * H
-               + 4 * H + 4 * B * H * N * P)
-    lens = [min(chunk, S - t0) for t0 in range(0, S, chunk)]
-    flops = float(B * sum(Lc * (Lc + 1) * (N + H * P) + 4 * H * Lc * N * P
-                          for Lc in lens))
+    flops, n_bytes = ops.cost(B, S, H, P, N, chunk, args[0].element_size())
     t = _timed(tag, lambda: kernel.ssd_scan_kernel(*args, chunk=chunk),
                lambda: ref.ssd_chunked(*args, chunk), None,
                n_bytes=n_bytes, flops=flops,
@@ -3449,24 +3493,42 @@ def phase_remat(device, layers=8, seq=2048, batch=8, reps=2):
     log(f"[remat] run-to-run gap of 'full': {gap}")
 
 
+# the keys of a traced dry-run record (the reference's, but compile_s)
+DRYRUN_KEYS = ("n_devices", "lower_s", "hlo_flops_per_dev",
+               "hlo_bytes_per_dev", "collectives", "scanned_program",
+               "memory_analysis", "params_bytes_per_dev",
+               "model_flops_per_dev", "useful_flops_ratio", "extrapolated",
+               "roofline")
+
+
 def phase_dryrun(tmp):
     """Phase 31: ``python -m repro_torch.launch.dryrun --arch
-    qwen2-moe-a2.7b --shape train_4k --mesh single`` exits 0 and writes
-    its record, which is printed."""
+    qwen2-moe-a2.7b --shape train_4k --mesh single --set moe_impl=ep``
+    (the step traced as rank 0 of the 256-rank production mesh on
+    ``meta``: host work, no device) exits 0 and writes its record, with
+    every key of the reference's but ``compile_s`` and all-to-all bytes
+    above 0; the record is printed and returned."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "qwen2-moe-a2.7b", "--shape", "train_4k", "--mesh", "single",
-         "--out", str(tmp)], capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, PYTHONPATH=str(SRC)))
+         "--set", "moe_impl=ep", "--out", str(tmp)], capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(SRC)))
     log(f"[dryrun] exit {out.returncode}: {out.stdout.strip()}")
     if out.returncode != 0:
         raise AssertionError(f"[dryrun] exit {out.returncode}: "
                              f"{out.stderr[-2000:]}")
-    rec = json.loads((tmp / "single" / "qwen2-moe-a2.7b__train_4k.json")
+    rec = json.loads((tmp / "single" /
+                      "qwen2-moe-a2.7b__train_4k__moe_impl-ep.json")
                      .read_text())
     log(f"[dryrun] record {json.dumps(rec)}")
-    if not rec.get("ok"):
-        raise AssertionError(f"[dryrun] record not ok: {rec}")
+    missing = [k for k in DRYRUN_KEYS if k not in rec]
+    if not rec.get("ok") or missing or "compile_s" in rec \
+            or rec["collectives"]["all-to-all"] <= 0:
+        raise AssertionError(f"[dryrun] record not ok, keys missing "
+                             f"{missing} or no all-to-all bytes: {rec}")
+    log(f"[dryrun] keys {sorted(rec)}; roofline {rec['roofline']}; memory "
+        f"{rec['memory_analysis']}; collectives {rec['collectives']}")
+    return rec
 
 
 # ------------------------------------------- phases 32-35: across processes
@@ -4581,6 +4643,124 @@ def _family_train(pm, ref, name):
     return out
 
 
+# phase 36's EP preset: Qwen1.5-MoE under PERF_PRESETS (moe_impl="ep",
+# remat off) at full width, 2 layers, one step of 4 x 1,024 tokens through
+# run_training(mesh=) over (2, 2); two microbatches of 2 rows (the preset's
+# 16 need 16 rows a data shard)
+GSPMD_EP_PRESET = dict(arch="qwen2-moe-a2.7b", layers=2, batch=4, seq=1024,
+                       microbatch=2, seed=47)
+
+
+def _ep_preset():
+    """(model config, train config, data config) of phase 36's EP
+    preset."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import PERF_PRESETS
+    from repro_torch.data.pipeline import DataConfig
+    spec = GSPMD_EP_PRESET
+    cfg = get_config(spec["arch"], **PERF_PRESETS[spec["arch"]]).replace(
+        num_layers=spec["layers"], microbatch=spec["microbatch"])
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                      global_batch=spec["batch"], seed=spec["seed"])
+    return cfg, _gspmd_tcfg(), dcfg
+
+
+def _ep_preset_reference(device, tmp):
+    """The one-process port on the card from the weights ``run_training``
+    draws (its data seed): the first step's loss and gradients (saved for
+    the ranks' cosines) and launches, its EP body over a logical mesh of
+    the ranks' shape (every position's tokens, capacities and drops as
+    the ranks'; without a model axis it would take the sort dispatch,
+    whose global capacity drops other copies)."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.distributed.sharding import ShardCtx, use_shard_ctx
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    cfg, tcfg, dcfg = _ep_preset()
+    model = build_model(cfg, device=device).init(torch.Generator(
+        device=device).manual_seed(dcfg.seed)).trainable()
+    reset_launches()
+    mesh = make_mesh(GSPMD_FAMILY_TRAIN_MESH, GSPMD_AXES, device)
+    with use_shard_ctx(ShardCtx(mesh)):
+        loss, grads = make_train_step(model, tcfg).gradients(
+            model.params(), batch_at(dcfg, 0))
+    _sync(device)
+    path = str(tmp / "ep-preset-grads.pt")
+    torch.save({n: g.cpu() for n, g in grads.items()}, path)
+    ref = dict(grads_path=path, loss=float(loss), launches=_launch_counts())
+    del model, grads
+    _free()
+    return ref
+
+
+def _ep_preset_train(pm, eref):
+    """Phase 36's EP preset in one rank: one step of ``run_training`` over
+    the process mesh ``pm`` (its loss and launches: K6 on the rank's
+    placed experts), then the same model's gradients of the same batch by
+    hand, their cosines to the one-process port's."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_loop import run_training
+    cfg, tcfg, dcfg = _ep_preset()
+    _barrier(pm)
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = run_training(cfg, tcfg, dcfg, total_steps=1, device=pm.device,
+                       mesh=pm, verbose=False)
+    _sync(pm.device)
+    run_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    _free()
+    model = build_model(cfg, device=pm.device, mesh=pm,
+                        expert_share=False).init(torch.Generator(
+                            device=pm.device).manual_seed(dcfg.seed))
+    model.trainable()
+    _barrier(pm)
+    loss, grads = make_train_step(model, tcfg).gradients(model.params(),
+                                                         batch_at(dcfg, 0))
+    cos = _grad_cosines(grads, model.placement, eref["grads_path"])
+    out = dict(rank=pm.rank, coords=list(pm.coords), loss=rep.losses[0],
+               grad_loss=float(loss), cosines=cos, launches=launches,
+               run_s=run_s, experts=int(model.layers[0].moe.wi.shape[0]))
+    del model, grads
+    _free()
+    return out
+
+
+def _check_ep_preset(world, eref, launches):
+    """Phase 36's EP preset: each rank's ``run_training`` loss within 5e-2
+    of the one-process port's, its gradients' cosines at least 0.99, and
+    K6 launched on every rank (6 a microbatch: three products in each of
+    the 2 layers); adds the launches to ``launches``."""
+    cfg, _, _ = _ep_preset()
+    want_k6 = 3 * cfg.num_layers * cfg.microbatch
+    for w in world:
+        r = w["ep_preset"]
+        worst = min(r["cosines"], key=r["cosines"].get)
+        log(f"[gspmd_ep_preset (2, 2)] rank {r['rank']} {tuple(r['coords'])}"
+            f": run_training loss {r['loss']:.6f} (the gradients' "
+            f"{r['grad_loss']:.6f}; one process {eref['loss']:.6f}); worst "
+            f"cosine {worst} {r['cosines'][worst]:.6f}; experts held "
+            f"{r['experts']}; launches {r['launches']} (one process "
+            f"{eref['launches']}); run_training step {r['run_s']:.1f} s "
+            f"(gloo host copies)")
+        if (abs(r["loss"] - eref["loss"]) > MODEL_BF16_TOL
+                or r["cosines"][worst] < GRAD_COSINE_MIN
+                or r["launches"]["moe_gmm"] != want_k6):
+            raise AssertionError(f"[gspmd_ep_preset] rank {r['rank']} "
+                                 f"differs from the one-process port or K6 "
+                                 f"did not launch")
+    launches["moe_gmm"]["GSPMD EP preset run_training step (2, 2), gloo, "
+                        "per rank"] = [w["ep_preset"]["launches"]["moe_gmm"]
+                                       for w in world]
+
+
 def _family_decode(pm, ref, name):
     """Phase 37 for one family in one rank: the model placed over ``pm``,
     the prompt prefilled into caches of prompt + steps positions (this
@@ -4754,6 +4934,10 @@ def _rank_gspmd(ref):
         fam["decode"] = _family_decode(decode, fref, name)
         fam["s"] = (t2 - t1, time.perf_counter() - t2)
     out["families_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ep_preset"] = _ep_preset_train(meshes[GSPMD_FAMILY_TRAIN_MESH],
+                                        ref["ep_preset"])
+    out["ep_preset_s"] = time.perf_counter() - t0
     dist.barrier()
     return out
 
@@ -4854,6 +5038,9 @@ def _gspmd_reference(device, tmp):
         t0 = time.perf_counter()
         ref["families"][name] = _family_reference(device, tmp, name)
         ref["families"][name]["ref_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref["ep_preset"] = _ep_preset_reference(device, tmp)
+    ref["ep_preset"]["ref_s"] = time.perf_counter() - t0
     return ref
 
 
@@ -4931,36 +5118,45 @@ def phase_gspmd_nccl(device, ref):
     return {"train": launches, "decode_partial": k5p, "families": families}
 
 
-def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name):
+def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name,
+                          bf16_scores=False):
     """K5's partial mode at the sequence-sharded decode's shape (a rank's
     slice of ``Sl`` positions, rows of the given lengths, 0 included)
     against its plain twin, timed beside its bound, its plain version and
     the library call that returns the output and the log-sum-exp:
     ``_scaled_dot_product_efficient_attention`` over the KV heads expanded
     to every query head, the lengths as an additive mask (its output in
-    the model dtype, where K5's partial is float32)."""
+    the model dtype, where K5's partial is float32).  ``bf16_scores``: the
+    launch option that rounds each q.k to bfloat16 first, against the
+    plain version's ``f32_scores=False`` and kept apart from its float32
+    scores, q scaled by ``BF16_SCORES_Q_SCALE`` (the library call's scores
+    stay float32: its log-sum-exp is only printed)."""
     import torch
-    from repro_torch.kernels.decode_attention import kernel, ref
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
     dt = getattr(torch, dtype_name)
     gen = torch.Generator(device=device).manual_seed(41)
     q = _randn((B, H, hd), dt, gen, device)
+    if bf16_scores:
+        q = (q.float() * BF16_SCORES_Q_SCALE).to(dt)
     kc = _randn((B, K, Sl, hd), dt, gen, device)
     vc = _randn((B, K, Sl, hd), dt, gen, device)
     rows = torch.tensor([lengths[i % len(lengths)] for i in range(B * K)],
                         dtype=torch.int32, device=device)
     G = H // K
     tag = (f"[kernel:decode_attention:partial B={B} H={H} K={K} hd={hd} "
-           f"Sl={Sl} {dtype_name} lengths={lengths}]")
+           f"Sl={Sl} {dtype_name} lengths={lengths}"
+           f"{' bf16_scores' if bf16_scores else ''}]")
 
     def launch():
         return kernel.decode_attention_kernel(q, kc.transpose(1, 2),
                                               vc.transpose(1, 2), rows,
-                                              partial=True)
+                                              partial=True,
+                                              bf16_scores=bf16_scores)
 
-    def plain():
+    def plain(f32_scores=not bf16_scores):
         return ref.decode_attention_partials_ref(
             q.reshape(B * K, G, hd), kc.reshape(B * K, Sl, hd),
-            vc.reshape(B * K, Sl, hd), rows)
+            vc.reshape(B * K, Sl, hd), rows, f32_scores=f32_scores)
 
     # the library call's operands: every query head's K/V, and the mask as
     # a bias whose rows start 16-element aligned, as its kernel asks
@@ -4985,16 +5181,17 @@ def _check_decode_partial(device, B, H, K, hd, Sl, lengths, dtype_name):
         raise AssertionError(f"{tag}: a row of length 0 is not (0, -inf)")
     err = _hold(tag + " o", o, wo, dtype_name)
     _hold(tag + " lse", lse[~empty], wl[~empty], "float32")
+    if bf16_scores:
+        _apart(tag + " o", o, plain(True)[0], dtype_name)
     lo, ll = library()[:2]
     lo, ll = lo.float().reshape(B * K, G, hd), ll[..., 0].reshape(B * K, G)
     log(f"{tag} library call vs the kernel on rows with positions: o "
         f"{float((lo - o)[~empty].abs().max())} lse "
         f"{float((ll - lse)[~empty].abs().max())}")
-    es = q.element_size()
-    # the K/V rows up to each length, q, the float32 o and lse, lengths
-    n_bytes = (2 * hd * es * int(rows.sum()) + q.numel() * es
-               + 4 * (q.numel() + B * H) + 4 * B * K)
-    t = _timed(tag, launch, plain, library, n_bytes=n_bytes)
+    flops, n_bytes = ops.cost(B, H, K, hd, int(rows.sum()), q.element_size(),
+                              partial=True)
+    t = _timed(tag, launch, plain, library, n_bytes=n_bytes, flops=flops,
+               flops_peak=PEAK_F32_FLOPS)
     return dict(t, max_abs_err=err)
 
 
@@ -5301,6 +5498,9 @@ def phase_gspmd(device, tmp, settle=None):
                                  f"launches are off")
     partial_launches = _check_gspmd_families(world, ref, nccl, launches,
                                              card)
+    log(f"[gspmd_ep_preset] one process {ref['ep_preset']['ref_s']:.1f} s, "
+        f"the world's {world[0]['ep_preset_s']:.1f} s")
+    _check_ep_preset(world, ref["ep_preset"], launches)
     cfg = _gspmd_cfg(layers)
     Sl = world[0]["decode"]["cache_positions"]
     if settle is not None:
@@ -5460,13 +5660,16 @@ def main() -> int:
                 _phase("36-38 gspmd"):
             kernels = [phase_gspmd(dev, Path(tmp))[0]]
         return _finish(kernels, t0)
-    # phases 2-4, 7 and 28's run_sim (simulator traces, host-bound) each in
-    # a process of its own beside phases 36-38 (gloo's host copies); every
-    # phase after them runs alone on the card
+    # phases 2-4, 7 and 28's run_sim (simulator traces, host-bound) and
+    # phase 31's dry run (a trace on meta) each in a process of its own
+    # beside phases 36-38 (gloo's host copies); every phase after them runs
+    # alone on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     (ROOT / "build").mkdir(exist_ok=True)
-    with _Background() as bg:
+    dry_tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    with _Background() as bg, dry_tmp:
+        bg.start("31 dry run", phase_dryrun, Path(dry_tmp.name))
         bg.start("2 main path", phase_main_path, dev, args.sim_apps)
         bg.start("3 composed path", phase_composed_path, dev, args.sim_apps)
         bg.start("4 posterior path", phase_posterior_path, dev)
@@ -5477,7 +5680,7 @@ def main() -> int:
                 _phase("36-38 gspmd"):
             partial, gspmd = phase_gspmd(dev, Path(tmp), settle=bg.join)
         done = bg.join()
-    log(f"[background] phases 2, 3, 4, 7 and 28's run_sim beside 36-38: "
+    log(f"[background] phases 2, 3, 4, 7, 28's run_sim and 31 beside 36-38: "
         f"{time.perf_counter() - t0 - PHASE_S['1 build']:.1f} s")
     main_res, launches, W, ov_width, rows = done["2 main path"]
     launches_composed, phase_apps, composed_res = done["3 composed path"]
@@ -5566,9 +5769,6 @@ def main() -> int:
         phase_ep_train(dev)
     with _phase("30 remat"):
         phase_remat(dev)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
-            _phase("31 dry run"):
-        phase_dryrun(Path(tmp))
     # across processes: NCCL at one rank here, then gloo worlds on cuda:0
     with _phase("32 process NCCL"):
         nccl = phase_process_nccl(dev, W)

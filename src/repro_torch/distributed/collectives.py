@@ -15,7 +15,7 @@ axis of a ``launch.mesh.ProcessMesh`` (``all_to_all_in`` and
 The tensors stay on their device: one ``all_to_all_single`` or one
 single-tensor gather, whose errors reach the caller.  NCCL, and gloo on
 the CPU and on CUDA tensors, take every dtype the port exchanges
-(bfloat16, float32, int64).
+(bfloat16, float32, int32, int64).
 
 The sharded model's collectives carry gradients (``torch.autograd``):
 
@@ -50,10 +50,18 @@ is chosen by backend, never by trying: NCCL takes
 ``reduce_scatter_single`` on the card; gloo takes it on host tensors (a
 CUDA tensor is copied to the host and its block back), since gloo's
 reduce-scatter does not take CUDA tensors.
+
+Each collective reports its type and wire bytes to the dry run's active
+cost counter (``cost_hooks.collective``), by the reference's rules: an
+all-reduce 2x its operand, an all-gather its output, a reduce-scatter
+and an all-to-all their operand.  With no counter active nothing
+changes.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch import cost_hooks
 
 
 def _dist():
@@ -71,6 +79,7 @@ def all_gather_in(x: torch.Tensor, group) -> torch.Tensor:
     gather = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     gather(out, x, group=group)
+    cost_hooks.collective("all-gather", cost_hooks.nbytes(out))
     return out
 
 
@@ -85,6 +94,7 @@ def all_to_all_in(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    cost_hooks.collective("all-to-all", cost_hooks.nbytes(x))
     return out
 
 
@@ -96,9 +106,11 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
     if op not in ops:
         raise ValueError(f"all_reduce: op {op!r} is not 'sum' or 'max'")
-    y = (x.detach().float() if op == "sum" else x.detach()).contiguous()
-    y = y.clone() if y.data_ptr() == x.data_ptr() else y
+    y = x.detach()
+    y = (y.float() if op == "sum" and y.dtype != torch.float32
+         else y.clone(memory_format=torch.contiguous_format)).contiguous()
     dist.all_reduce(y, op=ops[op], group=group)
+    cost_hooks.collective("all-reduce", 2 * cost_hooks.nbytes(y))
     return y.to(x.dtype)
 
 
@@ -126,6 +138,7 @@ def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
     scatter = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
     scatter(out, gf, group=group)
+    cost_hooks.collective("reduce-scatter", cost_hooks.nbytes(gf))
     return out.to(g.device).movedim(0, dim).to(g.dtype).contiguous()
 
 

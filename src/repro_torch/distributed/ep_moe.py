@@ -193,11 +193,12 @@ def _body(p: X.MoE, xc: torch.Tensor, cfg: ModelConfig, n: int,
     slot = torch.where(keep, (rows * n + dest_s) * C + pos, spare)
     send = xc.new_zeros((spare + 1, D))
     send[slot.reshape(-1)] = xc[rows, t_s].reshape(-1, D)
-    send_eid = torch.full((spare + 1,), -1, dtype=torch.int64, device=dev)
+    # the local expert ids go as int32, the reference's dtype
+    send_eid = torch.full((spare + 1,), -1, dtype=torch.int32, device=dev)
     send_eid[slot.reshape(-1)] = (torch.gather(flat_e, 1, order)
-                                  % E_local).reshape(-1)
+                                  % E_local).reshape(-1).to(torch.int32)
     rtok = exchange(send[:-1].view(R, n, C, D))             # (R, n*C, D)
-    reid = exchange(send_eid[:-1].view(R, n, C))            # (R, n*C)
+    reid = exchange(send_eid[:-1].view(R, n, C)).long()     # (R, n*C)
 
     # local per-expert packing (padding expert E_local for empty slots)
     eid = torch.where(reid >= 0, reid, E_local)

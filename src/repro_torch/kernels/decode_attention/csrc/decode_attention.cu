@@ -45,6 +45,12 @@
 //     the bytes take;
 //   * positions past the row's length are never read (zero-filled copies).
 //
+// bf16 scores (`bf16_scores`, bfloat16 inputs only): each q.k dot product
+// is rounded to bfloat16 (round to nearest even) before the scale, as the
+// reference's decode scores with preferred_element_type=bf16 are; q is then
+// not pre-scaled, and the scale (times log2 e) multiplies the rounded
+// score.  The probabilities stay float32 either way.
+//
 // Partial mode (`lse` not null): the launch writes each (batch, head) row's
 // float32 partial instead of its output in the model's dtype: o = acc / l
 // (the row's own softmax output) and its natural-log log-sum-exp
@@ -90,6 +96,7 @@ struct Args {
   int K, G, Smax, split, n_splits, n_gc;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float sl2;                     // the softmax scale times log2(e)
+  int bf16_scores;               // round each q.k to bfloat16 first
 };
 
 __device__ __forceinline__ void to_f32(const uint4& u, float* f, float) {
@@ -215,12 +222,13 @@ decode_attention_kernel(const Args a) {
                    p_lane + it * S::NPB, end);
 
     float qr[GM][EPL], acc[GM][EPL], m[GM], l[GM];
+    const float qs = a.bf16_scores ? 1.0f : a.sl2;
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       const T* qrow = q + b * a.q_sb + (kvh * G + g0 + g) * a.q_sh + c * EPL;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        qr[g][e] = g < gn ? to_f32(qrow[e]) * a.sl2 : 0.0f;
+        qr[g][e] = g < gn ? to_f32(qrow[e]) * qs : 0.0f;
         acc[g][e] = 0.0f;
       }
       m[g] = -INFINITY;
@@ -248,6 +256,8 @@ decode_attention_kernel(const Args a) {
 #pragma unroll
           for (int o = 1; o < LPR; o <<= 1)
             d += __shfl_xor_sync(0xffffffffu, d, o);
+          if (a.bf16_scores)
+            d = __bfloat162float(__float2bfloat16_rn(d)) * a.sl2;
           sc[p][g] = p0 + p * RPP < end ? d : -INFINITY;
         }
       }
@@ -472,7 +482,9 @@ extern "C" {
 // float32 (B, H, hd) and `lse` float32 (B, H) (see the top).  With
 // n_splits = ceil(Smax / split) > 1, `ws` holds B*K*G*n_splits*(2 + hd)
 // floats and `counters` B*K*G int32 zeros (left zero after the launch).
-// Returns a cudaError_t code (0 = launched).
+// `bf16_scores` nonzero: each q.k rounded to bfloat16 before the scale
+// (bfloat16 inputs; float32 ones ignore it).  Returns a cudaError_t code
+// (0 = launched).
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const int32_t* lengths, void* o, float* lse,
                             float* ws,
@@ -480,7 +492,8 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             int hd, int dtype, int split, long long q_sb,
                             long long q_sh, long long k_sb, long long k_ss,
                             long long k_sh, long long v_sb, long long v_ss,
-                            long long v_sh, float scale, void* stream) {
+                            long long v_sh, float scale, int bf16_scores,
+                            void* stream) {
   if (K < 1 || H % K != 0 || split < 1 || Smax < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / K, n_splits = (Smax + split - 1) / split;
@@ -489,7 +502,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   const int n_gc = (G + group_chunk(G) - 1) / group_chunk(G);
   Args a{q, k, v, lengths, o, lse, ws, counters, K, G, Smax, split,
          n_splits, n_gc, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-         scale * 1.4426950408889634f};
+         scale * 1.4426950408889634f, bf16_scores != 0 && dtype == 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_hd<float>(a, B * K, hd, s);
   if (dtype == 1) return launch_hd<__nv_bfloat16>(a, B * K, hd, s);

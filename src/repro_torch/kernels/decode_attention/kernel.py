@@ -13,6 +13,10 @@ a float32 workspace and a per-row int32 counter picks the block that merges
 them; both are cached per (device, stream), the counters zeroed once when
 allocated and left zero by every launch.
 
+With ``bf16_scores`` (bfloat16 operands) each q.k dot product is rounded
+to bfloat16 before the scale, as the reference's ``decode_f32_scores=False``
+scores are; float32 operands ignore it.
+
 Partial mode (``partial=True``, the sequence-sharded decode across
 processes): the same launch writes each (batch, head) row's float32
 ``(o, lse)`` instead of its output, counted under ``PARTIAL_NAME``.
@@ -50,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 8 + [I] * 7 + [L] * 8 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 8 + [I] * 7 + [L] * 8 + [ctypes.c_float, I, P]
         fn.restype = I
         lib.decode_attention_error_string.argtypes = [I]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -73,14 +77,15 @@ def _scratch(dev: torch.device, stream: int, n_counters: int,
 
 def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, lengths: torch.Tensor,
-                            partial: bool = False):
+                            partial: bool = False, bf16_scores: bool = False):
     """q (B, H, hd); caches (B, Smax, K, hd), any strides with the head dim
     contiguous and rows 16-byte aligned; one dtype (float32 or bfloat16);
     lengths (B*K,) int32, the valid length of each (batch, KV head) row
     (0 allowed: the row's output is 0).  Returns (B, H, hd) contiguous;
     with ``partial``, float32 ``(o (B, H, hd), lse (B, H))``: each row's
     softmax output and natural-log log-sum-exp (-inf for a row of length
-    0, whose o is 0)."""
+    0, whose o is 0).  ``bf16_scores``: each q.k rounded to bfloat16
+    before the scale (the module docstring)."""
     dev = q.device
     check_operand(q, "q", device=dev, ndim=3)
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
@@ -125,7 +130,7 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
             q.stride(0), q.stride(1),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-            1.0 / math.sqrt(hd), stream)
+            1.0 / math.sqrt(hd), int(bf16_scores), stream)
     raise_on_error(rc, lib, "decode_attention_error_string", NAME)
     LAUNCHES[PARTIAL_NAME if partial else NAME] += 1
     return (out, lse) if partial else out

@@ -1,6 +1,9 @@
 """Plain PyTorch version of the decode-attention kernel (the twin of the
 JAX package's ``decode_attention_ref``): float32 scores and probabilities
-over the first ``lengths[row]`` cache positions, output in ``q``'s dtype."""
+over the first ``lengths[row]`` cache positions, output in ``q``'s dtype.
+With ``f32_scores=False`` each q.k dot product is rounded to the caches'
+dtype before the scale (the reference's ``decode_f32_scores=False``; a
+float32 cache is unchanged by it)."""
 from __future__ import annotations
 
 import math
@@ -8,12 +11,22 @@ import math
 import torch
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor,
+            f32_scores: bool) -> torch.Tensor:
+    """q.k^T / sqrt(hd) in float32, each product first rounded to ``k``'s
+    dtype unless ``f32_scores``."""
+    s = torch.einsum("bgh,bsh->bgs", q.float(), k.float())
+    if not f32_scores:
+        s = s.to(k.dtype).float()
+    return s / math.sqrt(q.shape[-1])
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor,
+                         f32_scores: bool = True) -> torch.Tensor:
     """q: (BK, G, hd); k/v: (BK, Smax, hd); lengths: (BK,)."""
-    BK, G, hd = q.shape
     Smax = k.shape[1]
-    s = torch.einsum("bgh,bsh->bgs", q.float(), k.float()) / math.sqrt(hd)
+    s = _scores(q, k, f32_scores)
     valid = (torch.arange(Smax, device=q.device)[None, None, :]
              < lengths.to(q.device)[:, None, None])
     s = torch.where(valid, s, torch.full_like(s, -1e30))
@@ -22,17 +35,16 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_partials_ref(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, lengths: torch.Tensor
-                                  ) -> tuple:
+                                  v: torch.Tensor, lengths: torch.Tensor,
+                                  f32_scores: bool = True) -> tuple:
     """The kernel's partial mode in plain PyTorch (one split of
     :func:`decode_attention_split_ref`, normalised): float32 ``o`` (BK, G,
     hd), each row's softmax output over its first ``lengths[row]``
     positions, and ``lse`` (BK, G), the natural-log log-sum-exp of its
     scores; a row of length 0 gives o = 0, lse = -inf.  Shapes as
     :func:`decode_attention_ref`."""
-    hd = q.shape[-1]
     Smax = k.shape[1]
-    sc = torch.einsum("bgh,bsh->bgs", q.float(), k.float()) / math.sqrt(hd)
+    sc = _scores(q, k, f32_scores)
     pos = torch.arange(Smax, device=q.device)[None, None, :]
     sc = torch.where(pos < lengths.to(q.device)[:, None, None], sc,
                      torch.full_like(sc, -math.inf))

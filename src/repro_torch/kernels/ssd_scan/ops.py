@@ -1,6 +1,8 @@
 """The Mamba2 SSD chunk scan: the kernel for CUDA tensors (under autograd,
 a Function whose backward is the plain chunked version's), the plain
-chunked version for CPU tensors."""
+chunked version for CPU tensors, and for ``meta`` tensors (the dry run's
+trace) a stand-in that gives the outputs' shapes and charges the launch's
+``cost``."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -8,11 +10,36 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.autograd import plain_vjp, wants_grad
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+from repro_torch.kernels.ssd_scan.kernel import NAME, ssd_scan_kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.cost_hooks import charge
+
+
+def cost(B: int, S: int, H: int, P: int, N: int, chunk: int, itemsize: int
+         ) -> Tuple[float, int]:
+    """(FLOPs, bytes) of one launch: each input read and each output
+    written once (x, B, C and y in the inputs' dtype; dt, A and the final
+    state float32), and the FLOPs the chunked algorithm needs: per (batch,
+    chunk of Lc positions) Lc (Lc + 1) N for the causal half of C B^T,
+    which every head shares, and per (batch, head, chunk) Lc (Lc + 1) P
+    for its product with x and 4 Lc N P for the state's read and update."""
+    n_bytes = (2 * B * S * H * P * itemsize + 2 * B * S * N * itemsize
+               + 4 * B * S * H + 4 * H + 4 * B * H * N * P)
+    full, rest = divmod(S, chunk)
+    lens = [chunk] * full + ([rest] if rest else [])
+    flops = float(B * sum(Lc * (Lc + 1) * (N + H * P) + 4 * H * Lc * N * P
+                          for Lc in lens))
+    return flops, n_bytes
 
 
 def _launch(x, dt, A, Bm, Cm, chunk):
+    if x.device.type == "meta":
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        charge(NAME, *cost(B, S, H, P, N, chunk, x.element_size()))
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.empty((B, H, N, P), dtype=torch.float32,
+                            device=x.device))
     return ssd_scan_kernel(x.contiguous(), dt.contiguous(), A.contiguous(),
                            Bm.contiguous(), Cm.contiguous(), chunk=chunk)
 

@@ -14,9 +14,22 @@ process a position under ``torch.distributed`` (one process a card, as
 ``torchrun --nproc-per-node N`` starts them), each running the same
 program, as each JAX controller does.  Code over it runs this rank's
 share only and exchanges data through ``distributed/collectives.py``.
+
+``stand_in_mesh`` builds a ``ProcessMesh`` of the production shape for the
+dry run alone: this process joins a stand-in world of 256 (``single``) or
+512 (``multi``) ranks as one of them, on the ``meta`` device, so a placed
+step can be traced as that rank runs it (``launch/dryrun.py``).  Its
+backend is ``torch.distributed``'s ``"fake"`` process group: each
+collective returns at once with its output's shape, on any device
+(``meta`` included), and moves no data, so the other ranks need not
+exist; a backend of the port's own would have to re-implement the same
+four collectives for nothing.  The world lasts for the ``with`` block;
+``init_process_mesh`` never builds it, and no path that runs on the card
+reaches it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import OrderedDict
 from datetime import timedelta
@@ -62,12 +75,18 @@ def _grid(shape, devices) -> np.ndarray:
     return grid.reshape(shape)
 
 
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axis names) of the single- or multi-pod production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The logical ``(16, 16)`` or ``(2, 16, 16)`` mesh on the ``meta``
-    device: the dry run's per-device accounting reads its shape, and no
-    data ever lives on it."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    device: its shape and specs, no data ever on it."""
+    shape, axes = production_shape(multi_pod)
     return Mesh(_grid(shape, [torch.device("meta")]), axes)
 
 
@@ -251,3 +270,34 @@ def process_submesh(shape: Sequence[int], axis_names: Sequence[str],
             mine = ProcessMesh(shape, axis_names, list(members).index(rank),
                                device, dist.get_backend(), groups)
     return mine
+
+
+@contextlib.contextmanager
+def stand_in_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                  rank: int = 0):
+    """A ``ProcessMesh`` of ``shape`` over ``axis_names`` on the ``meta``
+    device for the ``with`` block (``production_shape`` gives the
+    production mesh's): this process as ``rank`` of a stand-in world
+    whose collectives move no data (the module docstring).  The default
+    process group is the stand-in world's until the block ends; one
+    already in place raises ``RuntimeError``."""
+    import torch.distributed as dist
+    # importing it registers the "fake" backend on versions that do not
+    # build it in
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = tuple(int(s) for s in shape)
+    size = int(np.prod(shape))
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already in place: the "
+                           "stand-in world needs this process to itself")
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} outside a world of {size}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=size)
+    try:
+        groups = _axis_groups(np.arange(size).reshape(shape), axis_names,
+                              rank)
+        yield ProcessMesh(shape, axis_names, rank, torch.device("meta"),
+                          "fake", groups)
+    finally:
+        dist.destroy_process_group()

@@ -28,7 +28,8 @@ import torch
 from repro_torch.config import ShapeConfig, TrainConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (P, ShardCtx, _axis_size,
-                                              block_index, cache_shardings,
+                                              block_index, block_shape,
+                                              cache_shardings,
                                               named_shardings)
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import torch_dtype
@@ -192,40 +193,76 @@ def abstract_opt_state(params_spec: Dict[str, Any], state_dtype: str
                      v={n: z(p) for n, p in params_spec.items()})
 
 
+def cell_max_seq(cfg, shape: ShapeConfig) -> int:
+    """The learned position table's rows of a cell's model (a model
+    without RoPE: the cell's length and 8 more), 0 for the others."""
+    return shape.seq_len + 8 if cfg.rope_theta <= 0 else 0
+
+
+def decode_seq_axes(shape: ShapeConfig, axis_names):
+    """The axes a decode cell's cache positions split over: ``("pod",
+    "model")`` for the batch-1 cell of a mesh with a pod axis (the batch
+    cannot use it), ``None`` (the model axis) otherwise."""
+    if shape.kind == "decode" and shape.global_batch == 1 \
+            and "pod" in axis_names:
+        return tuple(a for a in ("pod", "model") if a in axis_names)
+    return None
+
+
+def _rows(batch: Dict[str, torch.Tensor], specs: Dict[str, P], mesh
+          ) -> Dict[str, torch.Tensor]:
+    """This rank's block of each ``meta`` input under its spec."""
+    return {k: torch.empty(block_shape(v.shape, specs[k], mesh),
+                           dtype=v.dtype, device=v.device)
+            for k, v in batch.items()}
+
+
 def cell_functions(model: Model, shape: ShapeConfig, ctx: ShardCtx,
                    tcfg: Optional[TrainConfig] = None):
     """``(fn, abstract args, in specs, out specs)`` for one cell: the step
     function of the cell's kind, its arguments on the ``meta`` device and
     their specs over ``ctx``'s mesh (``None``: replicated or unconstrained,
-    as the reference)."""
+    as the reference).  For a model placed over a process mesh (the dry
+    run's trace, ``launch.mesh.stand_in_mesh``) the arguments are this
+    rank's: its parameter and optimizer blocks, its rows of a prefill
+    batch, its blocks of the decode caches (``new_caches``) and a decode
+    position of the last cache position (``S - 1``: every position
+    attended, as the reference's step attends every one, masked), and
+    the global train batch, which the train step cuts itself."""
     cfg = model.cfg
     period = len(T.layer_plan(cfg))
-    params_abs = model.init_abstract(
-        max_seq=shape.seq_len + 8 if cfg.rope_theta <= 0 else 0)
+    params_abs = model.init_abstract(max_seq=cell_max_seq(cfg, shape))
     params_sh = named_shardings(ctx, params_abs, period)
     specs = model.input_specs(shape)
+    placed = model.placement is not None
+    params = model.params() if placed else params_abs
 
     if shape.kind == "train":
         tcfg = tcfg or TrainConfig()
         fn = make_train_step(model, tcfg)
-        opt_abs = abstract_opt_state(params_abs, cfg.opt_state_dtype)
+        opt_abs = abstract_opt_state(params, cfg.opt_state_dtype)
         opt_sh = opt_state_shardings(ctx, params_abs, period)
         b_sh = batch_shardings(ctx, specs["batch"])
-        args = (params_abs, opt_abs, specs["batch"])
+        args = (params, opt_abs, specs["batch"])
         return fn, args, (params_sh, opt_sh, b_sh), (params_sh, opt_sh, None)
 
     if shape.kind == "prefill":
         fn = make_prefill_step(model)
         b_sh = batch_shardings(ctx, specs["batch"])
-        return fn, (params_abs, specs["batch"]), (params_sh, b_sh), None
+        batch = _rows(specs["batch"], b_sh, ctx.mesh) if placed \
+            else specs["batch"]
+        return fn, (params, batch), (params_sh, b_sh), None
 
     # decode
     fn = make_serve_step(model)
-    names = ctx.mesh.axis_names
-    seq_axes = None
-    if shape.global_batch == 1 and "pod" in names:
-        seq_axes = tuple(a for a in ("pod", "model") if a in names)
-    c_sh = cache_shardings(ctx, specs["caches"], seq_axes=seq_axes)
+    c_sh = cache_shardings(
+        ctx, specs["caches"],
+        seq_axes=decode_seq_axes(shape, ctx.mesh.axis_names))
     t_sh = batch_shardings(ctx, {"t": specs["token"]})["t"]
-    args = (params_abs, specs["caches"], specs["token"], specs["pos"])
+    if placed:
+        token = _rows({"t": specs["token"]}, {"t": t_sh}, ctx.mesh)["t"]
+        args = (params, model.new_caches(token.shape[0], shape.seq_len),
+                token, shape.seq_len - 1)
+    else:
+        args = (params_abs, specs["caches"], specs["token"], specs["pos"])
     return fn, args, (params_sh, c_sh, t_sh, P()), (c_sh, t_sh)

@@ -132,8 +132,10 @@ def _decoder_layer(lp: DecoderLayer, x: torch.Tensor,
     rank's query heads over them (``layers.head_decode_attention``)."""
     decode = mode == "decode"
     h = L.apply_norm(x, lp.self_norm, cfg)
+    # float32 decode scores whatever decode_f32_scores says, as the
+    # reference's decoder calls decode_attention_xla
     x = x + self_attention(lp.self_attn, h, cfg, mode, None, caches, i, pos,
-                           lengths[0] if decode else None)
+                           lengths[0] if decode else None, f32_scores=True)
 
     h = L.apply_norm(x, lp.cross_norm, cfg)
     p = lp.cross_attn

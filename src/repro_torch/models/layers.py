@@ -381,8 +381,8 @@ def seq_slice(ctx, seq_local: int) -> Tuple[int, int]:
 
 
 def seq_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, pos: int, ctx
-                         ) -> torch.Tensor:
+                         v_cache: torch.Tensor, pos: int, ctx,
+                         f32_scores: bool = True) -> torch.Tensor:
     """One token's attention over a cache whose positions are split over
     ``ctx.seq_axes`` of a process mesh: q (B, 1, H, hd) every head; the
     caches this rank's slice (B, K, Sl, hd) of positions ``[s Sl, (s+1)
@@ -390,6 +390,7 @@ def seq_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     its float32 partial (the decode kernel's partial mode, lengths
     clamped to the slice, 0 where it holds no valid position); the
     partials are gathered over the seq axes and merged in rank order.
+    ``f32_scores=False``: each q.k rounded to the caches' dtype first.
     Returns (B, 1, H, hd) in ``q``'s dtype, the same on every rank."""
     B, _, H, hd = q.shape
     _, K, Sl, _ = k_cache.shape
@@ -398,7 +399,8 @@ def seq_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lengths = torch.full((B * K,), n_valid, dtype=torch.int32,
                          device=q.device)
     o, lse = decode_attention_partials(q, k_cache.transpose(1, 2),
-                                       v_cache.transpose(1, 2), lengths)
+                                       v_cache.transpose(1, 2), lengths,
+                                       f32_scores)
     packed = torch.cat([o.reshape(B, H * hd), lse.reshape(B, H)], dim=-1)
     axes = tuple(ctx.seq_axes)
     allp = gather_block(packed[None], P(axes or None), ctx.mesh)
@@ -423,19 +425,21 @@ def full_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_step_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor,
-                          lengths: torch.Tensor) -> torch.Tensor:
+                          v_cache: torch.Tensor, lengths: torch.Tensor,
+                          f32_scores: bool = True) -> torch.Tensor:
     """One token's attention over its caches: q (B, 1, H, hd), caches laid
     out (B, K, Smax, hd), ``lengths`` (B*K,) int32 the valid positions of
-    each (batch, KV head) row (the one just written included)."""
+    each (batch, KV head) row (the one just written included);
+    ``f32_scores=False``: each q.k rounded to the caches' dtype first."""
     return decode_attention(q, k_cache.transpose(1, 2),
-                            v_cache.transpose(1, 2), lengths=lengths)
+                            v_cache.transpose(1, 2), lengths=lengths,
+                            f32_scores=f32_scores)
 
 
 def head_decode_attention(p: Attention, q: torch.Tensor,
                           k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          lengths: torch.Tensor, cfg: ModelConfig
-                          ) -> torch.Tensor:
+                          lengths: torch.Tensor, cfg: ModelConfig,
+                          f32_scores: bool = True) -> torch.Tensor:
     """One token's attention over caches (B, K, S, hd) that hold every KV
     head and every position (the cross caches; the self caches where the
     seq axes do not divide their length), for ``p``'s query heads of this
@@ -448,7 +452,7 @@ def head_decode_attention(p: Attention, q: torch.Tensor,
         B, K = k_cache.shape[:2]
         k_cache, v_cache = k_cache[:, k0:k1], v_cache[:, k0:k1]
         lengths = lengths.reshape(B, K)[:, k0:k1].reshape(-1)
-    return decode_step_attention(q, k_cache, v_cache, lengths)
+    return decode_step_attention(q, k_cache, v_cache, lengths, f32_scores)
 
 
 def row(p: nn.Module, h: torch.Tensor, attr: str) -> torch.Tensor:

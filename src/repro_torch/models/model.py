@@ -68,7 +68,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (Placement, ShardCtx,
                                               block_shape, cache_shardings,
-                                              current_ctx, places)
+                                              current_ctx, places,
+                                              use_shard_ctx)
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -92,10 +93,6 @@ class Model(nn.Module):
         super().__init__()
         kinds = T.layer_kinds(cfg)  # raises for a config its family
                                     # cannot run
-        if not cfg.decode_f32_scores:
-            raise NotImplementedError(
-                "decode_f32_scores=False: the decode-attention kernel scores "
-                "in float32 only (no configuration sets it)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.shard_ctx = shard_ctx
@@ -351,7 +348,8 @@ class Model(nn.Module):
         """The decode caches of ``batch_size`` rows of ``max_seq`` positions
         on the ``meta`` device: ``new_caches``' layout (a dict by kind,
         stacked over the layers of the kind) and dtypes."""
-        return Model(self.cfg, "meta").new_caches(batch_size, max_seq)
+        with use_shard_ctx(None):   # an unplaced model, whatever context
+            return Model(self.cfg, "meta").new_caches(batch_size, max_seq)
 
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
         """Abstract (``meta``) inputs of one dry-run cell, as the

@@ -189,7 +189,10 @@ def pack_copies(idx: torch.Tensor, E: int, C: int):
     flat_e = idx.reshape(-1)                                # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    # the copies an expert got, at the static length E (``bincount``'s
+    # length would be read from the data: every id is below E)
+    counts = torch.zeros(E, dtype=torch.int64, device=idx.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(flat_e.numel(), device=idx.device) - starts[e_sorted]
     return order, e_sorted, pos, pos < C

@@ -165,7 +165,8 @@ class PlacedCaches(dict):
 def self_attention(p: L.Attention, h: torch.Tensor, cfg: ModelConfig,
                    mode: str, rope, caches: Optional[Caches], i: int,
                    pos: Optional[int] = None,
-                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   lengths: Optional[torch.Tensor] = None,
+                   f32_scores: Optional[bool] = None) -> torch.Tensor:
     """The self-attention block over the caches ``caches["k"][i]`` and
     ``["v"][i]`` (none in ``train``; ``prefill`` writes every position,
     ``decode`` position ``pos`` and attends over ``lengths``).  A placed
@@ -176,7 +177,11 @@ def self_attention(p: L.Attention, h: torch.Tensor, cfg: ModelConfig,
     keeping this rank's heads; where they hold every position
     (``PlacedCaches.seq_split`` false), every rank writes, and a decode
     step attends this rank's heads over them (``head_decode_attention``).
-    A layer computed whole (``layers.whole``) attends every head."""
+    A layer computed whole (``layers.whole``) attends every head.  A
+    decode step's scores follow ``cfg.decode_f32_scores`` unless
+    ``f32_scores`` is given."""
+    if f32_scores is None:
+        f32_scores = cfg.decode_f32_scores
     placed = getattr(p, "placed", None)
     ctx = None if placed is None else placed[0].ctx
     split = ctx is not None and getattr(caches, "seq_split", True)
@@ -198,10 +203,11 @@ def self_attention(p: L.Attention, h: torch.Tensor, cfg: ModelConfig,
     if mode != "decode":
         a = L.prefill_attention(q, k, v)
     elif not split:
-        a = L.head_decode_attention(p, q, kc, vc, lengths, cfg)
+        a = L.head_decode_attention(p, q, kc, vc, lengths, cfg, f32_scores)
     else:
         Hl = q.shape[2]
-        a = L.seq_decode_attention(L.all_heads(p, q), kc, vc, pos, ctx)
+        a = L.seq_decode_attention(L.all_heads(p, q), kc, vc, pos, ctx,
+                                   f32_scores)
         if L.tp_group(p, "wq") is not None:
             r = L.model_group(ctx)[1]
             a = a[:, :, r * Hl:(r + 1) * Hl]

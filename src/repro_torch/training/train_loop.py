@@ -10,8 +10,10 @@ weights are drawn from ``torch.Generator(device).manual_seed(dcfg.seed)``
 (the reference draws from ``PRNGKey(dcfg.seed)``; the two differ), so a
 run matches the reference step by step from the same weights, not from
 the same seed.  Over a process mesh (``mesh=``, a ``ProcessMesh`` or a
-``ShardCtx`` over one, that places the model: ``sharding.places``) every
-rank runs the loop on its blocks: the same global batches, checkpoints
+``ShardCtx`` over one) the model is placed (``sharding.places``; an MoE
+model with ``moe_impl="ep"`` too, built with ``expert_share=False``, so
+its EP body runs on its placed share of the experts) and every rank
+runs the loop on its blocks: the same global batches, checkpoints
 gathered whole (rank 0 writes them) and restored onto whatever mesh the
 restart has.
 """
@@ -59,12 +61,13 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig, *,
     report = report or TrainReport()
     dev = resolve_device(device)
     t0 = time.time()
-    if mesh is not None and not places(cfg, mesh):
-        raise NotImplementedError(
-            f"{cfg.name}: run_training over a process mesh trains a placed "
-            f"model; an MoE model that keeps the expert share "
-            f"(moe_impl='ep') is not placed")
-    model = build_model(cfg, device=dev, mesh=mesh).init(
+    if mesh is not None and not places(cfg, mesh, expert_share=False):
+        raise ValueError(f"{cfg.name}: run_training over a mesh trains a "
+                         "placed model: give a process mesh")
+    # an EP model is placed too (expert_share=False: its experts split by
+    # named_shardings), the reference's GSPMD placement around its body
+    model = build_model(cfg, device=dev, mesh=mesh,
+                        expert_share=False).init(
         torch.Generator(device=dev).manual_seed(dcfg.seed)).trainable()
     params = model.params()
     opt_state = init_opt_state(params, cfg.opt_state_dtype)

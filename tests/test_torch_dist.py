@@ -11,7 +11,8 @@ its stacked-period entry.
 reference's on an ``AbstractMesh`` (no devices needed).
 (d) ``tree_device_bytes``, ``model_flops``, ``accounting_cfg``,
 ``extrapolate`` and ``applicable_shapes`` agree for every registered config,
-and ``python -m repro_torch.launch.dryrun`` writes a record for a cell.
+and ``python -m repro_torch.launch.dryrun`` writes a record for a cell,
+with the traced step's keys (``test_torch_dryrun.py`` holds the trace).
 """
 import dataclasses
 import json
@@ -295,12 +296,22 @@ def test_dryrun_writes_a_record(tmp_path, capsys):
     assert rec["params_bytes_per_dev"] == j_dry.tree_device_bytes(
         J.named_shardings(jctx, pa), pa)
     assert rec["model_flops_per_dev"] == mf
-    assert rec["roofline"]["compute_s"] == mf / H100_SXM.peak_flops
+    # the traced step's keys, the reference's; nothing is compiled
+    for k in ("hlo_flops_per_dev", "hlo_bytes_per_dev", "collectives",
+              "scanned_program", "memory_analysis", "useful_flops_ratio",
+              "lower_s"):
+        assert k in rec, k
+    assert "compile_s" not in rec
+    assert rec["roofline"]["compute_s"] == \
+        rec["hlo_flops_per_dev"] / H100_SXM.peak_flops
+    assert rec["roofline"]["memory_s"] == \
+        rec["hlo_bytes_per_dev"] / H100_SXM.hbm_bw
+    assert rec["roofline"]["collective_s"] == \
+        rec["collectives"]["total_wire_bytes"] / H100_SXM.ici_bw
+    assert rec["useful_flops_ratio"] == mf / rec["hlo_flops_per_dev"]
     ex = rec["extrapolated"]
     assert ex["params_bytes_per_dev"] == rec["params_bytes_per_dev"]
     assert ex["model_flops_per_dev"] == pytest.approx(mf, rel=1e-12)
-    assert not [k for k in rec if k.startswith("hlo_")
-                or k in ("collectives", "memory_analysis", "compile_s")]
     # an existing cell is kept; a failing one is recorded and counted
     path.write_text(json.dumps(dict(rec, marker=1)))
     assert dryrun.main(argv) == 0
@@ -312,4 +323,7 @@ def test_dryrun_writes_a_record(tmp_path, capsys):
                       "jamba-1.5-large-398b__train_4k__num_layers-3.json"
                       ).read_text())
     assert rec["ok"] is False and "ValueError" in rec["error"]
-    assert "failures=1" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "failures=1" in out
+    assert ("| jamba-1.5-large-398b train_4k multi num_layers=3 | failed: "
+            "ValueError") in out

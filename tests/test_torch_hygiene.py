@@ -172,8 +172,10 @@ from repro_torch.configs import (ENCDEC_ARCHS, HYBRID_ARCHS,  # noqa: E402
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
     """The bindings take CUDA tensors only, and the ops take the plain
-    version only for a CPU tensor: any other device goes to the kernel
-    binding, which raises before anything is built."""
+    version only for a CPU tensor: a ``meta`` tensor (the dry run's
+    trace) takes the kernel's stand-in, which gives the kernel's output
+    shapes and builds nothing; the bindings raise for both devices before
+    anything is built."""
     z = lambda *s, **kw: torch.zeros(*s, device=device, **kw)  # noqa: E731
     calls = [lambda: rms_kernel.rmsnorm_kernel(z(4, 8), z(8), eps=1e-5),
              lambda: fa_kernel.flash_attention_kernel(
@@ -186,14 +188,19 @@ def test_model_kernel_wrappers_refuse_non_cuda_tensors(device):
                  z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4), z(1, 4, 4),
                  chunk=4)]
     if device == "meta":
-        calls += [lambda: rmsnorm(z(2, 3, 8), z(8)),
-                  lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
-                                          z(1, 5, 2, 16)),
-                  lambda: decode_attention(z(1, 1, 4, 16), z(1, 9, 2, 16),
-                                           z(1, 9, 2, 16), 3),
-                  lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24)),
-                  lambda: ssd_scan(z(1, 4, 2, 8), z(1, 4, 2), z(2),
-                                   z(1, 4, 4), z(1, 4, 4), chunk=4)]
+        stand_ins = [(lambda: rmsnorm(z(2, 3, 8), z(8)), (2, 3, 8)),
+                     (lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
+                                              z(1, 5, 2, 16)), (1, 5, 4, 16)),
+                     (lambda: decode_attention(z(1, 1, 4, 16), z(1, 9, 2, 16),
+                                               z(1, 9, 2, 16), 3),
+                      (1, 1, 4, 16)),
+                     (lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24)), (4, 2, 24)),
+                     (lambda: ssd_scan(z(1, 4, 2, 8), z(1, 4, 2), z(2),
+                                       z(1, 4, 4), z(1, 4, 4), chunk=4)[0],
+                      (1, 4, 2, 8))]
+        for call, shape in stand_ins:
+            out = call()
+            assert out.device.type == "meta" and tuple(out.shape) == shape
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
@@ -232,9 +239,14 @@ def test_unported_model_families_raise(family, item):
 
 
 def test_bf16_decode_scores_raise_and_model_defaults_to_cuda():
-    with pytest.raises(NotImplementedError, match="decode_f32_scores"):
-        build_model(tiny_config("llama3-8b", decode_f32_scores=False),
-                    device="cpu")
+    """``decode_f32_scores=False`` is ported: the model builds and decodes
+    on the CPU (each q.k rounded to bfloat16 before the scale), where it
+    used to raise ``NotImplementedError``."""
+    model = build_model(tiny_config("llama3-8b", decode_f32_scores=False),
+                        device="cpu").init(torch.Generator().manual_seed(0))
+    caches, _ = model.prefill(torch.ones(1, 3, dtype=torch.long), max_seq=5)
+    _, logits = model.decode(caches, torch.ones(1, 1, dtype=torch.long), 3)
+    assert logits.shape == (1, 1, 256) and torch.isfinite(logits).all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(tiny_config("llama3-8b"))
@@ -290,16 +302,44 @@ def test_training_entry_points_default_to_cuda(tmp_path):
 
 
 def test_autograd_wrappers_refuse_non_cuda_tensors():
-    """Under autograd the model kernels' wrappers still launch the kernel
-    (which refuses a meta tensor) and never take the plain version."""
+    """Under autograd the model kernels' wrappers never take the plain
+    version for a tensor that is not on the CPU: a ``meta`` tensor (the
+    dry run's trace) takes the kernel's stand-in, which runs no operation
+    but its output's allocation and charges the kernel's cost; the
+    kernels themselves still refuse a tensor that is not on a card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch.costs import CostCounter
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
     z = lambda *s: torch.zeros(*s, device="meta",  # noqa: E731
                                requires_grad=True)
-    calls = [lambda: rmsnorm(z(2, 3, 8), z(8)),
-             lambda: flash_attention(z(1, 5, 4, 16), z(1, 5, 2, 16),
-                                     z(1, 5, 2, 16)),
-             lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24)),
-             lambda: ssd_scan(z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4),
-                              z(1, 4, 4), chunk=4)]
-    for call in calls:
+    calls = {"rmsnorm": lambda: rmsnorm(z(2, 3, 8), z(8)),
+             "flash_attention": lambda: flash_attention(
+                 z(1, 5, 4, 16), z(1, 5, 2, 16), z(1, 5, 2, 16)),
+             "moe_gmm": lambda: moe_gmm(z(4, 2, 16), z(4, 16, 24)),
+             "ssd_scan": lambda: ssd_scan(z(1, 4, 2, 8), z(1, 4, 2), z(2),
+                                          z(1, 4, 4), z(1, 4, 4), chunk=4)}
+    for name, call in calls.items():
+        with CostCounter() as c, Ops() as ops:
+            call()
+        assert ops.names <= {"empty", "zeros", "zero_"}, (name, ops.names)
+        assert list(c.kernels) == [name]
+    kernels = [lambda: rms_kernel.rmsnorm_kernel(z(3, 8), z(8), eps=1e-5),
+               lambda: fa_kernel.flash_attention_kernel(
+                   z(1, 5, 4, 16), z(1, 5, 2, 16), z(1, 5, 2, 16),
+                   causal=True),
+               lambda: gmm_kernel.moe_gmm_kernel(z(4, 2, 16), z(4, 16, 24)),
+               lambda: ssd_kernel.ssd_scan_kernel(
+                   z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4), z(1, 4, 4),
+                   chunk=4)]
+    for call in kernels:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
